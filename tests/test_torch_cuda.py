@@ -1,0 +1,269 @@
+"""The port's CUDA kernels K1, K2 and K3 against their plain PyTorch
+versions, on the card, at small shapes and over the options that
+chip_smoke.py's one configuration does not reach: every version, liquid
+alpha overrides, batched suites with firing resets, several epoch tiles,
+the carry / epoch_offset contract, the float-sum quantize fallback and
+K1's narrower and unstaged miner tiles.
+
+Every test is marked `cuda` and takes the `cuda` fixture, which skips it
+where no CUDA device is present. The JAX package is not needed (the card's
+machine has none); run with its conftest left out:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
+
+The reference is the plain version on CPU tensors, which the CPU tests
+(tests/test_torch_*.py) hold to the JAX package. Tolerances: `c_high`
+and quantized consensus bitwise (integer-exact on both sides); dividends,
+bonds and incentives within atol 2e-6 and rtol 1e-5, the JAX package's
+fused-vs-XLA tolerance (the kernels add floats in another order than
+PyTorch's CPU sums).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from yuma_simulation_tpu_torch.models.config import (
+    SimulationHyperparameters,
+    YumaConfig,
+    YumaParams,
+)
+from yuma_simulation_tpu_torch.models.variants import canonical_versions, variant_for_version
+from yuma_simulation_tpu_torch.ops.consensus import stake_weighted_median
+from yuma_simulation_tpu_torch.ops.cuda_consensus import stake_weighted_median_cuda
+from yuma_simulation_tpu_torch.ops.cuda_epoch import fused_case_scan, fused_varying_scan
+from yuma_simulation_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+from yuma_simulation_tpu_torch.scenarios import create_case
+from yuma_simulation_tpu_torch.simulation.engine import fused_hparams, simulate
+
+pytestmark = pytest.mark.cuda
+
+ATOL, RTOL = 2e-6, 1e-5
+VERSIONS = canonical_versions()
+IDS = [name for name, _ in VERSIONS]
+# Scenario 0 resets (ALWAYS) at epoch 4; scenario 1's miner 3 loses all
+# weight from epoch 3, so the CONDITIONAL rule fires at its epoch 5.
+RESET_INDEX = np.array([2, 3, -1], np.int32)
+RESET_EPOCH = np.array([4, 5, -1], np.int32)
+# (V, M): the CPU tests' shape, and one that spans several row blocks,
+# miner tiles and row-sum chunks of the kernels.
+SHAPES = [(6, 18), (40, 300)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels build with nvcc and run only on the card")
+    return torch.device("cuda")
+
+
+def _suite(V, M, seed=0, B=3, E=10):
+    rng = np.random.default_rng(seed)
+    W = rng.random((B, E, V, M)).astype(np.float32)
+    W[W < 0.3] = 0.0
+    W[1, 3:, :, 3] = 0.0
+    S = (rng.random((B, E, V)) + 0.01).astype(np.float32)
+    return torch.tensor(W), torch.tensor(S)
+
+
+def _scan_kwargs(version, params, **extra):
+    spec = variant_for_version(version)
+    kw = fused_hparams(YumaConfig(yuma_params=params))
+    kw.update(
+        reset_index=torch.tensor(RESET_INDEX), reset_epoch=torch.tensor(RESET_EPOCH),
+        reset_mode=spec.reset_mode, mode=spec.bonds_mode,
+        save_bonds=True, save_incentives=True, save_consensus=True,
+    )
+    kw.update(extra)
+    return kw
+
+
+def _assert_matches(got: dict, ref: dict, label: str, atol=ATOL, rtol=RTOL):
+    assert set(got) == set(ref), (label, sorted(set(got) ^ set(ref)))
+    for key, r in ref.items():
+        g = got[key].cpu()
+        if key in ("consensus", "final_consensus"):
+            torch.testing.assert_close(g, r, rtol=0, atol=0, msg=lambda m: f"{label} {key}: {m}")
+        else:
+            torch.testing.assert_close(g, r, rtol=rtol, atol=atol,
+                                       msg=lambda m: f"{label} {key}: {m}")
+
+
+@pytest.mark.parametrize(
+    "lead,V,M",
+    [((), 8, 32), ((), 256, 700), ((3,), 1000, 200), ((), 4096, 160)],
+    ids=["small", "tile128", "tile32-batched", "unstaged"],
+)
+def test_k1_matches_plain_bitwise(cuda, lead, V, M):
+    """K1 at a 128-miner tile, at the 32-miner tile that a large V forces
+    (over a leading batch dim), and beyond shared memory (unstaged)."""
+    rng = np.random.default_rng(V)
+    W = rng.random(lead + (V, M)).astype(np.float32)
+    W[W < 0.5] = 0.0
+    W = W / (W.sum(-1, keepdims=True) + np.float32(1e-6))
+    S = rng.lognormal(0.0, 1.2, lead + (V,)).astype(np.float32)
+    S = S / S.sum(-1, keepdims=True)
+    W, S = torch.tensor(W), torch.tensor(S)
+    reset_launch_counts()
+    got = stake_weighted_median_cuda(W.to(cuda), S.to(cuda), 0.5)
+    torch.cuda.synchronize()
+    assert launch_counts()["consensus_bisect"] == 1
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), stake_weighted_median(W, S, 0.5), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("V,M", SHAPES, ids=[f"{v}x{m}" for v, m in SHAPES])
+@pytest.mark.parametrize("version,params", VERSIONS, ids=IDS)
+def test_scans_match_plain(cuda, version, params, V, M):
+    """K2, and K3 at tiles 2 and 5, on a batched suite with firing resets;
+    K3 also held to K2 under the varying scan's own contract: consensus and
+    incentives bitwise, dividends and bonds within 1e-6."""
+    W, S = _suite(V, M)
+    kw = _scan_kwargs(version, params, return_carry=True)
+    reset_launch_counts()
+    k2 = fused_case_scan(W.to(cuda), S.to(cuda), **kw)
+    _assert_matches(k2, fused_case_scan(W, S, **kw), f"{version} case scan")
+    for tile in (2, 5):
+        k3 = fused_varying_scan(W.to(cuda), S.to(cuda), epoch_tile=tile, **kw)
+        ref = fused_varying_scan(W, S, epoch_tile=tile, **kw)
+        _assert_matches(k3, ref, f"{version} varying scan, tile {tile}")
+        for key in ("consensus", "incentives"):
+            torch.testing.assert_close(k3[key], k2[key], rtol=0, atol=0)
+        for key in ("dividends_normalized", "bonds", "final_bonds"):
+            torch.testing.assert_close(k3[key], k2[key], rtol=0, atol=1e-6)
+    assert launch_counts() == {"consensus_bisect": 0, "case_scan": 1, "varying_scan": 2}
+
+
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "x64"])
+def test_yuma0_quantize_modes(cuda, x64):
+    """Yuma 0's quantize with the float32 dyadic denominator and with the
+    native float64 divide."""
+    W, S = _suite(40, 300, seed=1)
+    version, params = VERSIONS[0]
+    kw = _scan_kwargs(version, params, x64=x64)
+    _assert_matches(fused_case_scan(W.to(cuda), S.to(cuda), **kw),
+                    fused_case_scan(W, S, **kw), f"Yuma 0 x64={x64}")
+
+
+@pytest.mark.parametrize(
+    "overrides",
+    [
+        dict(override_consensus_high=0.05),
+        dict(override_consensus_low=0.001),
+        dict(override_consensus_high=0.05, override_consensus_low=0.001),
+        dict(override_consensus_high=0.02, override_consensus_low=0.02),
+    ],
+    ids=["high", "low", "both", "both-equal"],
+)
+def test_liquid_overrides_match_plain(cuda, overrides):
+    """The liquid-alpha regimes the kernel selects from the static
+    quantile overrides."""
+    W, S = _suite(40, 300, seed=2)
+    params = YumaParams(liquid_alpha=True, **overrides)
+    kw = _scan_kwargs("Yuma 1 (paper) - liquid alpha on", params)
+    _assert_matches(fused_case_scan(W.to(cuda), S.to(cuda), **kw),
+                    fused_case_scan(W, S, **kw), f"liquid {overrides}")
+
+
+def test_liquid_degenerate_spread_matches_plain(cuda):
+    """Only 4 of 18 miners get weight: the 0.25 and 0.75 quantiles
+    coincide and the fit falls back to the 0.99 quantile."""
+    rng = np.random.default_rng(6)
+    W = np.zeros((6, 6, 18), np.float32)
+    W[:, :, 14:] = rng.random((6, 6, 4)).astype(np.float32)
+    S = (rng.random((6, 6)) + 0.01).astype(np.float32)
+    W, S = torch.tensor(W), torch.tensor(S)
+    kw = dict(mode=variant_for_version("Yuma 1 (paper)").bonds_mode, liquid_alpha=True,
+              save_consensus=True)
+    _assert_matches(fused_case_scan(W.to(cuda), S.to(cuda), **kw),
+                    fused_case_scan(W, S, **kw), "degenerate liquid")
+
+
+@pytest.mark.parametrize(
+    "version", ["Yuma 2 (Adrian-Fish)", "Yuma 3.2 (Rhef+conditional)",
+                "Yuma 4 (Rhef+relative bonds) - liquid alpha on"],
+)
+def test_carry_continues_run(cuda, version):
+    """A run stopped after 6 epochs (return_carry) and continued from its
+    carry at epoch_offset=6 is bitwise the uninterrupted case scan, and
+    within the varying contract of it through K3."""
+    params = dict(VERSIONS)[version]
+    W, S = _suite(40, 300, seed=3)
+    W, S = W.to(cuda), S.to(cuda)
+    kw = _scan_kwargs(version, params)
+    full = fused_case_scan(W, S, **kw)
+    head = fused_case_scan(W[:, :6], S[:, :6], return_carry=True, **kw)
+    carry = {"bonds": head["final_bonds"], "consensus": head["final_consensus"]}
+    if "final_w_prev" in head:
+        carry["w_prev"] = head["final_w_prev"]
+    tail = fused_case_scan(W[:, 6:], S[:, 6:], carry=carry, epoch_offset=6, **kw)
+    for key in ("dividends_normalized", "bonds", "incentives", "consensus"):
+        torch.testing.assert_close(tail[key], full[key][:, 6:], rtol=0, atol=0)
+    var = fused_varying_scan(W[:, 6:], S[:, 6:], carry=carry, epoch_offset=6,
+                             epoch_tile=2, **kw)
+    for key in ("consensus", "incentives"):
+        torch.testing.assert_close(var[key], full[key][:, 6:], rtol=0, atol=0)
+    for key in ("dividends_normalized", "bonds"):
+        torch.testing.assert_close(var[key], full[key][:, 6:], rtol=0, atol=1e-6)
+
+
+def test_quantize_fallback_beyond_int32_grid(cuda):
+    """M * 2^iters >= 2^31 (M=32 at precision 2^26): the kernel's
+    left-to-right float denominator against the plain version's."""
+    W, S = _suite(6, 32, seed=4)
+    kw = _scan_kwargs("Yuma 1 (paper)", YumaParams(), precision=2**26)
+    _assert_matches(fused_case_scan(W.to(cuda), S.to(cuda), **kw),
+                    fused_case_scan(W, S, **kw), "quantize fallback")
+
+
+def test_scans_are_reproducible(cuda):
+    """No float atomics: two runs are bitwise the same."""
+    W, S = _suite(40, 300, seed=5)
+    kw = _scan_kwargs("Yuma 1 (paper) - liquid alpha on", YumaParams(liquid_alpha=True))
+    W, S = W.to(cuda), S.to(cuda)
+    a = fused_varying_scan(W, S, epoch_tile=5, **kw)
+    b = fused_varying_scan(W, S, epoch_tile=5, **kw)
+    for key in a:
+        torch.testing.assert_close(a[key], b[key], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize(
+    "epoch_impl,consensus_impl,engine,counter",
+    [
+        ("auto", "bisect", "fused_varying", "varying_scan"),
+        ("fused_scan", "bisect", "fused_scan", "case_scan"),
+        ("eager", "kernel", "eager", "consensus_bisect"),
+    ],
+    ids=["auto", "fused_scan", "eager-kernel"],
+)
+def test_simulate_on_card_matches_cpu(cuda, epoch_impl, consensus_impl, engine, counter):
+    """`simulate` on the card through each rung against the CPU eager rung
+    (Case 5: 40 epochs, a reset at epoch 20), with the rung's kernel
+    launched."""
+    case = create_case("Case 5")
+    config = YumaConfig(simulation=SimulationHyperparameters(bond_penalty=0.5))
+    version = "Yuma 3.1 (Rhef+reset)"
+    reset_launch_counts()
+    got = simulate(case, version, config, epoch_impl=epoch_impl,
+                   consensus_impl=consensus_impl, save_consensus=True, device=cuda)
+    counts = launch_counts()
+    assert got.engine == engine
+    assert counts[counter] == (case.num_epochs if counter == "consensus_bisect" else 1), counts
+    ref = simulate(case, version, config, epoch_impl="eager", save_consensus=True,
+                   device="cpu")
+    np.testing.assert_array_equal(got.consensus, ref.consensus)
+    for key in ("dividends", "bonds", "incentives"):
+        np.testing.assert_allclose(getattr(got, key), getattr(ref, key), atol=ATOL, rtol=RTOL)
+
+
+def test_kernels_refuse_what_they_do_not_take(cuda):
+    W, S = _suite(6, 18)
+    Wn, Sn = W[0, 0].to(cuda), (S[0, 0] / S[0, 0].sum()).to(cuda)
+    with pytest.raises(ValueError, match="float32"):
+        stake_weighted_median_cuda(Wn.double(), Sn.double(), 0.5)
+    with pytest.raises(ValueError, match="contiguous"):
+        stake_weighted_median_cuda(Wn.t(), Sn, 0.5)
+    with pytest.raises(ValueError, match="shape"):
+        stake_weighted_median_cuda(Wn, Sn[:3], 0.5)
+    with pytest.raises(ValueError, match="float32"):
+        fused_case_scan(W.to(cuda).double(), S.to(cuda).double())

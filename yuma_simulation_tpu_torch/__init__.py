@@ -1,0 +1,18 @@
+"""yuma_simulation_tpu_torch — the PyTorch/CUDA port of yuma_simulation_tpu.
+
+The same Yuma-consensus simulator, for one NVIDIA H100: plain tensor code
+in PyTorch, and the JAX package's Pallas kernels rewritten by hand in CUDA
+C++ for `sm_90a` (:mod:`.ops.cuda_consensus`, :mod:`.ops.cuda_epoch`,
+sources under `csrc/`). Entry points run on the card unless the caller
+passes `device="cpu"`; on CPU tensors every kernel wrapper runs its plain
+PyTorch version instead.
+"""
+
+__version__ = "0.1.0"
+
+from yuma_simulation_tpu_torch.models.config import (  # noqa: F401
+    SimulationHyperparameters,
+    YumaConfig,
+    YumaParams,
+    YumaSimulationNames,
+)

@@ -1,0 +1,260 @@
+"""The unified Yuma epoch: one function, a bonds-model switch.
+
+The reference implements five near-identical epoch functions (reference
+yumas.py:61-606). The shared pipeline —
+
+    row-normalize W -> normalize S -> prerank -> bisection consensus ->
+    u16 quantization -> clip -> rank / incentive / trust
+
+— is written once, and the five bonds models hang off :class:`BondsMode`.
+Inputs may carry leading batch dimensions (`W [..., V, M]`, `S [..., V]`):
+every reduction names its axis from the end, so a scenario suite runs as
+one call per epoch.
+
+Parity-critical details reproduced from the reference: epsilon placement,
+u16 truncation, the float64 quantization divide of Yuma 0 (`x64=True`),
+strict bisection comparisons, `nan_to_num` placement, the first-epoch EMA
+adoption, and Yuma 3's `2^64 - 1` capacity constant entering float32
+arithmetic.
+"""
+
+from __future__ import annotations
+
+import enum
+from typing import Optional
+
+import torch
+
+from yuma_simulation_tpu_torch.models.config import YumaConfig
+from yuma_simulation_tpu_torch.ops.consensus import (
+    bisection_iterations,
+    quantize_u16,
+    stake_weighted_median,
+    stake_weighted_median_sorted,
+)
+from yuma_simulation_tpu_torch.ops.liquid import liquid_alpha_rate
+from yuma_simulation_tpu_torch.ops.normalize import (
+    miner_sum,
+    normalize_stake,
+    normalize_weight_rows,
+)
+
+MAXINT = float(2**64 - 1)
+
+
+class BondsMode(enum.Enum):
+    """The five bonds models behind the nine named versions."""
+
+    EMA_RUST = "ema_rust"  # Yuma 0: col-norm bonds w/ eps, EMA re-normalized
+    EMA = "ema"  # Yuma 1: blended-weight bonds, plain EMA
+    EMA_PREV = "ema_prev"  # Yuma 2: clip & bond against previous weights
+    CAPACITY = "capacity"  # Yuma 3.x: stake-capacity bond purchases
+    RELATIVE = "relative"  # Yuma 4: per-(validator, miner) bonds in [0, 1]
+
+
+EMA_MODES = (BondsMode.EMA_RUST, BondsMode.EMA, BondsMode.EMA_PREV)
+
+
+def _scalar(x, like: torch.Tensor) -> torch.Tensor:
+    """A config value (Python float or 0-d tensor) as a 0-d tensor of
+    `like`'s dtype and device."""
+    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+
+
+def _per_lane(x, like: torch.Tensor) -> torch.Tensor:
+    """A config value or `[..., M]` rate broadcast against `[..., V, M]`."""
+    t = torch.as_tensor(x, dtype=like.dtype, device=like.device)
+    return t.unsqueeze(-2) if t.ndim else t
+
+
+def ema_bonds_target(S_n, W_n, clip_base, W_clipped, config, bonds_mode):
+    """The EMA families' purchase target: column-normalized stake-weighted
+    (blended) bonds (reference yumas.py:113-116, 227-229, 341-343).
+    Returns `(B_target, weight_for_bond_or_None)`."""
+    S_col = S_n.unsqueeze(-1)
+    if bonds_mode is BondsMode.EMA_RUST:
+        B = S_col * W_clipped
+        B = B / (B.sum(dim=-2, keepdim=True) + 1e-6)
+        return torch.nan_to_num(B), None
+    beta = _scalar(config.bond_penalty, W_n)
+    bond_base = W_n if bonds_mode is BondsMode.EMA else clip_base
+    W_b = (1.0 - beta) * bond_base + beta * W_clipped
+    B = S_col * W_b
+    B = B / B.sum(dim=-2, keepdim=True)  # no epsilon here (yumas.py:228,342)
+    return torch.nan_to_num(B), W_b
+
+
+def ema_bonds_update(B_target, B_old, rate, first_epoch, renormalize: bool):
+    """EMA toward the target; the first epoch adopts the target outright
+    (yumas.py:145), as a select; Yuma 0 re-normalizes (yumas.py:147-149)."""
+    if B_old is None:
+        B_ema = B_target
+    else:
+        ema = rate * B_target + (1.0 - rate) * B_old
+        if first_epoch is None:
+            B_ema = ema
+        else:
+            first = torch.as_tensor(first_epoch, device=ema.device)
+            B_ema = torch.where(first, B_target, ema)
+    if renormalize:
+        B_ema = torch.nan_to_num(B_ema / (B_ema.sum(dim=-2, keepdim=True) + 1e-6))
+    return B_ema
+
+
+def capacity_bonds_update(B_prev, W_n, S_n, config):
+    """Yuma 3.x stake-capacity bond purchase (reference yumas.py:455-472)."""
+    maxint = torch.tensor(MAXINT, dtype=W_n.dtype, device=W_n.device)
+    capacity = S_n * maxint
+    capacity_per_bond = S_n.unsqueeze(-1) * maxint
+    remaining = torch.clamp(capacity_per_bond - B_prev, min=0.0)
+    cap_alpha = (_scalar(config.capacity_alpha, W_n) * capacity).unsqueeze(-1)
+    purchase = torch.minimum(cap_alpha, remaining) * W_n
+    B = (1.0 - _scalar(config.decay_rate, W_n)) * B_prev + purchase
+    return torch.minimum(B, capacity_per_bond)
+
+
+def relative_bonds_update(B_prev, W_n, rate):
+    """Yuma 4 relative bonds in [0, 1] (reference yumas.py:574-586)."""
+    B_decayed = B_prev * (1.0 - rate)
+    remaining = torch.clamp(1.0 - B_decayed, min=0.0)
+    purchase = torch.minimum(rate * W_n, remaining)
+    return torch.clamp(B_decayed + purchase, max=1.0)
+
+
+def yuma_epoch(
+    W: torch.Tensor,
+    S: torch.Tensor,
+    B_old: Optional[torch.Tensor] = None,
+    config: Optional[YumaConfig] = None,
+    *,
+    bonds_mode: BondsMode = BondsMode.EMA,
+    W_prev: Optional[torch.Tensor] = None,
+    first_epoch=None,
+    consensus_impl: str = "bisect",
+    x64: bool = False,
+) -> dict:
+    """One consensus epoch. Returns the reference's named-output dict.
+
+    Args:
+      W: raw validator->miner weights `[..., V, M]`.
+      S: raw stake `[..., V]`.
+      B_old: carried bond state `[..., V, M]`, or None on the first epoch.
+      config: hyperparameters; float fields may be Python floats or 0-d
+        tensors (the engine passes tensors, as JAX's jitted engine traces
+        its config).
+      bonds_mode: the variant switch.
+      W_prev: previous epoch's normalized weights (EMA_PREV only); None
+        means "use this epoch's weights" (reference yumas.py:299-300).
+      first_epoch: a bool (or bool tensor) selecting the fresh-bond branch
+        of the EMA modes when `B_old` is always a tensor; None derives it
+        from `B_old is None`.
+      consensus_impl: "bisect" (default), "sorted" (closed form, identical
+        values) or "kernel" (the CUDA bisection kernel on CUDA tensors, its
+        plain version on CPU tensors; identical values).
+      x64: run Yuma 0's quantization divide in float64 (reference
+        yumas.py:81,97), as the JAX package does under `jax_enable_x64`.
+    """
+    config = config if config is not None else YumaConfig()
+    dtype = W.dtype
+
+    W_n = normalize_weight_rows(W)
+    S_n = normalize_stake(torch.as_tensor(S, dtype=dtype, device=W.device))
+
+    # Prerank: stake-weighted column sums of the un-clipped weights.
+    P = (S_n.unsqueeze(-1) * W_n).sum(dim=-2)
+
+    kappa = config.kappa
+    if consensus_impl == "sorted":
+        C_raw = stake_weighted_median_sorted(
+            W_n, S_n, kappa, config.consensus_precision
+        )
+    elif consensus_impl == "kernel":
+        from yuma_simulation_tpu_torch.ops.cuda_consensus import (
+            stake_weighted_median_cuda,
+        )
+
+        C_raw = stake_weighted_median_cuda(
+            W_n, S_n, kappa, config.consensus_precision
+        )
+    elif consensus_impl == "bisect":
+        C_raw = stake_weighted_median(W_n, S_n, kappa, config.consensus_precision)
+    else:
+        raise ValueError(f"unknown consensus_impl {consensus_impl!r}")
+    rust64 = bonds_mode is BondsMode.EMA_RUST and x64
+    C = quantize_u16(
+        C_raw,
+        sum_dtype=torch.float64 if rust64 else None,
+        out_dtype=dtype,
+        grid_bits=bisection_iterations(config.consensus_precision),
+    )
+
+    # Clip, rank, incentive, trust.
+    clip_base = W_n
+    if bonds_mode is BondsMode.EMA_PREV and W_prev is not None:
+        clip_base = W_prev
+    W_clipped = torch.minimum(clip_base, C.unsqueeze(-2))
+    R = (S_n.unsqueeze(-1) * W_clipped).sum(dim=-2)
+    incentive = torch.nan_to_num(R / miner_sum(R, keepdim=True))
+    T = torch.nan_to_num(R / P)
+    T_v = miner_sum(W_clipped) / miner_sum(W_n)
+
+    out = {
+        "weight": W_n,
+        "stake": S_n,
+        "server_prerank": P,
+        "server_consensus_weight": C,
+        "consensus_clipped_weight": W_clipped,
+        "server_rank": R,
+        "server_incentive": incentive,
+    }
+
+    nan = torch.tensor(float("nan"), dtype=dtype, device=W.device)
+    a = b = nan
+    bond_alpha = torch.as_tensor(config.bond_alpha, dtype=dtype, device=W.device)
+    if config.liquid_alpha and bonds_mode is not BondsMode.CAPACITY:
+        bond_alpha, a, b = liquid_alpha_rate(
+            C,
+            config.alpha_low,
+            config.alpha_high,
+            override_consensus_high=config.override_consensus_high,
+            override_consensus_low=config.override_consensus_low,
+        )
+    rate_vm = _per_lane(bond_alpha, W_n)
+
+    if bonds_mode in EMA_MODES:
+        B, W_b = ema_bonds_target(S_n, W_n, clip_base, W_clipped, config, bonds_mode)
+        if W_b is not None:
+            out["weight_for_bond"] = W_b
+        B_ema = ema_bonds_update(
+            B,
+            B_old,
+            rate_vm,
+            first_epoch,
+            renormalize=bonds_mode is BondsMode.EMA_RUST,
+        )
+        D = miner_sum(B_ema * incentive.unsqueeze(-2))
+        out.update(
+            server_trust=T,
+            validator_trust=T_v,
+            validator_bond=B,
+            validator_ema_bond=B_ema,
+            bond_alpha=bond_alpha,
+            alpha_a=a,
+            alpha_b=b,
+        )
+    elif bonds_mode is BondsMode.CAPACITY:
+        B_prev = torch.zeros_like(W_n) if B_old is None else B_old
+        B = capacity_bonds_update(B_prev, W_n, S_n, config)
+        D = miner_sum(B * incentive.unsqueeze(-2))
+        out.update(server_trust=T, validator_trust=T_v, validator_bonds=B)
+    elif bonds_mode is BondsMode.RELATIVE:
+        B_prev = torch.zeros_like(W_n) if B_old is None else B_old
+        B = relative_bonds_update(B_prev, W_n, rate_vm)
+        D = S_n * miner_sum(B * incentive.unsqueeze(-2))
+        out["validator_bonds"] = B
+    else:  # pragma: no cover
+        raise ValueError(f"unknown bonds mode: {bonds_mode}")
+
+    out["validator_reward"] = D
+    out["validator_reward_normalized"] = D / (D.sum(dim=-1, keepdim=True) + 1e-6)
+    return out

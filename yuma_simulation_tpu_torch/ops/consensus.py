@@ -1,0 +1,255 @@
+"""Stake-weighted-median consensus, vectorized over the whole weight matrix.
+
+The reference computes consensus with a per-miner Python `while`
+bisection (reference yumas.py:83-95). Here the bisection runs as a fixed
+number of whole-array halvings: `ceil(log2(precision))` of them (17 at the
+default precision of 100 000), each evaluating the stake support of every
+miner at once. Every midpoint is a dyadic rational `k/2^17`, exact in
+float32, and both comparisons are strict `>` as in the reference.
+
+The support test runs on canonical fixed-point integers
+(:func:`support_fixed_stakes`): integer addition is exact and
+order-independent, so the strict `support > kappa` decision cannot depend
+on any engine's reduction order. That is what lets the CUDA kernels agree
+bitwise with these functions whatever their thread layout.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from yuma_simulation_tpu_torch.ops.normalize import miner_sum
+
+#: Fixed-point bits of the canonical support test. 2^30 keeps the sum of
+#: normalized stakes (<= ~1 + V/2^31) inside int32.
+SUPPORT_FIXED_BITS = 30
+
+#: Above this many `V x M` cells the shape-gated default is "bisect" (the
+#: JAX package's compile-time gate; kept so "auto" resolves the same way).
+SORTED_COMPILE_PATHOLOGY_CELLS = 512 * 8192
+
+
+def bisection_iterations(precision: int) -> int:
+    """Halvings of [0, 1] until the interval width is <= 1/precision."""
+    return int(math.ceil(math.log2(precision)))
+
+
+#: float32(1/65535). The u16 grid value `k / 65535` is computed as
+#: `k * U16_INV`: XLA compiles the JAX package's divide by the constant
+#: 65535 into this multiply (its jitted engines and Pallas kernels round
+#: so), and the port's kernels and plain versions spell it the same way,
+#: so quantized consensus is bitwise the JAX engines' on every device.
+U16_INV = float(np.float32(1.0) / np.float32(65535.0))
+
+
+def support_fixed_stakes(S: torch.Tensor) -> torch.Tensor:
+    """Canonical fixed-point stake encoding `round(S * 2^30)` as int32
+    (half to even). Precondition: `S` normalized. `S * 2^30` is an exact
+    exponent shift, so the encoding is deterministic on every backend."""
+    return torch.round(S * float(2**SUPPORT_FIXED_BITS)).to(torch.int32)
+
+
+def support_rounded(support_int: torch.Tensor, dtype) -> torch.Tensor:
+    """The support value the strict kappa comparison sees: the exact
+    integer sum rounded once to `dtype`, then an exact exponent shift. The
+    final rounding reproduces the reference's float support tensor."""
+    return support_int.to(dtype) * (2.0**-SUPPORT_FIXED_BITS)
+
+
+def dyadic_grid_fits_int32(count: int, grid_bits: int) -> bool:
+    """Whether `count` dyadic grid values `k * 2^-grid_bits` can be summed
+    exactly in int32."""
+    return (count << grid_bits) < 2**31
+
+
+def dyadic_grid_denom(C: torch.Tensor, grid_bits: int) -> torch.Tensor:
+    """Exact last-axis sum of dyadic grid values `k * 2^-grid_bits`,
+    rounded once to `C.dtype` (keepdim). The integer sum is
+    order-independent."""
+    k = torch.round(C * float(2**grid_bits)).to(torch.int32)
+    K = k.sum(dim=-1, keepdim=True, dtype=torch.int64)
+    return K.to(C.dtype) * (2.0**-grid_bits)
+
+
+def default_consensus_impl(num_validators: int, num_miners: int) -> str:
+    """"sorted" below the shape threshold, "bisect" at or above it."""
+    cells = num_validators * num_miners
+    return "sorted" if cells < SORTED_COMPILE_PATHOLOGY_CELLS else "bisect"
+
+
+def resolve_consensus_impl(
+    consensus_impl: str, num_validators: int, num_miners: int
+) -> str:
+    """"auto" becomes the shape-gated default; "sorted", "bisect" and
+    "kernel" (the CUDA bisection kernel) pass through; anything else
+    raises."""
+    if consensus_impl == "auto":
+        return default_consensus_impl(num_validators, num_miners)
+    if consensus_impl not in ("sorted", "bisect", "kernel"):
+        raise ValueError(
+            f"unknown consensus_impl {consensus_impl!r}; "
+            "expected 'auto', 'sorted', 'bisect' or 'kernel'"
+        )
+    return consensus_impl
+
+
+def _kappa_like(kappa, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(kappa, dtype=like.dtype, device=like.device)
+
+
+def stake_weighted_median(
+    W: torch.Tensor,
+    S: torch.Tensor,
+    kappa,
+    precision: int = 100_000,
+) -> torch.Tensor:
+    """Per-miner consensus weight via vectorized bisection.
+
+    Args:
+      W: row-normalized weights `[..., V, M]`.
+      S: normalized stake `[..., V]`.
+      kappa: consensus threshold (scalar or `[...]`).
+      precision: the reference's `consensus_precision`.
+
+    Returns the bisection's final `c_high` per miner `[..., M]`.
+    """
+    iters = bisection_iterations(precision)
+    dtype = W.dtype
+    batch_m = W.shape[:-2] + W.shape[-1:]
+    S_int = support_fixed_stakes(S).unsqueeze(-1)  # [..., V, 1]
+    kappa = _kappa_like(kappa, W)
+    if kappa.ndim:
+        kappa = kappa.unsqueeze(-1)
+    zero = torch.zeros((), dtype=torch.int32, device=W.device)
+    c_lo = torch.zeros(batch_m, dtype=dtype, device=W.device)
+    c_hi = torch.ones(batch_m, dtype=dtype, device=W.device)
+    for _ in range(iters):
+        c_mid = (c_hi + c_lo) * 0.5
+        support = torch.where(W > c_mid.unsqueeze(-2), S_int, zero).sum(
+            dim=-2, dtype=torch.int64
+        )
+        above = support_rounded(support, dtype) > kappa
+        c_lo, c_hi = torch.where(above, c_mid, c_lo), torch.where(above, c_hi, c_mid)
+    return c_hi
+
+
+def quantize_u16(
+    C: torch.Tensor,
+    *,
+    sum_dtype: Optional[torch.dtype] = None,
+    out_dtype: torch.dtype = torch.float32,
+    grid_bits: Optional[int] = None,
+) -> torch.Tensor:
+    """Sum-normalize C and truncate onto the u16 grid:
+    `(C / C.sum() * 65535).int() / 65535` (reference yumas.py:97), with
+    truncation toward zero (the final divide as a multiply by
+    :data:`U16_INV`, as XLA compiles it). `sum_dtype=torch.float64` runs the normalizing
+    divide in float64 (Yuma 0, reference yumas.py:81). With `grid_bits`
+    (every C is a grid point `k * 2^-grid_bits`) the float32 denominator is
+    the exact integer sum of the `k`; beyond the int32 bound it falls back
+    to :func:`miner_sum`."""
+    if sum_dtype is not None:
+        C = C.to(sum_dtype)
+    if (
+        grid_bits is not None
+        and sum_dtype is None
+        and dyadic_grid_fits_int32(C.shape[-1], grid_bits)
+    ):
+        denom = dyadic_grid_denom(C, grid_bits)
+    else:
+        denom = miner_sum(C, keepdim=True)
+    scaled = C / denom * 65535.0
+    return scaled.to(torch.int32).to(out_dtype) * U16_INV
+
+
+def consensus_weights(
+    W: torch.Tensor,
+    S: torch.Tensor,
+    kappa,
+    precision: int = 100_000,
+    *,
+    sum_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Bisection consensus followed by u16 quantization (the full C stage)."""
+    C = stake_weighted_median(W, S, kappa, precision)
+    return quantize_u16(
+        C,
+        sum_dtype=sum_dtype,
+        out_dtype=W.dtype,
+        grid_bits=bisection_iterations(precision),
+    )
+
+
+def stake_weighted_median_sorted(
+    W: torch.Tensor,
+    S: torch.Tensor,
+    kappa,
+    precision: int = 100_000,
+) -> torch.Tensor:
+    """Exact closed-form consensus via a per-column sort; values identical
+    to :func:`stake_weighted_median`.
+
+    The bisection converges to the unique grid point `g = k/2^p` with
+    strict stake support `<= kappa` at `g` and `> kappa` at `g - 2^-p`.
+    The support is a non-increasing step function whose breakpoints are
+    the weights, so the answer is the smallest weight `w*` whose support
+    is `<= kappa`, rounded up to the grid — or `2^-p` when the stake on
+    strictly positive weights never exceeds kappa.
+    """
+    iters = bisection_iterations(precision)
+    scale = float(2**iters)
+    dtype = W.dtype
+    kappa = _kappa_like(kappa, W)
+    batched_kappa = kappa.ndim > 0
+    kap = kappa[..., None, None] if batched_kappa else kappa
+
+    # Each miner column sorted by weight, descending; the stable sort
+    # carries the fixed-point stakes along, so the cumulative support is
+    # the exact integer sum.
+    S_int = support_fixed_stakes(S)
+    Wt = W.transpose(-1, -2)  # [..., M, V]
+    St = S_int.unsqueeze(-2).expand(Wt.shape)
+    w_neg, order = torch.sort(-Wt, dim=-1, stable=True)
+    s_sorted = torch.gather(St, -1, order).to(torch.int64)
+    w_sorted = -w_neg
+    # Strict support at w_sorted[k] = stake on strictly greater weights;
+    # tied entries share the support of the first element of their run,
+    # forward-filled by a running max.
+    excl = torch.cumsum(s_sorted, dim=-1) - s_sorted
+    first_of_run = torch.cat(
+        [
+            torch.ones_like(w_sorted[..., :1], dtype=torch.bool),
+            w_sorted[..., 1:] != w_sorted[..., :-1],
+        ],
+        dim=-1,
+    )
+    run_support = torch.where(
+        first_of_run, excl, torch.full_like(excl, torch.iinfo(torch.int64).min)
+    )
+    support_at = torch.cummax(run_support, dim=-1).values
+    qualifies = support_rounded(support_at, dtype) <= kap
+    inf = torch.full_like(w_sorted, math.inf)
+    w_star = torch.where(qualifies, w_sorted, inf).amin(dim=-1)
+
+    # Round w* up to the grid: the smallest of {k-1, k, k+1} whose exact
+    # grid value is >= w*.
+    k = torch.floor(w_star * scale)
+    cand = torch.stack([k - 1, k, k + 1], dim=-1)
+    grid = (cand / scale).to(dtype)
+    ok = grid >= w_star.unsqueeze(-1)
+    g = torch.where(ok, grid, torch.full_like(grid, math.inf)).amin(dim=-1)
+
+    # The support(0+) <= kappa regime: c_high bottoms out at 2^-p.
+    zero = torch.zeros((), dtype=torch.int64, device=W.device)
+    support0 = torch.where(W > 0, S_int.unsqueeze(-1).to(torch.int64), zero).sum(-2)
+    kap0 = kappa.unsqueeze(-1) if batched_kappa else kappa
+    floor_c = torch.full_like(g, 1.0 / scale)
+    return torch.where(
+        support_rounded(support0, dtype) > kap0,
+        torch.maximum(g, floor_c),
+        floor_c,
+    ).to(dtype)

@@ -1,0 +1,103 @@
+"""Liquid-alpha: consensus-dependent per-miner bond EMA rates.
+
+Fits a logistic between the 0.25/0.75 consensus quantiles (with overrides
+and a degenerate-quantile fallback to the 0.99 quantile) and maps each
+miner's consensus weight to an EMA rate in `[1-alpha_high, 1-alpha_low]`
+(reference yumas.py:118-140).
+
+Parity notes, as in the JAX package:
+- with Python-float bounds the logits are Python `math.log` values; with
+  tensor bounds (the engine passes 0-d tensors, as JAX's jitted engine
+  traces its config) they are float32 `log`s;
+- the logistic is `e ** (-a*C + b)` (a power with base `math.e`), not `exp`;
+- the quantile is linear interpolation `v_lo*(1-frac) + v_hi*frac` at
+  position `q*(n-1)` computed in the working dtype.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+
+def _logit(x) -> float:
+    return math.log(1.0 / x - 1.0)
+
+
+def _quantile(C: torch.Tensor, q: float) -> torch.Tensor:
+    """Linear-interpolation quantile over the last axis."""
+    dtype = C.dtype
+    s = torch.sort(C, dim=-1).values
+    n = float(C.shape[-1])
+    p = torch.tensor(q, dtype=dtype, device=C.device) * (n - 1.0)
+    lo = torch.floor(p).to(torch.int64)
+    hi = torch.ceil(p).to(torch.int64)
+    frac = p - lo.to(dtype)
+    v_lo = s[..., lo]
+    v_hi = s[..., hi]
+    return v_lo * (1.0 - frac) + v_hi * frac
+
+
+def _as(x, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+
+
+def liquid_alpha_rate(
+    C: torch.Tensor,
+    alpha_low,
+    alpha_high,
+    *,
+    override_consensus_high: Optional[float] = None,
+    override_consensus_low: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-miner EMA rate from quantized consensus `[..., M]`.
+
+    Returns `(bond_alpha [..., M], a, b)`, `a`/`b` the fitted logistic
+    coefficients (0-d, or `[...]` when batched).
+    """
+    dtype = C.dtype
+    # Degenerate spread falls back to the 0.99 quantile (yumas.py:132-133),
+    # checked after the overrides are substituted; with BOTH overridden the
+    # reference compares two Python floats, decided here statically.
+    if override_consensus_high is not None and override_consensus_low is not None:
+        c_low = _as(override_consensus_low, C)
+        c_high = (
+            _quantile(C, 0.99)
+            if override_consensus_high == override_consensus_low
+            else _as(override_consensus_high, C)
+        )
+    else:
+        if override_consensus_high is not None:
+            c_high = _as(override_consensus_high, C)
+        else:
+            c_high = _quantile(C, 0.75)
+        if override_consensus_low is not None:
+            c_low = _as(override_consensus_low, C)
+        else:
+            c_low = _quantile(C, 0.25)
+        c_high = torch.where(c_high == c_low, _quantile(C, 0.99), c_high)
+
+    if isinstance(alpha_high, (int, float)) and isinstance(alpha_low, (int, float)):
+        num = _as(_logit(alpha_high) - _logit(alpha_low), C)
+        logit_low = _logit(alpha_low)
+    else:
+        alpha_high = _as(alpha_high, C)
+        alpha_low = _as(alpha_low, C)
+        one = _as(1.0, C)
+        logit_high = torch.log(one / alpha_high - 1.0)
+        logit_low = torch.log(one / alpha_low - 1.0)
+        num = logit_high - logit_low
+
+    a = num / (c_low - c_high)
+    b = logit_low + a * c_low
+    if a.ndim:
+        a_b, b_b = a.unsqueeze(-1), b.unsqueeze(-1)
+    else:
+        a_b, b_b = a, b
+    alpha = _as(1.0, C) / (1.0 + torch.pow(_as(math.e, C), -a_b * C + b_b))
+    lo = _as(alpha_low, C)
+    hi = _as(alpha_high, C)
+    bond_alpha = 1.0 - torch.minimum(torch.maximum(alpha, lo), hi)
+    return bond_alpha.to(dtype), a, b

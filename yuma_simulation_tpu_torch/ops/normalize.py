@@ -1,0 +1,63 @@
+"""Row/column normalizations with the reference's exact epsilon conventions.
+
+- weight rows are normalized with a `+1e-6` denominator guard
+  (reference yumas.py:72,186,297,411,505);
+- stake is normalized with a bare sum, no epsilon (yumas.py:75,189,303,414,508).
+
+All functions broadcast over leading batch dimensions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+WEIGHT_EPS = 1e-6
+
+#: Fixed block count of the miner-axis sum (see :func:`miner_sum`).
+SUM_BLOCKS = 8
+
+
+def sequential_sum(x: torch.Tensor, dim: int = -1, keepdim: bool = False) -> torch.Tensor:
+    """Sum along `dim` added strictly left to right, from 0.
+
+    The order is part of the result: float addition is not associative,
+    and a sum that feeds the consensus (row and stake normalization) can
+    move a normalized weight by one ulp and so flip a bisection outcome.
+    XLA's CPU backend reduces short rows in this order, and the port's CUDA
+    kernels add in it too, so the JAX package, the port's plain versions
+    and its kernels normalize bitwise alike. (PyTorch's own `sum` uses
+    several accumulators and differs in the last ulp for most rows.)"""
+    x = x.movedim(dim, -1)
+    acc = torch.zeros_like(x[..., 0])
+    for i in range(x.shape[-1]):
+        acc = acc + x[..., i]
+    return acc.unsqueeze(dim) if keepdim else acc
+
+
+def miner_sum(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    """Sum over the last (miner) axis, spelled with a fixed structure: 8
+    blocks reduced independently, then combined by an explicit sequential
+    add chain — the JAX package's eager-rung spelling (it makes a
+    miner-sharded run add in the same order as an unsharded one), kept so
+    the port's eager rung adds as that rung does. Small or non-8-divisible
+    miner counts keep a single reduce (every built-in case is M=2). Each
+    reduce runs left to right (:func:`sequential_sum`)."""
+    M = x.shape[-1]
+    if M % SUM_BLOCKS or M < 2 * SUM_BLOCKS:
+        return sequential_sum(x, -1, keepdim)
+    part = sequential_sum(x.reshape(x.shape[:-1] + (SUM_BLOCKS, M // SUM_BLOCKS)), -1)
+    total = part[..., 0]
+    for i in range(1, SUM_BLOCKS):
+        total = total + part[..., i]
+    return total.unsqueeze(-1) if keepdim else total
+
+
+def normalize_weight_rows(W: torch.Tensor, eps: float = WEIGHT_EPS) -> torch.Tensor:
+    """Normalize each validator's weight row `[..., V, M]` to sum to ~1;
+    all-zero rows map to zero rows."""
+    return W / (miner_sum(W, keepdim=True) + eps)
+
+
+def normalize_stake(S: torch.Tensor) -> torch.Tensor:
+    """Normalize the stake vector `[..., V]` to sum to 1 (no epsilon)."""
+    return S / sequential_sum(S, -1, keepdim=True)
