@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (yuma_simulation_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # one GPU, about a minute and a half
+    python3 chip_smoke.py            # one GPU, about 75 seconds
 
-Builds the CUDA kernels from `yuma_simulation_tpu_torch/csrc` (nvcc, on
-first use), then:
+Builds the CUDA kernels from `yuma_simulation_tpu_torch/csrc` (nvcc, one
+process per source, on first use), then:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. holds K1 (consensus bisection) against its plain PyTorch version at
@@ -21,9 +21,25 @@ first use), then:
 5. runs the reference surface: `simulate_batch` over the 14 built-in cases
    x 9 versions at beta=1.0 through `auto`, held to the golden CSV within
    1.5e-6;
-6. prints one `{"kernels": [...]}` line (launches, max |kernel - plain|,
-   kernel and plain times from CUDA events, the roofline bound), the card
-   line, and last `{"ok": true, "device": {...}}`.
+6. holds K4 (the bisection's support on the tensor cores) against its
+   plain version at 256 x 4096 bitwise, and K2, K3 and K5 with `mxu=True`
+   against `mxu=False` at 256 x 4096 x 16 epochs for the five bond models,
+   bitwise on every output;
+7. holds K5 (the scaled scan) against its plain version at 256 x 4096,
+   16 epochs of `W * scales[e]`, for the five bond models and batched
+   (Bb=4), and K6 (one fused epoch) against its plain version for EMA,
+   EMA_RUST and EMA_PREV with a clip base, first epoch and later, and with
+   `m_real < M`: within atol 2e-6 / rtol 1e-5;
+8. drives the second main path, the scaled throughput path, through the
+   entry points with the launch counts zeroed before and read after each:
+   `simulate_scaled` with default arguments (auto) over 512 epochs at
+   256 x 4096, `simulate_scaled_batch` (B=4), `simulate_scaled(epoch_impl=
+   "fused_scan_mxu")`, `simulate_scaled(epoch_impl="fused")` over 16 epochs
+   (K6 16 times) and `simulate_constant` both ways over 64 epochs;
+9. prints one `{"kernels": [...]}` line for K1-K6 (launches on the main
+   paths, max |kernel - plain|, kernel and plain times from CUDA events,
+   the roofline bound, and a library call's time where one exists), the
+   card line, and last `{"ok": true, "device": {...}}`.
 
 Any failure raises and exits non-zero. Without CUDA it exits 2 and prints
 no result. The numbers and a per-kernel profile table are also written
@@ -47,6 +63,16 @@ V, M, E = 256, 4096, 64
 #: compare-adds are counted (the data sheet gives no int32 vector rate).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+#: Dense int8 tensor-core rate (K4's contraction).
+PEAK_INT8_OPS_PER_S = 1979e12
+#: Elementwise operations per [V, M] cell per epoch outside the bisection
+#: (Yuma 1): the row normalization (scale, add, divide), the clip (min),
+#: the rank (multiply, add), the bond target (min, two multiplies, add,
+#: multiply), its column sum and divide, the EMA (two multiplies, add),
+#: and the dividend (multiply, add).
+ELEMENTWISE_OPS = 18
+#: The bisection: 17 halvings of a compare and an add per cell.
+BISECT_OPS = 17 * 2
 VERSIONS = [
     ("Yuma 0 (subtensor)", {}),
     ("Yuma 1 (paper) - liquid alpha on", dict(liquid_alpha=True)),
@@ -90,8 +116,12 @@ def workload(seed: int, E: int, nnz: int = 48, strong: int = 64):
     return W, S, int(np.argmin(quality))
 
 
-def bound_ms(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S
+def bound_ms(nbytes: float, ops: float, int8_ops: float = 0.0):
+    """max(bytes / HBM rate, operations / their peak rate) in ms, and which
+    of the two binds; `ops` at the float32 vector rate, `int8_ops` at the
+    int8 tensor-core rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S + int8_ops / PEAK_INT8_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -128,6 +158,260 @@ def check_equal(label, got, ref):
         raise AssertionError(f"{label}: {bad} of {got.numel()} values differ")
 
 
+def k4_phase(torch, dev, W, S, measured, errs):
+    """K4 against its plain version at 256 x 4096, bitwise; K2, K3 and K5
+    with mxu against their VPU spellings at 256 x 4096 x 16, bitwise; the
+    time of torch._int_mm on one halving's contraction as the library
+    yardstick."""
+    from yuma_simulation_tpu_torch.models.config import YumaConfig, YumaParams
+    from yuma_simulation_tpu_torch.models.variants import variant_for_version
+    from yuma_simulation_tpu_torch.ops.consensus import (
+        stake_weighted_median,
+        support_fixed_stakes,
+    )
+    from yuma_simulation_tpu_torch.ops.cuda_consensus import stake_weighted_median_cuda
+    from yuma_simulation_tpu_torch.ops.cuda_epoch import (
+        fused_case_scan,
+        fused_ema_scan,
+        fused_varying_scan,
+    )
+    from yuma_simulation_tpu_torch.simulation.engine import fused_hparams
+
+    Wn = (W[0] / (W[0].sum(-1, keepdim=True) + 1e-6)).contiguous()
+    Sn = (S[0] / S[0].sum()).contiguous()
+    got = stake_weighted_median_cuda(Wn, Sn, 0.5, mma=True)
+    plain = stake_weighted_median(Wn, Sn, 0.5, mxu=True)
+    vpu = stake_weighted_median(Wn, Sn, 0.5)
+    torch.cuda.synchronize()
+    check_equal("K4 c_high vs its plain version", got, plain)
+    check_equal("K4 c_high vs the masked integer sum", got, vpu)
+    rec = dict(
+        max_abs_err=max_err(got, plain),
+        ms=cuda_ms(torch, lambda: stake_weighted_median_cuda(Wn, Sn, 0.5, mma=True), 50),
+        plain_ms=cuda_ms(torch, lambda: stake_weighted_median(Wn, Sn, 0.5, mxu=True), 5),
+        library_ms=None,
+    )
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        4 * (V * M + V + M), 17 * V * M, int8_ops=17 * 2 * 4 * V * M
+    )
+    # One halving's contraction as one library call: int8 limbs must stay
+    # below 128, so S_int < 2^31 takes five 7-bit limbs, padded to the 32
+    # rows torch._int_mm asks for.
+    s_int = support_fixed_stakes(Sn)
+    limbs = torch.zeros((32, V), dtype=torch.int8, device=dev)
+    for j in range(5):
+        limbs[j] = ((s_int >> (7 * j)) & 127).to(torch.int8)
+    mask = (Wn > 0.5 * got.unsqueeze(0)).to(torch.int8).contiguous()
+    try:
+        torch._int_mm(limbs, mask)
+        rec["library_ms"] = cuda_ms(torch, lambda: torch._int_mm(limbs, mask), 50)
+    except RuntimeError as exc:  # the library call refuses these shapes
+        rec["library_none_reason"] = f"torch._int_mm([32, {V}] x [{V}, {M}]): {exc}"[:300]
+    measured["support_mma"] = rec
+    print(f"K4 ok: bitwise; {rec}", flush=True)
+
+    Wc, Sc = W[:16].contiguous(), S[:16].contiguous()
+    scales = 1.0 + 1e-7 * torch.arange(16, dtype=torch.float32, device=dev)
+    for version, params in VERSIONS:
+        spec = variant_for_version(version)
+        hp = fused_hparams(YumaConfig(yuma_params=YumaParams(**params)))
+        x64 = spec.bonds_mode.value == "ema_rust"
+        kw = dict(mode=spec.bonds_mode, x64=x64, **hp)
+        scan_kw = dict(kw, save_bonds=True, save_incentives=True, save_consensus=True,
+                       reset_mode=spec.reset_mode, reset_index=0, reset_epoch=8)
+        pairs = [
+            ("case_scan", lambda mxu: fused_case_scan(Wc, Sc, mxu=mxu, **scan_kw)),
+            ("varying_scan",
+             lambda mxu: fused_varying_scan(Wc, Sc, epoch_tile=16, mxu=mxu, **scan_kw)),
+            ("ema_scan", lambda mxu: dict(zip(
+                ("final_bonds", "dividends_total"),
+                fused_ema_scan(Wc[0], Sn, scales, mxu=mxu, **kw)))),
+        ]
+        for name, run in pairs:
+            a, b = run(False), run(True)
+            torch.cuda.synchronize()
+            assert set(a) == set(b), name
+            for key in a:
+                check_equal(f"{name} mxu {version} {key}", b[key], a[key])
+        print(f"K2/K3/K5 mxu ok: {version}, bitwise on every output", flush=True)
+    errs["support_mma"] = rec["max_abs_err"]
+
+
+def scaled_phases(torch, dev, measured, launches, report):
+    """K5 and K6 against their plain versions, then the scaled throughput
+    path through its entry points."""
+    from yuma_simulation_tpu_torch.models.config import YumaConfig, YumaParams
+    from yuma_simulation_tpu_torch.models.epoch import BondsMode
+    from yuma_simulation_tpu_torch.models.variants import variant_for_version
+    from yuma_simulation_tpu_torch.ops.cuda_epoch import (
+        fused_ema_epoch,
+        fused_ema_epoch_plain,
+        fused_ema_scan,
+        fused_ema_scan_plain,
+    )
+    from yuma_simulation_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from yuma_simulation_tpu_torch.ops.normalize import normalize_weight_rows
+    from yuma_simulation_tpu_torch.simulation.engine import (
+        fused_hparams,
+        plan_scaled_engine,
+        simulate_constant,
+        simulate_scaled,
+        simulate_scaled_batch,
+    )
+
+    # Base weights: the first epoch of workload(seed, 1) - its 64 strong
+    # miners keep liquid alpha finite; scales as bench.py's headline.
+    base = [workload(seed, 1) for seed in range(4)]
+    Wb = torch.tensor(np.stack([w[0] for w, _, _ in base]), device=dev)
+    Sb = torch.tensor(np.stack([s[0] for _, s, _ in base]), device=dev)
+    W1, S1 = Wb[0].contiguous(), Sb[0].contiguous()
+    Sn1 = (S1 / S1.sum()).contiguous()
+    Snb = (Sb / Sb.sum(-1, keepdim=True)).contiguous()
+
+    def scales_of(n):
+        return (1.0 + 1e-7 * torch.arange(n, dtype=torch.float32, device=dev)).contiguous()
+
+    # ---- K5 vs its plain version: five bond models, and batched.
+    sc16 = scales_of(16)
+    err5 = 0.0
+    for version, params in VERSIONS + [("Yuma 1 (paper) batched", {})]:
+        batched = version.endswith("batched")
+        spec = variant_for_version(version.replace(" batched", ""))
+        kw = dict(mode=spec.bonds_mode, x64=spec.bonds_mode is BondsMode.EMA_RUST,
+                  **fused_hparams(YumaConfig(yuma_params=YumaParams(**params))))
+        W_, S_ = (Wb, Snb) if batched else (W1, Sn1)
+        got = fused_ema_scan(W_, S_, sc16, **kw)
+        ref = fused_ema_scan_plain(W_, S_, sc16, **kw)
+        torch.cuda.synchronize()
+        for g, r, key in zip(got, ref, ("final bonds", "D_n total")):
+            check_close(f"K5 {version} {key}", g, r)
+            assert torch.isfinite(g).all(), (version, key)
+            err5 = max(err5, max_err(g, r))
+    print(f"K5 ok: 5 bond models + batched x4, max |kernel - plain| {err5:.3g}", flush=True)
+
+    # ---- K6 vs its plain version.
+    rng = np.random.default_rng(5)
+    B_old = torch.tensor((rng.random((V, M)) * 1e-3).astype(np.float32), device=dev)
+    clip = normalize_weight_rows(Wb[1])
+    err6 = 0.0
+    for mode, clip_base, m_real in (
+        (BondsMode.EMA, None, None), (BondsMode.EMA_RUST, None, None),
+        (BondsMode.EMA_PREV, clip, None), (BondsMode.EMA, None, M * 31 // 32),
+    ):
+        for first in (True, False):
+            kw = dict(w_scale=1.0000001, first_epoch=first, clip_base=clip_base, mode=mode,
+                      m_real=m_real, x64=mode is BondsMode.EMA_RUST)
+            got = fused_ema_epoch(W1, Sn1, B_old, **kw)
+            ref = fused_ema_epoch_plain(W1, Sn1, B_old, **kw)
+            torch.cuda.synchronize()
+            for g, r, key in zip(got, ref, ("bonds", "D_n", "incentive")):
+                check_close(f"K6 {mode.name} first={first} m_real={m_real} {key}", g, r)
+                err6 = max(err6, max_err(g, r))
+    print(f"K6 ok: EMA / EMA_RUST / EMA_PREV+clip / m_real, first and later; "
+          f"max |kernel - plain| {err6:.3g}", flush=True)
+
+    # ---- Timings: K5 over 64 epochs, its two spellings in turns; K6.
+    sc64 = scales_of(64)
+    t_vpu, t_mxu = [], []
+    for order in (False, True, True, False, False, True):
+        t = cuda_ms(torch, lambda: fused_ema_scan(W1, Sn1, sc64, mxu=order), 10)
+        (t_mxu if order else t_vpu).append(t)
+    k5_vpu, k5_mxu = min(t_vpu), min(t_mxu)
+    report["k5_spellings_ms_per_64_epochs"] = {"fused_scan": t_vpu, "fused_scan_mxu": t_mxu}
+    print(f"K5 at [{V}, {M}] x 64 epochs: VPU support {t_vpu} ms, tensor-core support "
+          f"{t_mxu} ms", flush=True)
+    ops_epoch = (BISECT_OPS + ELEMENTWISE_OPS) * V * M
+    k5 = dict(
+        max_abs_err=err5, ms=k5_vpu, vpu_ms=k5_vpu, mxu_ms=k5_mxu,
+        plain_ms=cuda_ms(torch, lambda: fused_ema_scan_plain(W1, Sn1, sc64), 1),
+        library_ms=None,
+    )
+    k5["bound_ms"], k5["bound_by"] = bound_ms(4 * (2 * V * M + 2 * V + 64), 64 * ops_epoch)
+    k6 = dict(
+        max_abs_err=err6,
+        ms=cuda_ms(torch, lambda: fused_ema_epoch(W1, Sn1, B_old, first_epoch=False), 20),
+        plain_ms=cuda_ms(torch, lambda: fused_ema_epoch_plain(W1, Sn1, B_old), 3),
+        library_ms=None,
+    )
+    k6["bound_ms"], k6["bound_by"] = bound_ms(4 * (3 * V * M + 2 * V + M), ops_epoch)
+    measured["ema_scan"], measured["ema_epoch"] = k5, k6
+    print(f"K5 timing {k5}\nK6 timing {k6}", flush=True)
+
+    # ---- The scaled main path, through the entry points.
+    config, spec = YumaConfig(), variant_for_version("Yuma 1 (paper)")
+    E_main = 512
+    sc_main = scales_of(E_main)
+
+    def counted(label, fn):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        print(f"scaled path: {label}: {seconds:.4f} s; launches {counts}", flush=True)
+        return out, seconds, counts
+
+    simulate_scaled(W1, S1, sc_main, config, spec)  # warm-up
+    (tot, bonds), seconds, counts = counted(
+        f"simulate_scaled auto, {E_main} epochs",
+        lambda: simulate_scaled(W1, S1, sc_main, config, spec),
+    )
+    rung = plan_scaled_engine("auto", "bisect", (V, M), torch.float32, dev, E_main)
+    assert counts["ema_scan"] == 1, counts
+    assert tot.shape == (V,) and bonds.shape == (V, M), (tot.shape, bonds.shape)
+    assert torch.isfinite(tot).all() and torch.isfinite(bonds).all()
+    other = "fused_scan_mxu" if rung == "fused_scan" else "fused_scan"
+    (tot2, bonds2), _, counts = counted(
+        f"simulate_scaled {other}",
+        lambda: simulate_scaled(W1, S1, sc_main, config, spec, epoch_impl=other),
+    )
+    assert counts["ema_scan"] == 1, counts
+    assert launches["support_mma"] >= 1, launches
+    check_equal("simulate_scaled auto vs the other K5 spelling, totals", tot2, tot)
+    check_equal("simulate_scaled auto vs the other K5 spelling, bonds", bonds2, bonds)
+    simulate_scaled_batch(Wb, Sb, sc_main, config, spec)  # warm-up
+    (tot_b, bonds_b), seconds_b, counts = counted(
+        f"simulate_scaled_batch auto, B=4 x {E_main} epochs",
+        lambda: simulate_scaled_batch(Wb, Sb, sc_main, config, spec),
+    )
+    assert counts["ema_scan"] == 1, counts
+    check_equal("batch lane 0 vs the single run, totals", tot_b[0], tot)
+    check_equal("batch lane 0 vs the single run, bonds", bonds_b[0], bonds)
+    (tot_f, bonds_f), _, counts = counted(
+        "simulate_scaled fused, 16 epochs",
+        lambda: simulate_scaled(W1, S1, sc16, config, spec, epoch_impl="fused"),
+    )
+    assert counts["ema_epoch"] == 16, counts
+    tot_s, bonds_s = simulate_scaled(W1, S1, sc16, config, spec, epoch_impl="fused_scan")
+    # The per-epoch rung converts each epoch's D_n, the scan their sum; the
+    # clip and carried weights of "fused" are normalized by the blocked
+    # miner sum: close, not bitwise.
+    check_close("fused (K6) vs fused_scan (K5) totals, 16 epochs", tot_f, tot_s)
+    check_close("fused (K6) vs fused_scan (K5) bonds, 16 epochs", bonds_f, bonds_s)
+    const = {}
+    for hoist in (False, True):
+        (tot_c, bonds_c), sec_c, _ = counted(
+            f"simulate_constant hoist_invariant={hoist}, 64 epochs",
+            lambda: simulate_constant(W1, S1, 64, config, spec, hoist_invariant=hoist),
+        )
+        assert torch.isfinite(tot_c).all() and torch.isfinite(bonds_c).all()
+        const[hoist] = (tot_c, bonds_c, sec_c)
+    check_close("simulate_constant hoisted vs scan totals", const[True][0], const[False][0])
+    check_close("simulate_constant hoisted vs scan bonds", const[True][1], const[False][1])
+    k5["ms"] = k5_mxu if rung == "fused_scan_mxu" else k5_vpu
+    report["scaled_path"] = dict(
+        rung=rung, epochs=E_main, seconds=seconds, epochs_per_s=E_main / seconds,
+        batch=4, batch_seconds=seconds_b, scenario_epochs_per_s=4 * E_main / seconds_b,
+        constant_epochs_per_s={str(h): 64 / v[2] for h, v in const.items()},
+    )
+    print(f"scaled main path: simulate_scaled auto -> {rung}, {E_main / seconds:.1f} "
+          f"epochs/s; batch x4 {4 * E_main / seconds_b:.1f} scenario-epochs/s "
+          f"(host clock, synchronized)", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -150,6 +434,7 @@ def main() -> int:
     from yuma_simulation_tpu_torch.ops.cuda_epoch import (
         fused_case_scan,
         fused_case_scan_plain,
+        fused_ema_scan,
         fused_varying_scan,
         fused_varying_scan_plain,
     )
@@ -251,9 +536,13 @@ def main() -> int:
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_profile.txt"), "w") as f:
+        W1, S1 = W[0].contiguous(), (S[0] / S[0].sum()).contiguous()
+        sc = (1.0 + 1e-7 * torch.arange(E, dtype=torch.float32, device=dev)).contiguous()
         for name, fn in (
             ("case_scan", lambda: fused_case_scan(W, S, **time_kw)),
             ("varying_scan", lambda: fused_varying_scan(W, S, epoch_tile=tile, **time_kw)),
+            ("ema_scan (VPU support)", lambda: fused_ema_scan(W1, S1, sc)),
+            ("ema_scan (tensor-core support)", lambda: fused_ema_scan(W1, S1, sc, mxu=True)),
         ):
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 fn()
@@ -337,26 +626,36 @@ def main() -> int:
     print(f"golden surface ok: 14 cases x 9 versions, worst |total - golden| {worst:.3g}; "
           f"launches {counts}", flush=True)
 
+    # ---- K4, K5, K6 and the scaled throughput path.
+    measured = {"consensus_bisect": k1, **scans}
+    k4_phase(torch, dev, W, S, measured, errs)
+    scaled_phases(torch, dev, measured, launches, report)
+
     replaces = {
         "consensus_bisect": "yuma_simulation_tpu/ops/pallas_consensus.py:80",
         "case_scan": "yuma_simulation_tpu/ops/pallas_epoch.py:1517",
         "varying_scan": "yuma_simulation_tpu/ops/pallas_epoch.py:2181",
+        "support_mma": "yuma_simulation_tpu/ops/pallas_epoch.py:160",
+        "ema_scan": "yuma_simulation_tpu/ops/pallas_epoch.py:1026",
+        "ema_epoch": "yuma_simulation_tpu/ops/pallas_epoch.py:2512",
     }
     sources = {
         "consensus_bisect": "yuma_simulation_tpu_torch/csrc/consensus.cu",
         "case_scan": "yuma_simulation_tpu_torch/csrc/case_scan.cu",
         "varying_scan": "yuma_simulation_tpu_torch/csrc/case_scan.cu",
+        "support_mma": "yuma_simulation_tpu_torch/csrc/common.cuh",
+        "ema_scan": "yuma_simulation_tpu_torch/csrc/ema_scan.cu",
+        "ema_epoch": "yuma_simulation_tpu_torch/csrc/ema_scan.cu",
     }
-    measured = {"consensus_bisect": k1, **scans}
     kernels = []
-    for name in ("consensus_bisect", "case_scan", "varying_scan"):
+    for name in replaces:
         m = measured[name]
-        assert launches[name] > 0, (name, launches)
+        assert launches.get(name, 0) > 0, (name, launches)
         kernels.append(dict(
             name=name, route="cuda", source=sources[name], replaces=replaces[name],
             launches=launches[name], max_abs_err=m["max_abs_err"], ms=m["ms"],
             plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
-            library_ms=None,
+            library_ms=m.get("library_ms"),
         ))
     report["kernels"] = kernels
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -288,6 +288,52 @@ def test_quantize_fallback_beyond_int32_grid_matches_jax():
     _assert_scan_match(ys, jys, "fallback, eager rung")
 
 
+@pytest.mark.parametrize("varying", [False, True], ids=["case", "varying"])
+@pytest.mark.parametrize(
+    "version,params", [VERSIONS[0], VERSIONS[2], VERSIONS[6], VERSIONS[8]],
+    ids=[IDS[0], IDS[2], IDS[6], IDS[8]],
+)
+def test_mxu_scans_match_jax_mxu(version, params, varying):
+    """K2 / K3 with the support on the tensor cores (K4's plain version
+    here) against JAX's `mxu=True` scans: consensus bitwise, the rest
+    within tolerance; and bitwise the port's own VPU scans."""
+    W, S = _suite(seed=5)
+    kw, jkw = _kwargs(version, params)
+    jscan, scan = (j_varying_scan, fused_varying_scan) if varying else (j_case_scan, fused_case_scan)
+    tile = dict(epoch_tile=5) if varying else {}
+    ref = jscan(
+        jnp.asarray(W, jnp.float32), jnp.asarray(S, jnp.float32),
+        reset_index=jnp.asarray(RESET_INDEX, jnp.int32),
+        reset_epoch=jnp.asarray(RESET_EPOCH, jnp.int32),
+        mxu=True, interpret=True, **tile, **jkw,
+    )
+    ri, re_ = torch.tensor(RESET_INDEX), torch.tensor(RESET_EPOCH)
+    got = scan(torch.tensor(W), torch.tensor(S), reset_index=ri, reset_epoch=re_,
+               mxu=True, x64=True, **tile, **kw)
+    _assert_scan_match(got, ref, f"{version} mxu")
+    vpu = scan(torch.tensor(W), torch.tensor(S), reset_index=ri, reset_epoch=re_,
+               x64=True, **tile, **kw)
+    for key in got:
+        torch.testing.assert_close(got[key], vpu[key], rtol=0, atol=0)
+
+
+def test_simulate_mxu_rungs_bitwise_vpu_rungs():
+    """`simulate(epoch_impl="fused_scan_mxu" | "fused_varying_mxu")` runs
+    and is bitwise its VPU rung."""
+    from yuma_simulation_tpu_torch.scenarios import create_case
+    from yuma_simulation_tpu_torch.simulation.engine import simulate
+
+    case = create_case("Case 4")
+    for rung in ("fused_scan", "fused_varying"):
+        vpu = simulate(case, "Yuma 2 (Adrian-Fish)", epoch_impl=rung, save_consensus=True,
+                       device="cpu")
+        mxu = simulate(case, "Yuma 2 (Adrian-Fish)", epoch_impl=rung + "_mxu",
+                       save_consensus=True, device="cpu")
+        assert mxu.engine == rung + "_mxu"
+        for key in ("dividends", "bonds", "incentives", "consensus"):
+            np.testing.assert_array_equal(getattr(mxu, key), getattr(vpu, key))
+
+
 def test_scan_input_contract():
     W, S = _suite()
     with pytest.raises(ValueError, match="stakes must be"):
@@ -298,3 +344,5 @@ def test_scan_input_contract():
         fused_case_scan(torch.tensor(W), torch.tensor(S), carry={"bonds": W[:, 0]})
     with pytest.raises(ValueError, match="float32"):
         fused_case_scan(torch.tensor(W).double(), torch.tensor(S).double())
+    with pytest.raises(ValueError, match="V <= 2\\^14"):
+        fused_case_scan(torch.zeros(1, 2**14 + 1, 2), torch.ones(1, 2**14 + 1), mxu=True)

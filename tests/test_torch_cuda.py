@@ -1,9 +1,11 @@
-"""The port's CUDA kernels K1, K2 and K3 against their plain PyTorch
-versions, on the card, at small shapes and over the options that
-chip_smoke.py's one configuration does not reach: every version, liquid
-alpha overrides, batched suites with firing resets, several epoch tiles,
-the carry / epoch_offset contract, the float-sum quantize fallback and
-K1's narrower and unstaged miner tiles.
+"""The port's CUDA kernels K1-K6 against their plain PyTorch versions, on
+the card, at small shapes and over the options that chip_smoke.py's one
+configuration does not reach: every version, liquid alpha overrides,
+batched suites with firing resets, several epoch tiles, the carry /
+epoch_offset contract, the float-sum quantize fallback, K1's and K4's
+narrower and unstaged miner tiles, the tensor-core (K4) spellings of every
+scan, the scaled scan (K5) and the single fused epoch (K6) with their
+options, and the refusals on CUDA tensors.
 
 Every test is marked `cuda` and takes the `cuda` fixture, which skips it
 where no CUDA device is present. The JAX package is not needed (the card's
@@ -13,7 +15,8 @@ machine has none); run with its conftest left out:
 
 The reference is the plain version on CPU tensors, which the CPU tests
 (tests/test_torch_*.py) hold to the JAX package. Tolerances: `c_high`
-and quantized consensus bitwise (integer-exact on both sides); dividends,
+and quantized consensus bitwise (integer-exact on both sides), every
+`mxu` spelling bitwise its VPU spelling on the card; dividends,
 bonds and incentives within atol 2e-6 and rtol 1e-5, the JAX package's
 fused-vs-XLA tolerance (the kernels add floats in another order than
 PyTorch's CPU sums).
@@ -31,10 +34,22 @@ from yuma_simulation_tpu_torch.models.config import (
 from yuma_simulation_tpu_torch.models.variants import canonical_versions, variant_for_version
 from yuma_simulation_tpu_torch.ops.consensus import stake_weighted_median
 from yuma_simulation_tpu_torch.ops.cuda_consensus import stake_weighted_median_cuda
-from yuma_simulation_tpu_torch.ops.cuda_epoch import fused_case_scan, fused_varying_scan
+from yuma_simulation_tpu_torch.models.epoch import BondsMode
+from yuma_simulation_tpu_torch.ops.cuda_epoch import (
+    fused_case_scan,
+    fused_ema_epoch,
+    fused_ema_scan,
+    fused_varying_scan,
+)
 from yuma_simulation_tpu_torch.ops.launches import launch_counts, reset_launch_counts
 from yuma_simulation_tpu_torch.scenarios import create_case
-from yuma_simulation_tpu_torch.simulation.engine import fused_hparams, simulate
+from yuma_simulation_tpu_torch.simulation.engine import (
+    fused_hparams,
+    simulate,
+    simulate_constant,
+    simulate_scaled,
+    simulate_scaled_batch,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -131,7 +146,8 @@ def test_scans_match_plain(cuda, version, params, V, M):
             torch.testing.assert_close(k3[key], k2[key], rtol=0, atol=0)
         for key in ("dividends_normalized", "bonds", "final_bonds"):
             torch.testing.assert_close(k3[key], k2[key], rtol=0, atol=1e-6)
-    assert launch_counts() == {"consensus_bisect": 0, "case_scan": 1, "varying_scan": 2}
+    counts = launch_counts()
+    assert (counts["case_scan"], counts["varying_scan"], counts["support_mma"]) == (1, 2, 0)
 
 
 @pytest.mark.parametrize("x64", [False, True], ids=["f32", "x64"])
@@ -267,3 +283,203 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         stake_weighted_median_cuda(Wn, Sn[:3], 0.5)
     with pytest.raises(ValueError, match="float32"):
         fused_case_scan(W.to(cuda).double(), S.to(cuda).double())
+
+
+# ---------------------------------------------------------------------------
+# K4: the support sum on the tensor cores
+
+
+@pytest.mark.parametrize(
+    "lead,V,M",
+    [((), 8, 32), ((), 256, 700), ((3,), 1000, 200), ((), 4096, 160), ((), 33, 4097)],
+    ids=["small", "tile128", "tile32-batched", "unstaged", "ragged"],
+)
+def test_k4_matches_plain_bitwise(cuda, lead, V, M):
+    """K4 against the plain bisection (masked integer sum) and the plain
+    limb contraction, with weights on the 2^-17 grid so that midpoints
+    hit them exactly (the strict `>` at knife edges)."""
+    rng = np.random.default_rng(V + M)
+    W = (rng.integers(0, 2**17 + 1, size=lead + (V, M)) * 2.0**-17).astype(np.float32)
+    W[rng.random(W.shape) < 0.5] = 0.0
+    S = rng.lognormal(0.0, 2.0, lead + (V,)).astype(np.float32)
+    S = S / S.sum(-1, keepdims=True)
+    W, S = torch.tensor(W), torch.tensor(S)
+    reset_launch_counts()
+    got = stake_weighted_median_cuda(W.to(cuda), S.to(cuda), 0.5, mma=True)
+    torch.cuda.synchronize()
+    assert launch_counts()["support_mma"] == 1
+    ref = stake_weighted_median(W, S, 0.5)
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=0)
+    torch.testing.assert_close(got.cpu(), stake_weighted_median(W, S, 0.5, mxu=True),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("version,params", VERSIONS, ids=IDS)
+def test_mxu_scans_bitwise_vpu_scans(cuda, version, params):
+    """K2 and K3 with mxu, on the card, bitwise their VPU spellings on
+    every output."""
+    W, S = _suite(40, 300, seed=7)
+    W, S = W.to(cuda), S.to(cuda)
+    kw = _scan_kwargs(version, params, return_carry=True)
+    for scan, extra in ((fused_case_scan, {}), (fused_varying_scan, {"epoch_tile": 5})):
+        vpu = scan(W, S, **extra, **kw)
+        mxu = scan(W, S, mxu=True, **extra, **kw)
+        assert set(vpu) == set(mxu)
+        for key in vpu:
+            torch.testing.assert_close(mxu[key], vpu[key], rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# K5: the scaled scan; K6: one fused epoch
+
+
+def _scaled_inputs(V, M, E=9, B=3, seed=0):
+    rng = np.random.default_rng(seed)
+    W = rng.random((B, V, M)).astype(np.float32)
+    W[W < 0.3] = 0.0
+    S = (rng.random((B, V)) + 0.01).astype(np.float32)
+    S_n = S / S.sum(-1, keepdims=True)
+    scales = (1.0 + 1e-4 * rng.random(E)).astype(np.float32)
+    return torch.tensor(W), torch.tensor(S_n), torch.tensor(scales)
+
+
+def _hp(params):
+    kw = fused_hparams(YumaConfig(yuma_params=params))
+    return kw
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["single", "batched"])
+@pytest.mark.parametrize("V,M", SHAPES, ids=[f"{v}x{m}" for v, m in SHAPES])
+@pytest.mark.parametrize("version,params", VERSIONS, ids=IDS)
+def test_ema_scan_matches_plain(cuda, version, params, V, M, batched):
+    """K5 against its plain version (tile 3 and the auto tile), for every
+    version; its mxu spelling bitwise."""
+    W, S_n, scales = _scaled_inputs(V, M)
+    if not batched:
+        W, S_n = W[0], S_n[0]
+    mode = variant_for_version(version).bonds_mode
+    kw = dict(mode=mode, x64=mode is BondsMode.EMA_RUST, **_hp(params))
+    reset_launch_counts()
+    for tile in (3, None):
+        ref = fused_ema_scan(W, S_n, scales, epoch_tile=tile, **kw)
+        got = fused_ema_scan(W.to(cuda), S_n.to(cuda), scales.to(cuda), epoch_tile=tile, **kw)
+        for g, r, key in zip(got, ref, ("bonds", "D_n total")):
+            torch.testing.assert_close(g.cpu(), r, rtol=RTOL, atol=ATOL,
+                                       msg=lambda m: f"{version} tile {tile} {key}: {m}")
+        mxu = fused_ema_scan(W.to(cuda), S_n.to(cuda), scales.to(cuda), epoch_tile=tile,
+                             mxu=True, **kw)
+        for g, x in zip(got, mxu):
+            torch.testing.assert_close(x, g, rtol=0, atol=0)
+    counts = launch_counts()
+    assert (counts["ema_scan"], counts["support_mma"]) == (4, 2), counts
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["single", "batched"])
+def test_ema_scan_recompute_prev_bitwise(cuda, batched):
+    W, S_n, scales = _scaled_inputs(40, 300, seed=1)
+    if not batched:
+        W, S_n = W[0], S_n[0]
+    W, S_n, scales = W.to(cuda), S_n.to(cuda), scales.to(cuda)
+    ref = fused_ema_scan(W, S_n, scales, mode=BondsMode.EMA_PREV, epoch_tile=1)
+    for tile in (1, 3, 9):
+        for recompute in (False, True):
+            got = fused_ema_scan(W, S_n, scales, mode=BondsMode.EMA_PREV, epoch_tile=tile,
+                                 recompute_prev=recompute)
+            for g, r in zip(got, ref):
+                torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("m_real", [None, 250], ids=["all", "m_real"])
+@pytest.mark.parametrize("first", [False, True], ids=["later", "first"])
+@pytest.mark.parametrize(
+    "mode,with_clip",
+    [("EMA", False), ("EMA_RUST", False), ("EMA_PREV", False), ("EMA_PREV", True)],
+    ids=["ema", "ema-rust", "ema-prev", "ema-prev-clip"],
+)
+def test_ema_epoch_matches_plain(cuda, mode, with_clip, first, m_real):
+    rng = np.random.default_rng(11)
+    V, M = 40, 300
+    W = rng.random((V, M)).astype(np.float32)
+    W[W < 0.3] = 0.0
+    if m_real is not None:
+        W[:, m_real:] = 0.0
+    S = (rng.random(V) + 0.01).astype(np.float32)
+    args = [torch.tensor(W), torch.tensor(S / S.sum()),
+            torch.tensor((rng.random((V, M)) * 0.1).astype(np.float32))]
+    clip = torch.tensor(rng.random((V, M)).astype(np.float32)) if with_clip else None
+    kw = dict(w_scale=1.0001, kappa=0.5, bond_penalty=0.7, bond_alpha=0.1,
+              first_epoch=first, mode=getattr(BondsMode, mode), m_real=m_real,
+              x64=mode == "EMA_RUST")
+    ref = fused_ema_epoch(*args, clip_base=clip, **kw)
+    dev_args = [a.to(cuda) for a in args]
+    dev_clip = None if clip is None else clip.to(cuda)
+    reset_launch_counts()
+    got = fused_ema_epoch(*dev_args, clip_base=dev_clip, **kw)
+    mxu = fused_ema_epoch(*dev_args, clip_base=dev_clip, mxu=True, **kw)
+    assert launch_counts()["ema_epoch"] == 2
+    for g, x, r in zip(got, mxu, ref):
+        torch.testing.assert_close(g.cpu(), r, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(x, g, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize(
+    "version,rung,counter",
+    [
+        ("Yuma 1 (paper)", "auto", "ema_scan"),
+        ("Yuma 3 (Rhef)", "fused_scan_mxu", "ema_scan"),
+        ("Yuma 2 (Adrian-Fish)", "fused", "ema_epoch"),
+        ("Yuma 0 (subtensor)", "fused_mxu", "ema_epoch"),
+        ("Yuma 4 (Rhef+relative bonds)", "eager", None),
+    ],
+)
+def test_simulate_scaled_on_card_matches_cpu(cuda, version, rung, counter):
+    """simulate_scaled on CUDA tensors through each rung against the same
+    rung on CPU tensors (the plain versions), with the rung's kernel
+    launched; and the batch and constant paths on the card."""
+    W, _, scales = _scaled_inputs(40, 300, E=6)
+    S = torch.tensor(np.random.default_rng(2).random((3, 40)).astype(np.float32) + 0.01)
+    spec = variant_for_version(version)
+    reset_launch_counts()
+    got = simulate_scaled(W[0].to(cuda), S[0].to(cuda), scales.to(cuda), None, spec,
+                          epoch_impl=rung)
+    counts = launch_counts()
+    if counter is not None:
+        assert counts[counter] == (6 if counter == "ema_epoch" else 1), counts
+    ref = simulate_scaled(W[0], S[0], scales, None, spec,
+                          epoch_impl="fused_scan" if rung == "auto" else rung)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.cpu(), r, rtol=RTOL, atol=ATOL)
+    batch = simulate_scaled_batch(W.to(cuda), S.to(cuda), scales.to(cuda), None, spec)
+    batch_ref = simulate_scaled_batch(W, S, scales, None, spec, epoch_impl="fused_scan")
+    for g, r in zip(batch, batch_ref):
+        torch.testing.assert_close(g.cpu(), r, rtol=RTOL, atol=ATOL)
+    for hoist in (False, True):
+        const = simulate_constant(W[0].to(cuda), S[0].to(cuda), 4, None, spec,
+                                  hoist_invariant=hoist)
+        const_ref = simulate_constant(W[0], S[0], 4, None, spec, hoist_invariant=hoist)
+        for g, r in zip(const, const_ref):
+            torch.testing.assert_close(g.cpu(), r, rtol=RTOL, atol=ATOL)
+
+
+def test_scaled_kernels_refuse_what_they_do_not_take(cuda):
+    W, S_n, scales = _scaled_inputs(6, 18)
+    W, S_n, scales = W[0].to(cuda), S_n[0].to(cuda), scales.to(cuda)
+    B0 = torch.zeros_like(W)
+    with pytest.raises(ValueError, match="at least one epoch"):
+        fused_ema_scan(W, S_n, scales[:0])
+    big = torch.zeros(2**14 + 1, 2, device=cuda)
+    with pytest.raises(ValueError, match="V <= 2\\^14"):
+        fused_ema_scan(big, torch.zeros(2**14 + 1, device=cuda), scales, mxu=True)
+    with pytest.raises(ValueError, match="V <= 2\\^14"):
+        stake_weighted_median_cuda(big, torch.zeros(2**14 + 1, device=cuda), 0.5, mma=True)
+    with pytest.raises(ValueError, match="M \\* 2\\^iters"):
+        fused_ema_scan(torch.zeros(2, 2**14, device=cuda), torch.ones(2, device=cuda) / 2,
+                       scales, mode=BondsMode.EMA_RUST, x64=True)
+    with pytest.raises(ValueError, match="EMA family"):
+        fused_ema_epoch(W, S_n, B0, mode=BondsMode.RELATIVE)
+    with pytest.raises(ValueError, match="EMA_PREV"):
+        fused_ema_epoch(W, S_n, B0, clip_base=W, mode=BondsMode.EMA)
+    with pytest.raises(ValueError, match="m_real"):
+        fused_ema_epoch(W, S_n, B0, m_real=W.shape[1] + 1)
+    with pytest.raises(ValueError, match="float32"):
+        fused_ema_scan(W.double(), S_n.double(), scales)

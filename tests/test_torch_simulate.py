@@ -57,7 +57,9 @@ def _random_scenarios(seed=7, E=12, V=6, M=18):
     return Scenario(**kw), JScenario(**kw)
 
 
-@pytest.mark.parametrize("epoch_impl", ["eager", "fused_scan", "fused_varying"])
+@pytest.mark.parametrize(
+    "epoch_impl", ["eager", "fused_scan", "fused_varying", "fused_scan_mxu", "fused_varying_mxu"]
+)
 @pytest.mark.parametrize(
     "version,params",
     [
@@ -143,8 +145,18 @@ def test_plan_engine():
     cpu, f32 = torch.device("cpu"), torch.float32
     assert plan_engine("auto", "bisect", (40, 3, 2), f32, cpu) == "eager"
     assert plan_engine("fused_scan", "auto", (40, 3, 2), f32, cpu) == "fused_scan"
-    with pytest.raises(NotImplementedError, match="B4"):
-        plan_engine("fused_varying_mxu", "bisect", (40, 3, 2), f32, cpu)
+    assert plan_engine("fused_varying_mxu", "bisect", (40, 3, 2), f32, cpu) == (
+        "fused_varying_mxu"
+    )
+    assert plan_engine("fused_scan_mxu", "bisect", (40, 3, 2), f32, cpu) == "fused_scan_mxu"
+    # Past the dyadic grid's int32 bound (M * 2^17 >= 2^31) auto keeps to the
+    # eager rung on the card too, as JAX's auto keeps to XLA; the gate comes
+    # before any query of the device, so no GPU is needed here.
+    cuda = torch.device("cuda")
+    assert plan_engine("auto", "bisect", (4, 8, 16384), f32, cuda) == "eager"
+    assert plan_engine("auto", "bisect", (4, 8, 64), f32, cuda, precision=2**26) == "eager"
+    with pytest.raises(ValueError, match="bisect"):
+        plan_engine("fused_scan_mxu", "sorted", (40, 3, 2), f32, cpu)
     with pytest.raises(ValueError, match="epoch_impl"):
         plan_engine("nope", "bisect", (40, 3, 2), f32, cpu)
     with pytest.raises(ValueError, match="bisect"):

@@ -3,9 +3,12 @@
 The same Yuma-consensus simulator, for one NVIDIA H100: plain tensor code
 in PyTorch, and the JAX package's Pallas kernels rewritten by hand in CUDA
 C++ for `sm_90a` (:mod:`.ops.cuda_consensus`, :mod:`.ops.cuda_epoch`,
-sources under `csrc/`). Entry points run on the card unless the caller
-passes `device="cpu"`; on CPU tensors every kernel wrapper runs its plain
-PyTorch version instead.
+sources under `csrc/`). The entry points are in :mod:`.simulation`
+(`simulate`, `simulate_batch`, `simulate_scaled`, `simulate_scaled_batch`,
+`simulate_constant`, `run_simulation`). They run on the card unless the
+caller passes `device="cpu"` (or, for the tensor entry points, CPU
+tensors); on CPU tensors every kernel wrapper runs its plain PyTorch
+version instead.
 """
 
 __version__ = "0.1.0"

@@ -16,8 +16,11 @@
 // device memory exactly once. 4 validator lanes per column (512 threads)
 // share each column's support sum; the int32 sum is exact, so the result
 // is bitwise the plain version's for any thread layout
-// (ops/consensus.py). The body lives in common.cuh, shared with the case
-// and varying scans' consensus phase.
+// (ops/consensus.py). The body lives in common.cuh, shared with the
+// scans' consensus phase.
+//
+// With mma set, the same entry runs K4 (k_bisect_mma, common.cuh): the
+// support sums of every halving on the tensor cores, bitwise the same.
 #include "common.cuh"
 
 namespace {
@@ -33,16 +36,16 @@ __global__ void k_stake_int(const float* __restrict__ s, int* __restrict__ sint,
 
 // c_hi [nslab, M] of W_n [nslab, V, M] and normalized stakes S_n
 // [nslab, V]; `sint` is [nslab, V] int32 scratch; `kappa` one float on
-// the device. Launches on `stream`, allocates nothing, and returns the
-// launch status (cudaGetLastError()).
+// the device; `mma` selects K4. Launches on `stream`, allocates nothing,
+// and returns the launch status (cudaGetLastError()).
 extern "C" int yuma_bisect(const float* wn, const float* sn, int* sint,
                            const float* kappa, float* chi, int nslab, int V,
-                           int M, int iters, void* stream) {
+                           int M, int iters, int mma, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t n = (size_t)nslab * V;
   k_stake_int<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(sn, sint, n);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)yuma::launch_bisect(wn, sint, kappa, 0, 1, nslab, chi, V, M,
-                                  iters, st);
+                                  iters, st, mma);
 }

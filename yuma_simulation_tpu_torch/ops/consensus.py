@@ -101,11 +101,65 @@ def _kappa_like(kappa, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(kappa, dtype=like.dtype, device=like.device)
 
 
+# ---------------------------------------------------------------------------
+# the support sum as an exact integer matrix product (K4's plain version)
+
+#: Validators the exact limb-split support covers: the JAX package's
+#: `exact_mxu_support_covers` gate, kept so both packages refuse the same
+#: inputs (the port's u8 limbs would stay exact up to V * 255 < 2^31).
+MXU_MAX_VALIDATORS = 2**14
+#: The canonical stakes `S_int < 2^31` as four 8-bit limbs.
+LIMB_BITS, NUM_LIMBS = 8, 4
+
+
+def exact_mxu_support_covers(num_validators: int) -> bool:
+    """Whether the exact limb-split support covers this validator count."""
+    return num_validators <= MXU_MAX_VALIDATORS
+
+
+def check_mxu_support_covers(num_validators: int) -> None:
+    """The kernels' refusal of the limb-split support beyond V = 2^14,
+    worded as the JAX package's (pallas_epoch.py:1089-1093)."""
+    if not exact_mxu_support_covers(num_validators):
+        raise ValueError(
+            "the exact MXU stake split covers V <= 2^14 validators, got "
+            f"V={num_validators}; use the VPU path (mxu=False)"
+        )
+
+
+def stake_limb_split(S_int: torch.Tensor) -> torch.Tensor:
+    """The canonical fixed-point stakes `[..., V]` (int32, non-negative) as
+    their four 8-bit limbs `[..., 4, V]`, least significant first, so that
+    `S_int == sum_j limb_j << 8j` exactly. These are the u8 rows K4
+    contracts on the tensor cores (the JAX package splits into bf16 heads
+    and residuals instead, because its matrix unit rounds to bf16)."""
+    V = S_int.shape[-1]
+    if not exact_mxu_support_covers(V):
+        raise ValueError(f"no exact MXU stake split for V={V}")
+    limbs = [(S_int >> (LIMB_BITS * j)) & 0xFF for j in range(NUM_LIMBS)]
+    return torch.stack(limbs, dim=-2)
+
+
+def support_limbs(limbs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The support sum `[..., M]` (int32) as K4 computes it: the limb rows
+    `[..., 4, V]` times the 0/1 mask `[..., V, M]`, one exact integer sum
+    per limb (products of a limb <= 255 and 0/1, added up to V * 255 <
+    2^53, are exact in float64 in any order), recombined most significant
+    limb first by shifts in int32."""
+    sums = (limbs.double() @ mask.double()).to(torch.int64)  # [..., 4, M]
+    support = torch.zeros_like(sums[..., 0, :])
+    for j in reversed(range(NUM_LIMBS)):
+        support = (support << LIMB_BITS) + sums[..., j, :]
+    return support.to(torch.int32)
+
+
 def stake_weighted_median(
     W: torch.Tensor,
     S: torch.Tensor,
     kappa,
     precision: int = 100_000,
+    *,
+    mxu: bool = False,
 ) -> torch.Tensor:
     """Per-miner consensus weight via vectorized bisection.
 
@@ -114,6 +168,9 @@ def stake_weighted_median(
       S: normalized stake `[..., V]`.
       kappa: consensus threshold (scalar or `[...]`).
       precision: the reference's `consensus_precision`.
+      mxu: take each halving's support sum as the exact limb contraction
+        (:func:`support_limbs`, K4's plain version) instead of a masked
+        integer sum; bitwise the same result. Needs V <= 2^14.
 
     Returns the bisection's final `c_high` per miner `[..., M]`.
     """
@@ -121,6 +178,7 @@ def stake_weighted_median(
     dtype = W.dtype
     batch_m = W.shape[:-2] + W.shape[-1:]
     S_int = support_fixed_stakes(S).unsqueeze(-1)  # [..., V, 1]
+    limbs = stake_limb_split(S_int[..., 0]) if mxu else None
     kappa = _kappa_like(kappa, W)
     if kappa.ndim:
         kappa = kappa.unsqueeze(-1)
@@ -129,9 +187,11 @@ def stake_weighted_median(
     c_hi = torch.ones(batch_m, dtype=dtype, device=W.device)
     for _ in range(iters):
         c_mid = (c_hi + c_lo) * 0.5
-        support = torch.where(W > c_mid.unsqueeze(-2), S_int, zero).sum(
-            dim=-2, dtype=torch.int64
-        )
+        mask = W > c_mid.unsqueeze(-2)
+        if mxu:
+            support = support_limbs(limbs, mask)
+        else:
+            support = torch.where(mask, S_int, zero).sum(dim=-2, dtype=torch.int64)
         above = support_rounded(support, dtype) > kappa
         c_lo, c_hi = torch.where(above, c_mid, c_lo), torch.where(above, c_hi, c_mid)
     return c_hi

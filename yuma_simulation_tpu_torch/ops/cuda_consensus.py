@@ -1,11 +1,15 @@
 """K1: the consensus bisection as a hand-written CUDA kernel
 (`csrc/consensus.cu`), the counterpart of the JAX package's
-`ops/pallas_consensus.py::stake_weighted_median_pallas`.
+`ops/pallas_consensus.py::stake_weighted_median_pallas`; and K4, the same
+bisection with each halving's support sum on the tensor cores
+(`k_bisect_mma`, `csrc/common.cuh`), the counterpart of the JAX package's
+exact MXU support (`ops/pallas_epoch.py::_stake_limb_split` /
+`_support_limbs_mxu`).
 
 :func:`stake_weighted_median_cuda` launches the kernel on CUDA tensors and
 runs its plain version, :func:`..ops.consensus.stake_weighted_median`, on
 CPU tensors. The support test runs on the canonical fixed-point stakes, so
-the two agree bitwise.
+the two agree bitwise, with `mma` and without.
 """
 
 from __future__ import annotations
@@ -16,10 +20,16 @@ import math
 import torch
 
 from yuma_simulation_tpu_torch.ops import _build
-from yuma_simulation_tpu_torch.ops.consensus import stake_weighted_median
+from yuma_simulation_tpu_torch.ops.consensus import (
+    check_mxu_support_covers,
+    stake_weighted_median,
+)
 from yuma_simulation_tpu_torch.ops.launches import COUNTERS
 
 LAUNCHES = COUNTERS["consensus_bisect"]
+#: K4's count: every wrapper call that ran the tensor-core bisection (this
+#: one with `mma=True`, and the scans with `mxu=True`, which run it inside).
+MMA_LAUNCHES = COUNTERS["support_mma"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -27,7 +37,7 @@ _I = ctypes.c_int
 
 def _bisect_fn():
     fn = _build.load("consensus.cu").yuma_bisect
-    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
     fn.restype = _I
     return fn
 
@@ -50,19 +60,24 @@ def stake_weighted_median_cuda(
     S: torch.Tensor,
     kappa,
     precision: int = 100_000,
+    *,
+    mma: bool = False,
 ) -> torch.Tensor:
     """Drop-in for :func:`..ops.consensus.stake_weighted_median`:
     row-normalized `W [..., V, M]`, normalized stake `S [..., V]`, scalar
-    `kappa`; returns the final `c_high [..., M]`. CPU tensors run the
-    plain version; CUDA tensors launch the kernel; other devices raise."""
+    `kappa`; returns the final `c_high [..., M]`. `mma=True` runs K4 (V <=
+    2^14). CPU tensors run the plain version; CUDA tensors launch the
+    kernel; other devices raise."""
     if W.device.type == "cpu":
-        return stake_weighted_median(W, S, kappa, precision)
+        return stake_weighted_median(W, S, kappa, precision, mxu=mma)
     if W.ndim < 2:
         raise ValueError(f"consensus expects [..., V, M] weights, got {tuple(W.shape)}")
     lead = tuple(W.shape[:-2])
     V, M = W.shape[-2:]
     check_cuda_float32("W", W)
     check_cuda_float32("S", S, lead + (V,))
+    if mma:
+        check_mxu_support_covers(V)
     nslab = math.prod(lead)
     iters = int(math.ceil(math.log2(precision)))
     kappa_t = torch.as_tensor(kappa, dtype=torch.float32).to(W.device).reshape(1)
@@ -78,9 +93,10 @@ def stake_weighted_median_cuda(
         V,
         M,
         iters,
+        int(mma),
         torch.cuda.current_stream(W.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"consensus bisection kernel failed: CUDA error {err}")
-    LAUNCHES.add()
+    (MMA_LAUNCHES if mma else LAUNCHES).add()
     return chi

@@ -1,16 +1,23 @@
-"""K2 and K3: the whole epoch loop as hand-written CUDA kernels
-(`csrc/case_scan.cu`), the counterparts of the JAX package's
-`ops/pallas_epoch.py::fused_case_scan` and `fused_varying_scan`.
+"""The epoch scans as hand-written CUDA kernels, the counterparts of the
+JAX package's `ops/pallas_epoch.py` kernels:
 
-:func:`fused_case_scan` advances one epoch per step; :func:`fused_varying_scan`
-runs the bond-independent phases (row normalization, the bisection, the
-quantize, clip / rank and the liquid rate) once per T-epoch tile and only
-the bond recurrence epoch by epoch. Both take the JAX functions' inputs and
-return their output dict, with the same `carry` / `epoch_offset` /
-`return_carry` contract. On CUDA tensors they launch the kernels; on CPU
-tensors they run the plain PyTorch versions below, which are written from
-the Pallas kernels' own phases (`_consensus_phase`, `_clip_rank_rate`,
-`_bond_phase`, `_liquid_rate_on_grid`) rather than from `yuma_epoch`.
+- K2 and K3 (`csrc/case_scan.cu`): :func:`fused_case_scan` and
+  :func:`fused_varying_scan`, the epoch loop over per-epoch weights;
+- K5 and K6 (`csrc/ema_scan.cu`): :func:`fused_ema_scan`, the whole scan
+  of `W * scales[e]` (the scaled throughput path), and
+  :func:`fused_ema_epoch`, one EMA-family epoch.
+
+All four are launch sequences of one set of phase kernels
+(`csrc/scan_phases.cuh`). :func:`fused_case_scan` advances one epoch per
+step; the others run the bond-independent phases (row normalization, the
+bisection, the quantize, clip / rank and the liquid rate) once per T-epoch
+tile and only the bond recurrence epoch by epoch. Each takes the JAX
+function's inputs and returns its outputs. `mxu=True` runs the bisection's
+support sum on the tensor cores (K4, `csrc/common.cuh`), bitwise the same.
+On CUDA tensors they launch the kernels; on CPU tensors they run the plain
+PyTorch versions below, which are written from the Pallas kernels' own
+phases (`_consensus_phase`, `_clip_rank_rate`, `_bond_phase`,
+`_liquid_rate_on_grid`) rather than from `yuma_epoch`.
 
 The row and stake sums, which feed the consensus, add strictly left to
 right (:func:`..ops.normalize.sequential_sum`) in the kernels and in the
@@ -39,14 +46,20 @@ from yuma_simulation_tpu_torch.ops.consensus import (
     bisection_iterations,
     dyadic_grid_denom,
     dyadic_grid_fits_int32,
+    check_mxu_support_covers,
     stake_weighted_median,
 )
-from yuma_simulation_tpu_torch.ops.cuda_consensus import check_cuda_float32
+from yuma_simulation_tpu_torch.ops.cuda_consensus import MMA_LAUNCHES, check_cuda_float32
 from yuma_simulation_tpu_torch.ops.launches import COUNTERS
 from yuma_simulation_tpu_torch.ops.normalize import sequential_sum
 
 CASE_SCAN_LAUNCHES = COUNTERS["case_scan"]
 VARYING_SCAN_LAUNCHES = COUNTERS["varying_scan"]
+EMA_SCAN_LAUNCHES = COUNTERS["ema_scan"]
+EMA_EPOCH_LAUNCHES = COUNTERS["ema_epoch"]
+
+#: Every bond model the scans implement (pallas_epoch.py::_SCAN_MODES).
+SCAN_MODES = EMA_MODES + (BondsMode.CAPACITY, BondsMode.RELATIVE)
 
 #: Epoch-tile ceiling of :func:`fused_varying_scan` (pallas_epoch.py:1848).
 VARYING_EPOCH_TILE_MAX = 16
@@ -66,21 +79,32 @@ _QUANTILES = (0.75, 0.25, 0.99)
 # the plain PyTorch versions of the kernel phases
 
 
-def _consensus_phase(W, S_n, kappa, *, precision: int, rust64: bool):
-    """Row-normalize -> bisection consensus (K1's plain version: the
-    kernels share K1's body for this phase) -> u16 quantize, over any
-    leading dims (pallas_epoch.py:437). `W [..., V, M]`, `S_n [..., V, 1]`,
-    `kappa` broadcast against the leading dims; returns
+def _row_normalize(W):
+    """W / (left-to-right row sum + 1e-6): the kernels' phase 3."""
+    return W / (sequential_sum(W, -1, keepdim=True) + 1e-6)
+
+
+def _consensus_phase(W, S_n, kappa, *, precision: int, rust64: bool, mxu: bool, m_real: int):
+    """Row-normalize -> bisection consensus (K1's plain version, or K4's
+    with `mxu`: the kernels share their bodies for this phase) -> u16
+    quantize, over any leading dims (pallas_epoch.py:437). `W [..., V, M]`,
+    `S_n [..., V, 1]`, `kappa` broadcast against the leading dims; miners
+    from `m_real` on are left out of the quantize sum. Returns
     `(W_n, C [..., 1, M])`."""
     M = W.shape[-1]
     iters = bisection_iterations(precision)
-    W_n = W / (sequential_sum(W, -1, keepdim=True) + 1e-6)
-    c_hi = stake_weighted_median(W_n, S_n[..., 0], kappa, precision).unsqueeze(-2)
+    W_n = _row_normalize(W)
+    c_hi = stake_weighted_median(
+        W_n, S_n[..., 0], kappa, precision, mxu=mxu
+    ).unsqueeze(-2)
+    if m_real != M:
+        real = torch.arange(M, device=W.device) < m_real
+        c_hi = torch.where(real, c_hi, torch.zeros_like(c_hi))
     if rust64:
         c64 = c_hi.double()
         scaled = c64 / c64.sum(dim=-1, keepdim=True) * 65535.0
     else:
-        if dyadic_grid_fits_int32(M, iters):
+        if dyadic_grid_fits_int32(m_real, iters):
             denom = dyadic_grid_denom(c_hi, iters)
         else:
             denom = sequential_sum(c_hi, -1, keepdim=True)
@@ -243,14 +267,22 @@ def _bond_phase(
 
 
 def _scan_plain(W, S, hp, reset_index, reset_epoch, state, *, T, p):
-    """The plain version of both kernels over `W [B, E, V, M]`: phases 2-6
-    batched over each T-epoch tile, then the bond recurrence epoch by
-    epoch (T = 1 is the case scan)."""
-    Bn, E, V, M = W.shape
-    mode = p["mode"]
+    """The plain version of every scan kernel: phases 2-6 batched over
+    each T-epoch tile, then the bond recurrence epoch by epoch (T = 1 is
+    the case scan). `W [B, EW, V, M]` and `S [B, ES, V]` store E epochs
+    each, or one shared by all (EW / ES = 1); `p["scales"]` multiplies
+    epoch e's weights before the row sum."""
+    Bn, _, V, M = W.shape
+    E, mode, scales = p["E"], p["mode"], p["scales"]
 
     def sc(i):
         return hp[:, i].reshape(Bn, 1, 1)
+
+    def weights(lo, n):  # [n, B, V, M]: epochs lo .. lo + n - 1
+        Wt = W.expand(Bn, E, V, M)[:, lo : lo + n].transpose(0, 1)
+        if scales is not None:
+            Wt = Wt * scales[lo : lo + n].reshape(n, 1, 1, 1)
+        return Wt
 
     bonds, cprev, wprev = state  # [B, V, M], [B, 1, M], [B, V, M] or None
     colm = torch.arange(M, device=W.device).reshape(1, M)
@@ -258,19 +290,27 @@ def _scan_plain(W, S, hp, reset_index, reset_epoch, state, *, T, p):
     r_epoch = reset_epoch.reshape(Bn, 1, 1).long()
     liquid_scal = (sc(5), sc(6), sc(7), sc(8))
     per_epoch_rate = p["liquid"] and mode is not BondsMode.CAPACITY
+    prev_mode = p["clip_src"] if mode is BondsMode.EMA_PREV else "own"
+    dacc = torch.zeros((Bn, V), dtype=W.dtype, device=W.device) if p["accumulate"] else None
     dn, bond_rows, inc_rows, cons_rows = [], [], [], []
     for e0 in range(0, E, T):
-        Wt = W[:, e0 : e0 + T].transpose(0, 1)  # [T, B, V, M]
-        St = S[:, e0 : e0 + T].transpose(0, 1).unsqueeze(-1)  # [T, B, V, 1]
-        S_n = St / sequential_sum(St, -2, keepdim=True)
+        if prev_mode == "scan" and p["recompute_prev"] and e0 > 0:
+            # The recompute spelling: the previous epoch's W_n re-derived
+            # from its weights, the same ops as its own phase 3.
+            wprev = _row_normalize(weights(e0 - 1, 1)[0])
+        St = S.expand(Bn, E, V)[:, e0 : e0 + T].transpose(0, 1).unsqueeze(-1)
+        S_n = St if p["s_normalized"] else St / sequential_sum(St, -2, keepdim=True)
         W_n, C = _consensus_phase(
-            Wt, S_n, hp[:, 0], precision=p["precision"], rust64=p["rust64"]
+            weights(e0, T), S_n, hp[:, 0], precision=p["precision"],
+            rust64=p["rust64"], mxu=p["mxu"], m_real=p["m_real"],
         )
-        if mode is BondsMode.EMA_PREV:
+        if prev_mode == "scan":
             tt = torch.arange(T, device=W.device).reshape(T, 1, 1, 1)
             first_b = (e0 + tt + p["epoch_offset"]) == 0
             clip_prev = torch.cat([wprev.unsqueeze(0), W_n[:-1]], dim=0)
             clip_base = torch.where(first_b, W_n, clip_prev)
+        elif prev_mode == "given":
+            clip_base = wprev.unsqueeze(0).expand_as(W_n)
         else:
             clip_base = W_n
         W_clipped, incentive, rate = _clip_rank_rate(
@@ -292,15 +332,22 @@ def _scan_plain(W, S, hp, reset_index, reset_epoch, state, *, T, p):
                 rate[t] if per_epoch_rate else rate, eg == 0, sc(1),
                 mode=mode, cap_alpha=sc(3), decay=sc(4),
             )
-            dn.append(D_n[..., 0])
+            if dacc is not None:
+                dacc = dacc + D_n[..., 0]
+            else:
+                dn.append(D_n[..., 0])
             if p["save_bonds"]:
                 bond_rows.append(bonds)
             inc_rows.append(incentive[t, :, 0])
             cons_rows.append(C[t, :, 0])
         cprev = C[T - 1]
-        if mode is BondsMode.EMA_PREV:
+        if prev_mode == "scan" and not p["recompute_prev"]:
             wprev = W_n[T - 1]
-    out = {"dividends_normalized": torch.stack(dn, dim=1), "final_bonds": bonds}
+    out = {"final_bonds": bonds}
+    if dacc is not None:
+        out["dividends_total"] = dacc
+    else:
+        out["dividends_normalized"] = torch.stack(dn, dim=1)
     if p["save_bonds"]:
         out["bonds"] = torch.stack(bond_rows, dim=1)
     if p["save_incentives"]:
@@ -338,15 +385,26 @@ class _ScanArgs(ctypes.Structure):
         for name in (
             "W", "S", "hp", "reset_index", "reset_epoch", "bonds", "cprev",
             "wprev", "dn", "bonds_out", "inc_out", "cons_out", "wn", "sn",
-            "sint", "chi", "C", "inc", "rate", "dsum", "rden", "stream",
+            "sint", "chi", "C", "inc", "rate", "dsum", "rden", "pden", "scales",
+            "dacc", "stream",
         )
     ] + [
         (name, ctypes.c_int)
         for name in (
             "B", "E", "V", "M", "T", "mode", "reset_mode", "iters", "rust64",
-            "liquid", "epoch_offset",
+            "liquid", "epoch_offset", "w_epochs", "s_epochs", "s_normalized",
+            "m_real", "clip_src", "recompute_prev", "mxu",
         )
     ] + [("liq", _LiquidSpec)]
+
+_CLIP_CODE = {"scan": 0, "given": 1, "own": 2}
+#: kernel name -> (source, C entry point, launch counter)
+_ENTRIES = {
+    "case_scan": ("case_scan.cu", "yuma_case_scan", CASE_SCAN_LAUNCHES),
+    "varying_scan": ("case_scan.cu", "yuma_varying_scan", VARYING_SCAN_LAUNCHES),
+    "ema_scan": ("ema_scan.cu", "yuma_ema_scan", EMA_SCAN_LAUNCHES),
+    "ema_epoch": ("ema_scan.cu", "yuma_ema_epoch", EMA_EPOCH_LAUNCHES),
+}
 
 
 def _liquid_struct(n: int, override_high, override_low) -> _LiquidSpec:
@@ -379,11 +437,13 @@ def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else x.data_ptr()
 
 
-def _scan_cuda(W, S, hp, reset_index, reset_epoch, state, *, T, p, varying: bool):
-    """Launch K2 (`varying=False`, T = 1) or K3 on contiguous CUDA tensors."""
-    Bn, E, V, M = W.shape
+def _scan_cuda(W, S, hp, reset_index, reset_epoch, state, *, T, p, kernel: str):
+    """Launch one of K2, K3, K5, K6 (`kernel`, a key of `_ENTRIES`) on
+    contiguous CUDA tensors: `W [B, EW, V, M]`, `S [B, ES, V]`."""
+    Bn, EW, V, M = W.shape
+    E = p["E"]
     check_cuda_float32("W", W)
-    check_cuda_float32("S", S, (Bn, E, V))
+    check_cuda_float32("S", S, (Bn, S.shape[1], V))
     mode = p["mode"]
     dev = W.device
     bonds, cprev, wprev = state
@@ -392,7 +452,11 @@ def _scan_cuda(W, S, hp, reset_index, reset_epoch, state, *, T, p, varying: bool
         return torch.empty(shape, dtype=dtype, device=dev)
 
     out = {
-        "dividends_normalized": empty(Bn, E, V),
+        "dividends_normalized": None if p["accumulate"] else empty(Bn, E, V),
+        "dividends_total": (
+            torch.zeros((Bn, V), dtype=torch.float32, device=dev)
+            if p["accumulate"] else None
+        ),
         "bonds": empty(Bn, E, V, M) if p["save_bonds"] else None,
         "incentives": empty(Bn, E, M) if p["save_incentives"] else None,
         "consensus": empty(Bn, E, M) if p["save_consensus"] else None,
@@ -401,32 +465,39 @@ def _scan_cuda(W, S, hp, reset_index, reset_epoch, state, *, T, p, varying: bool
         wn=empty(T, Bn, V, M), sn=empty(T, Bn, V),
         sint=empty(T, Bn, V, dtype=torch.int32), chi=empty(T, Bn, M),
         C=empty(T, Bn, M), inc=empty(T, Bn, M), rate=empty(T, Bn, M),
-        dsum=empty(Bn, V), rden=empty(T, Bn, V),
+        dsum=empty(Bn, V), rden=empty(T, Bn, V), pden=empty(Bn, V),
     )
+    scales = p["scales"]
+    if scales is not None:
+        check_cuda_float32("scales", scales, (E,))
     args = _ScanArgs(
         W=W.data_ptr(), S=S.data_ptr(), hp=hp.data_ptr(),
         reset_index=reset_index.data_ptr(), reset_epoch=reset_epoch.data_ptr(),
         bonds=bonds.data_ptr(), cprev=cprev.data_ptr(), wprev=_ptr(wprev),
-        dn=out["dividends_normalized"].data_ptr(), bonds_out=_ptr(out["bonds"]),
+        dn=_ptr(out["dividends_normalized"]), bonds_out=_ptr(out["bonds"]),
         inc_out=_ptr(out["incentives"]), cons_out=_ptr(out["consensus"]),
         **{k: v.data_ptr() for k, v in scratch.items()},
+        scales=_ptr(scales), dacc=_ptr(out["dividends_total"]),
         stream=torch.cuda.current_stream(dev).cuda_stream,
         B=Bn, E=E, V=V, M=M, T=T, mode=_MODE_CODE[mode],
         reset_mode=_RESET_CODE[p["reset_mode"]],
         iters=bisection_iterations(p["precision"]),
         rust64=int(p["rust64"]), liquid=int(p["liquid"]),
-        epoch_offset=p["epoch_offset"],
-        liq=_liquid_struct(M, *p["overrides"]),
+        epoch_offset=p["epoch_offset"], w_epochs=EW, s_epochs=S.shape[1],
+        s_normalized=int(p["s_normalized"]), m_real=p["m_real"],
+        clip_src=_CLIP_CODE[p["clip_src"]], recompute_prev=int(p["recompute_prev"]),
+        mxu=int(p["mxu"]), liq=_liquid_struct(M, *p["overrides"]),
     )
-    lib = _build.load("case_scan.cu")
-    fn = lib.yuma_varying_scan if varying else lib.yuma_case_scan
+    source, entry, counter = _ENTRIES[kernel]
+    fn = getattr(_build.load(source), entry)
     fn.argtypes = [ctypes.POINTER(_ScanArgs)]
     fn.restype = ctypes.c_int
     err = fn(ctypes.byref(args))
     if err:
-        name = "varying scan" if varying else "case scan"
-        raise RuntimeError(f"{name} kernel failed: CUDA error {err}")
-    (VARYING_SCAN_LAUNCHES if varying else CASE_SCAN_LAUNCHES).add()
+        raise RuntimeError(f"{kernel} kernel failed: CUDA error {err}")
+    counter.add()
+    if p["mxu"]:
+        MMA_LAUNCHES.add()
     out = {k: v for k, v in out.items() if v is not None}
     out["final_bonds"] = bonds
     out["final_consensus"] = cprev[:, 0]
@@ -477,12 +548,58 @@ def varying_scan_epoch_tile(shape, device=None) -> int:
     return 0
 
 
+def _epoch_tile(epoch_tile, shape, device, label: str) -> int:
+    """`epoch_tile`, checked to divide E, or the largest that fits
+    (:func:`varying_scan_epoch_tile`) when None."""
+    E = shape[-3]
+    if epoch_tile is None:
+        T = varying_scan_epoch_tile(shape, device)
+        if T < 1:
+            raise ValueError(f"{list(shape)} too large for the {label} at any tile")
+        return T
+    T = int(epoch_tile)
+    if T < 1 or E % T:
+        raise ValueError(f"epoch_tile={T} must be >= 1 and divide the epoch count (E={E})")
+    return T
+
+
+def _params(*, mode, precision, rust64, E, m_real, mxu, **overrides) -> dict:
+    """The scan parameters the kernels and the plain version read, with
+    the defaults of K2 / K3 (per-epoch raw inputs, no scale, per-epoch
+    dividends)."""
+    p = dict(
+        mode=mode, reset_mode=ResetMode.NONE, precision=int(precision),
+        rust64=rust64, liquid=False, overrides=(None, None), epoch_offset=0,
+        save_bonds=False, save_incentives=False, save_consensus=False, E=E,
+        scales=None, s_normalized=False, m_real=m_real, clip_src="scan",
+        recompute_prev=False, mxu=bool(mxu), accumulate=False,
+    )
+    p.update(overrides)
+    return p
+
+
+def _run(kernel: str, plain: bool, W4, S3, hp, ri, re_, state, *, T, p) -> dict:
+    """The kernel on CUDA tensors (unless `plain`), else its plain version."""
+    if W4.device.type == "cuda" and not plain:
+        return _scan_cuda(W4, S3, hp, ri, re_, state, T=T, p=p, kernel=kernel)
+    return _scan_plain(W4, S3, hp, ri, re_, state, T=T, p=p)
+
+
+def _check_mxu(mxu: bool, V: int) -> None:
+    if mxu:
+        check_mxu_support_covers(V)
+
+
+def _reset_vec(x, Bn: int, dev) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.int32).cpu().broadcast_to((Bn,)).contiguous().to(dev)
+
+
 def _scan(
     W, S, *, varying, plain, epoch_tile, reset_index, reset_epoch, reset_mode, kappa,
     bond_penalty, bond_alpha, capacity_alpha, decay_rate, liquid_alpha,
     alpha_low, alpha_high, override_consensus_high, override_consensus_low,
     mode, precision, save_bonds, save_incentives, save_consensus, carry,
-    epoch_offset, return_carry, x64,
+    epoch_offset, return_carry, x64, mxu,
 ):
     reset_mode = ResetMode.NONE if reset_mode is None else reset_mode
     if W.device.type not in ("cpu", "cuda"):
@@ -501,27 +618,11 @@ def _scan(
         raise ValueError(f"stakes must be {lead + (E, V)}, got {tuple(S.shape)}")
     if W.dtype != torch.float32 or S.dtype != torch.float32:
         raise ValueError("the fused scans take float32 weights and stakes")
+    _check_mxu(mxu, V)
     dev = W.device
     W4 = W.reshape(Bn, E, V, M).contiguous()
     S3 = S.reshape(Bn, E, V).contiguous()
-
-    T = 1
-    if varying:
-        if epoch_tile is None:
-            T = varying_scan_epoch_tile(W4.shape, dev)
-            if T < 1:
-                raise ValueError(
-                    f"{list(W.shape)} too large for the varying scan at any tile"
-                )
-        else:
-            T = int(epoch_tile)
-            if T < 1 or E % T:
-                raise ValueError(
-                    f"epoch_tile={T} must be >= 1 and divide the epoch count (E={E})"
-                )
-
-    def vec(x):
-        return torch.as_tensor(x, dtype=torch.int32).cpu().broadcast_to((Bn,)).contiguous().to(dev)
+    T = _epoch_tile(epoch_tile, W4.shape, dev, "varying scan") if varying else 1
 
     need = {"bonds", "consensus"} | ({"w_prev"} if mode is BondsMode.EMA_PREV else set())
     if carry is not None:
@@ -550,19 +651,18 @@ def _scan(
         capacity_alpha=capacity_alpha, decay_rate=decay_rate,
         liquid_alpha=liquid_alpha, alpha_low=alpha_low, alpha_high=alpha_high,
     )
-    p = dict(
-        mode=mode, reset_mode=reset_mode, precision=int(precision),
-        rust64=mode is BondsMode.EMA_RUST and x64, liquid=bool(liquid_alpha),
+    p = _params(
+        mode=mode, precision=precision, rust64=mode is BondsMode.EMA_RUST and x64,
+        E=E, m_real=M, mxu=mxu, reset_mode=reset_mode, liquid=bool(liquid_alpha),
         overrides=(override_consensus_high, override_consensus_low),
         epoch_offset=int(epoch_offset), save_bonds=save_bonds,
         save_incentives=save_incentives, save_consensus=save_consensus,
     )
-    ri, re_ = vec(reset_index), vec(reset_epoch)
-    state = (bonds, cprev, wprev)
-    if dev.type == "cuda" and not plain:
-        res = _scan_cuda(W4, S3, hp, ri, re_, state, T=T, p=p, varying=varying)
-    else:
-        res = _scan_plain(W4, S3, hp, ri, re_, state, T=T, p=p)
+    ri, re_ = _reset_vec(reset_index, Bn, dev), _reset_vec(reset_epoch, Bn, dev)
+    res = _run(
+        "varying_scan" if varying else "case_scan", plain, W4, S3, hp, ri, re_,
+        (bonds, cprev, wprev), T=T, p=p,
+    )
 
     def unlead(x):
         return x if lead else x[0]
@@ -589,6 +689,7 @@ def _scan_kwargs(
     save_bonds: bool = True, save_incentives: bool = True,
     save_consensus: bool = False, carry: Optional[dict] = None,
     epoch_offset: int = 0, return_carry: bool = False, x64: bool = False,
+    mxu: bool = False,
 ) -> dict:
     """The keyword arguments of the two scans, with the JAX functions'
     defaults."""
@@ -600,8 +701,9 @@ def fused_case_scan(W: torch.Tensor, S: torch.Tensor, **kwargs) -> dict:
     and `S [(B,) E, V]` are per-epoch raw weights and stakes; keyword
     arguments as JAX's `fused_case_scan` (`reset_index`, `reset_epoch`,
     `reset_mode`, the hyperparameters, `mode`, `precision`, the `save_*`
-    flags, `carry`, `epoch_offset`, `return_carry`), plus `x64` for Yuma
-    0's float64 quantization divide. Returns `dividends_normalized
+    flags, `carry`, `epoch_offset`, `return_carry`, `mxu`: the support sum
+    on the tensor cores, K4, V <= 2^14), plus `x64` for Yuma 0's float64
+    quantization divide. Returns `dividends_normalized
     [(B,) E, V]`, `final_bonds`, the saved per-epoch streams and, with
     `return_carry`, `final_consensus` (+ `final_w_prev` for EMA_PREV)."""
     return _scan(W, S, varying=False, plain=False, epoch_tile=None, **_scan_kwargs(**kwargs))
@@ -633,3 +735,177 @@ def fused_varying_scan_plain(
     return _scan(
         W, S, varying=True, plain=True, epoch_tile=epoch_tile, **_scan_kwargs(**kwargs)
     )
+
+
+# ---------------------------------------------------------------------------
+# K5 and K6: the scaled scan and the single fused epoch
+
+
+def _rust64_bound(M: int, precision: int) -> None:
+    """The JAX package's bound on Yuma 0's float64 quantize in its fused
+    kernels (pallas_epoch.py:1101-1106), kept so both packages refuse the
+    same inputs; the port divides in native float64 and would not need it."""
+    if (M << bisection_iterations(precision)) >= 2**31:
+        raise ValueError(
+            "the fused kernels' float64 quantize keeps the JAX package's bound "
+            f"M * 2^iters < 2^31 (M={M}, precision={precision}); use the eager "
+            "epoch path"
+        )
+
+
+def _ema_scan(
+    W, S_n, scales, *, plain, kappa=0.5, bond_penalty=1.0, bond_alpha=0.1,
+    capacity_alpha=0.1, decay_rate=0.1, liquid_alpha: bool = False,
+    alpha_low=0.7, alpha_high=0.9,
+    override_consensus_high: Optional[float] = None,
+    override_consensus_low: Optional[float] = None,
+    mode: BondsMode = BondsMode.EMA, mxu: bool = False, precision: int = 100_000,
+    recompute_prev: Optional[bool] = None, x64: bool = False,
+    epoch_tile: Optional[int] = None,
+):
+    if mode not in SCAN_MODES:
+        raise ValueError(f"fused scan does not implement bonds mode {mode}")
+    if W.ndim == 3:
+        Bn, V, M = W.shape
+        lead: tuple = (Bn,)
+    elif W.ndim == 2:
+        (V, M), Bn, lead = W.shape, 1, ()
+    else:
+        raise ValueError(f"weights must be [(Bb,) V, M], got {tuple(W.shape)}")
+    _check_mxu(mxu, V)
+    dev = W.device
+    scales = torch.as_tensor(scales, dtype=torch.float32, device=dev).reshape(-1)
+    E = scales.shape[0]
+    if E < 1:
+        raise ValueError("fused scan requires at least one epoch")
+    rust64 = mode is BondsMode.EMA_RUST and x64
+    if rust64:
+        _rust64_bound(M, precision)
+    if tuple(S_n.shape) != lead + (V,):
+        raise ValueError(f"stakes must be {lead + (V,)}, got {tuple(S_n.shape)}")
+    if W.dtype != torch.float32 or S_n.dtype != torch.float32:
+        raise ValueError("the fused scans take float32 weights and stakes")
+    W4 = W.reshape(Bn, 1, V, M).contiguous()
+    S3 = S_n.reshape(Bn, 1, V).contiguous()
+    T = _epoch_tile(epoch_tile, (Bn, E, V, M), dev, "scaled scan")
+    hp = _hp_rows(
+        Bn, dev, kappa=kappa, bond_penalty=bond_penalty, bond_alpha=bond_alpha,
+        capacity_alpha=capacity_alpha, decay_rate=decay_rate,
+        liquid_alpha=liquid_alpha, alpha_low=alpha_low, alpha_high=alpha_high,
+    )
+    p = _params(
+        mode=mode, precision=precision, rust64=rust64, E=E, m_real=M, mxu=mxu,
+        liquid=bool(liquid_alpha),
+        overrides=(override_consensus_high, override_consensus_low),
+        scales=scales.contiguous(), s_normalized=True, accumulate=True,
+        recompute_prev=bool(recompute_prev) and mode is BondsMode.EMA_PREV,
+    )
+    bonds = torch.zeros((Bn, V, M), dtype=torch.float32, device=dev)
+    cprev = torch.zeros((Bn, 1, M), dtype=torch.float32, device=dev)
+    wprev = torch.zeros_like(bonds) if mode is BondsMode.EMA_PREV else None
+    none = _reset_vec(-1, Bn, dev)
+    res = _run("ema_scan", plain, W4, S3, hp, none, none, (bonds, cprev, wprev), T=T, p=p)
+    B_final, D_tot = res["final_bonds"], res["dividends_total"]
+    return (B_final, D_tot) if lead else (B_final[0], D_tot[0])
+
+
+def fused_ema_scan(
+    W: torch.Tensor, S_n: torch.Tensor, scales: torch.Tensor, **kwargs
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The whole scan of the scaled workload (K5, JAX `fused_ema_scan`):
+    epoch e simulates `W * scales[e]`, for all five bond models with liquid
+    alpha and its overrides. `W [(Bb,) V, M]` raw weights (a scenario batch
+    shares `scales [E]`), `S_n [(Bb,) V]` NORMALIZED stakes (not
+    re-normalized). Keyword arguments: the hyperparameters (scalars or
+    `[Bb]` per scenario), `mode`, `mxu` (K4, V <= 2^14), `precision`,
+    `recompute_prev` (EMA_PREV: re-derive the previous epoch's weights
+    instead of carrying them; bitwise the same), `x64` (Yuma 0's float64
+    quantize) and `epoch_tile` (None: the largest divisor of E up to 16).
+    Returns `(B_final [(Bb,) V, M], D_n_total [(Bb,) V])`, the sum over
+    epochs of the normalized dividends."""
+    return _ema_scan(W, S_n, scales, plain=False, **kwargs)
+
+
+def fused_ema_scan_plain(
+    W: torch.Tensor, S_n: torch.Tensor, scales: torch.Tensor, **kwargs
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5's plain PyTorch version on any device (what :func:`fused_ema_scan`
+    runs for CPU tensors); the yardstick the kernel is held to on the card."""
+    return _ema_scan(W, S_n, scales, plain=True, **kwargs)
+
+
+def _ema_epoch(
+    W, S_n, B_old, *, plain, w_scale=1.0, kappa=0.5, bond_penalty=1.0,
+    bond_alpha=0.1, first_epoch=False, clip_base: Optional[torch.Tensor] = None,
+    mode: BondsMode = BondsMode.EMA, mxu: bool = False, precision: int = 100_000,
+    m_real: Optional[int] = None, x64: bool = False,
+):
+    if mode not in EMA_MODES:
+        raise ValueError(f"fused epoch supports the EMA family only, got {mode}")
+    if clip_base is not None and mode is not BondsMode.EMA_PREV:
+        raise ValueError("clip_base is only meaningful for EMA_PREV")
+    if W.ndim != 2:
+        raise ValueError(f"weights must be [V, M], got {tuple(W.shape)}")
+    V, M = W.shape
+    _check_mxu(mxu, V)
+    rust64 = mode is BondsMode.EMA_RUST and x64
+    if rust64:
+        _rust64_bound(M, precision)
+    m_real = M if m_real is None else int(m_real)
+    if not 0 < m_real <= M:
+        raise ValueError(f"m_real must be in (0, {M}], got {m_real}")
+    for name, x, shape in (("S_n", S_n, (V,)), ("B_old", B_old, (V, M))) + (
+        (("clip_base", clip_base, (V, M)),) if clip_base is not None else ()
+    ):
+        if tuple(x.shape) != shape or x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 {shape}, got {x.dtype} {tuple(x.shape)}")
+    if W.dtype != torch.float32:
+        raise ValueError("the fused epoch takes float32 weights")
+    dev = W.device
+    hp = _hp_rows(
+        1, dev, kappa=kappa, bond_penalty=bond_penalty, bond_alpha=bond_alpha,
+        capacity_alpha=0.0, decay_rate=0.0, liquid_alpha=False, alpha_low=0.0,
+        alpha_high=0.0,
+    )
+    # The first-epoch select reads "global epoch 0"; the clip base is the
+    # one given (the caller resolves EMA_PREV's first-epoch fallback, as
+    # JAX's caller does), else this epoch's W_n.
+    p = _params(
+        mode=mode, precision=precision, rust64=rust64, E=1, m_real=m_real, mxu=mxu,
+        epoch_offset=0 if bool(first_epoch) else 1, save_incentives=True,
+        scales=torch.as_tensor(w_scale, dtype=torch.float32, device=dev).reshape(1),
+        s_normalized=True,
+        clip_src="given" if clip_base is not None else "own",
+    )
+    bonds = B_old.reshape(1, V, M).clone().contiguous()
+    cprev = torch.zeros((1, 1, M), dtype=torch.float32, device=dev)
+    wprev = None if clip_base is None else clip_base.reshape(1, V, M).contiguous()
+    none = _reset_vec(-1, 1, dev)
+    res = _run(
+        "ema_epoch", plain, W.reshape(1, 1, V, M).contiguous(),
+        S_n.reshape(1, 1, V).contiguous(), hp, none, none, (bonds, cprev, wprev),
+        T=1, p=p,
+    )
+    return res["final_bonds"][0], res["dividends_normalized"][0, 0], res["incentives"][0, 0]
+
+
+def fused_ema_epoch(
+    W: torch.Tensor, S_n: torch.Tensor, B_old: torch.Tensor, **kwargs
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One fused EMA-family epoch (K6, JAX `fused_ema_epoch`): raw weights
+    `W [V, M]` scaled by `w_scale` in the kernel, NORMALIZED stakes `S_n
+    [V]`, the carried bonds `B_old [V, M]`. Keyword arguments: `w_scale`,
+    `kappa`, `bond_penalty`, `bond_alpha`, `first_epoch` (adopt the target
+    outright), `clip_base` (EMA_PREV only: the previous epoch's normalized
+    weights; None clips against this epoch's), `mode` (EMA, EMA_RUST,
+    EMA_PREV), `mxu`, `precision`, `m_real` (miners from `m_real` on are
+    left out of the quantize sum) and `x64`. Returns `(B_ema [V, M],
+    D_n [V], incentive [M])`."""
+    return _ema_epoch(W, S_n, B_old, plain=False, **kwargs)
+
+
+def fused_ema_epoch_plain(
+    W: torch.Tensor, S_n: torch.Tensor, B_old: torch.Tensor, **kwargs
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K6's plain PyTorch version on any device."""
+    return _ema_epoch(W, S_n, B_old, plain=True, **kwargs)

@@ -24,7 +24,10 @@ class LaunchCounter:
 #: One counter per kernel, by name.
 COUNTERS: dict[str, LaunchCounter] = {
     name: LaunchCounter(name)
-    for name in ("consensus_bisect", "case_scan", "varying_scan")
+    for name in (
+        "consensus_bisect", "case_scan", "varying_scan", "support_mma", "ema_scan",
+        "ema_epoch",
+    )
 }
 
 

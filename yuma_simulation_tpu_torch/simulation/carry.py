@@ -1,0 +1,43 @@
+"""The carries of the throughput loops, as small dataclasses of tensors.
+
+Each names the legs one loop carries from epoch to epoch, so a loop body
+reads `carry.bonds` rather than a tuple position (the JAX package's
+`simulation/carry.py`, where they are registered pytrees for `lax.scan`).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+
+@dataclass
+class TotalsCarry:
+    """The epoch-constant scan (:func:`.engine.simulate_constant`): the
+    full epoch state plus the running dividend total."""
+
+    bonds: torch.Tensor  # [V, M]
+    w_prev: torch.Tensor  # [V, M]
+    consensus: torch.Tensor  # [M]
+    acc: torch.Tensor  # [V]
+
+
+@dataclass
+class ScaledCarry:
+    """The epoch-varying scaled scan (:func:`.engine.simulate_scaled`);
+    `w_prev` is None for variants that do not carry previous weights."""
+
+    bonds: torch.Tensor  # [(B,) V, M]
+    w_prev: Optional[torch.Tensor]  # [(B,) V, M] or None
+    acc: torch.Tensor  # [(B,) V]
+
+
+@dataclass
+class HoistedCarry:
+    """The hoisted constant-weights scan: the bond recurrence and the
+    dividend total; everything else is computed once."""
+
+    bonds: torch.Tensor  # [V, M]
+    acc: torch.Tensor  # [V]

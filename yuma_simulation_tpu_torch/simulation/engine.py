@@ -2,18 +2,27 @@
 
 The reference's `run_simulation` (reference simulation_utils.py:26-112) is
 a Python `for` over epochs carrying `(B_state, W_prev, consensus)`. Here
-the loop runs on one of three rungs:
+the loop runs on one of these rungs:
 
 - "fused_varying": the epoch-tiled varying scan (CUDA kernel K3);
 - "fused_scan": the case scan, one epoch per step (CUDA kernel K2);
+- "fused_varying_mxu" / "fused_scan_mxu": the same kernels with the
+  consensus support sum on the tensor cores (K4), bitwise the same;
 - "eager": a Python loop over :func:`..models.epoch.yuma_epoch` (the
   counterpart of the JAX package's XLA `lax.scan` rung).
 
 `epoch_impl="auto"` resolves as the JAX package's planner does on the TPU:
 the varying scan when its epoch tile reaches 2, else the case scan, for
-CUDA tensors; on `device="cpu"` it resolves to "eager", as JAX's "auto"
-resolves to its XLA rung off the TPU. The fused rungs on CPU tensors run
-the kernels' plain PyTorch versions.
+CUDA tensors; "eager" on `device="cpu"`, as JAX's "auto" resolves to its
+XLA rung off the TPU, and where the dyadic quantize grid no longer fits
+int32 (the fused and eager quantize fallbacks may differ by an ulp there,
+so "auto" never mixes them). The fused rungs on CPU tensors run the
+kernels' plain PyTorch versions.
+
+The throughput paths (:func:`simulate_scaled`, :func:`simulate_scaled_batch`,
+:func:`simulate_constant`) return dividend totals and the final bonds
+only: the scaled ones run the scaled scan (K5) or the per-epoch fused
+kernel (K6) on the card, or the eager loop.
 """
 
 from __future__ import annotations
@@ -25,25 +34,49 @@ import numpy as np
 import torch
 
 from yuma_simulation_tpu_torch.models.config import YumaConfig
-from yuma_simulation_tpu_torch.models.epoch import yuma_epoch
+from yuma_simulation_tpu_torch.models.epoch import (
+    EMA_MODES,
+    BondsMode,
+    capacity_bonds_update,
+    ema_bonds_update,
+    relative_bonds_update,
+    yuma_epoch,
+)
 from yuma_simulation_tpu_torch.models.variants import (
     ResetMode,
     VariantSpec,
     variant_for_version,
 )
-from yuma_simulation_tpu_torch.ops.consensus import resolve_consensus_impl
+from yuma_simulation_tpu_torch.ops.consensus import (
+    bisection_iterations,
+    dyadic_grid_fits_int32,
+    exact_mxu_support_covers,
+    resolve_consensus_impl,
+)
 from yuma_simulation_tpu_torch.ops.cuda_epoch import (
     fused_case_scan,
+    fused_ema_epoch,
+    fused_ema_scan,
     fused_varying_scan,
     varying_scan_epoch_tile,
 )
-from yuma_simulation_tpu_torch.ops.normalize import normalize_weight_rows
+from yuma_simulation_tpu_torch.ops.liquid import liquid_alpha_rate
+from yuma_simulation_tpu_torch.ops.normalize import (
+    miner_sum,
+    normalize_stake,
+    normalize_weight_rows,
+)
 from yuma_simulation_tpu_torch.scenarios.base import Scenario
+from yuma_simulation_tpu_torch.simulation.carry import (
+    HoistedCarry,
+    ScaledCarry,
+    TotalsCarry,
+)
 
-EPOCH_IMPLS = ("auto", "eager", "fused_scan", "fused_varying")
-FUSED_RUNGS = ("fused_scan", "fused_varying")
-#: The JAX package's MXU twins of the fused rungs; not ported yet.
+#: The tensor-core (K4) twins of the fused rungs, bitwise the same.
 MXU_RUNGS = ("fused_scan_mxu", "fused_varying_mxu")
+FUSED_RUNGS = ("fused_scan", "fused_varying") + MXU_RUNGS
+EPOCH_IMPLS = ("auto", "eager") + FUSED_RUNGS
 
 #: Above this many bytes for one saved per-epoch stream, `save_bonds="auto"`
 #: / `save_incentives="auto"` resolve to False.
@@ -62,7 +95,7 @@ class SimulationResult:
     #: host arrays), only with ``return_state=True``; fed back as
     #: ``initial_state=`` with ``epoch_offset=`` it continues the run.
     final_state: Optional[dict] = None
-    #: The rung that ran ("fused_varying", "fused_scan" or "eager").
+    #: The rung that ran (one of :data:`FUSED_RUNGS`, or "eager").
     engine: str = ""
 
 
@@ -81,15 +114,17 @@ def resolve_device(device) -> torch.device:
 
 
 def plan_engine(
-    epoch_impl: str, consensus_impl: str, shape, dtype, device: torch.device
+    epoch_impl: str,
+    consensus_impl: str,
+    shape,
+    dtype,
+    device: torch.device,
+    precision: int = 100_000,
 ) -> str:
-    """Resolve `epoch_impl` for a `[(B,) E, V, M]` workload to a rung."""
-    if epoch_impl in MXU_RUNGS:
-        raise NotImplementedError(
-            f"epoch_impl={epoch_impl!r}: the exact tensor-core support twins "
-            "are not ported yet (ROADMAP B4); use "
-            f"{epoch_impl[: -len('_mxu')]!r}, whose values they equal"
-        )
+    """Resolve `epoch_impl` for a `[(B,) E, V, M]` workload to a rung.
+    `auto` never picks a fused rung once `M * 2^iters >= 2^31` (the JAX
+    package's gate, pallas_epoch.py:1308-1315); that test comes before any
+    query of the device."""
     if epoch_impl not in EPOCH_IMPLS:
         raise ValueError(
             f"unknown epoch_impl {epoch_impl!r}; expected one of {EPOCH_IMPLS}"
@@ -102,6 +137,8 @@ def plan_engine(
     fusable = consensus_impl in ("auto", "bisect") and dtype == torch.float32
     if epoch_impl == "auto":
         if device.type != "cuda" or not fusable or shape[-3] < 1:
+            return "eager"
+        if not dyadic_grid_fits_int32(shape[-1], bisection_iterations(precision)):
             return "eager"
         tile = varying_scan_epoch_tile(tuple(shape), device)
         return "fused_varying" if tile >= 2 else "fused_scan"
@@ -264,6 +301,7 @@ def _simulate_case_fused(
     save_incentives: bool = True,
     save_consensus: bool = False,
     varying: bool = False,
+    mxu: bool = False,
     epoch_tile: Optional[int] = None,
     carry: Optional[dict] = None,
     epoch_offset: int = 0,
@@ -271,9 +309,9 @@ def _simulate_case_fused(
     x64: bool = False,
 ):
     """The fused rungs: the whole epoch loop in the case scan (K2) or the
-    varying scan (K3, `varying=True`); only the dividend-per-1000-tao
-    conversion happens out here. Returns the same ys dict as
-    :func:`_simulate_scan`."""
+    varying scan (K3, `varying=True`), with the support sum on the tensor
+    cores (K4) under `mxu`; only the dividend-per-1000-tao conversion
+    happens out here. Returns the same ys dict as :func:`_simulate_scan`."""
     kwargs = dict(
         reset_index=reset_index,
         reset_epoch=reset_epoch,
@@ -286,6 +324,7 @@ def _simulate_case_fused(
         epoch_offset=epoch_offset,
         return_carry=return_carry,
         x64=x64,
+        mxu=mxu,
         **fused_hparams(config),
     )
     if varying:
@@ -356,7 +395,8 @@ def simulate(
     """Simulate one scenario under one named version; returns host arrays.
 
     `epoch_impl`: "auto" (default; see the module docstring), "eager",
-    "fused_scan" or "fused_varying". `consensus_impl`: "bisect" (default),
+    "fused_scan", "fused_varying" or their tensor-core twins
+    "fused_scan_mxu" / "fused_varying_mxu". `consensus_impl`: "bisect" (default),
     "sorted", "kernel" (the CUDA bisection kernel inside the eager rung) or
     "auto"; the fused rungs bisect in-kernel. `x64=True` runs Yuma 0's
     quantization divide in float64, the JAX package's parity mode.
@@ -377,7 +417,9 @@ def simulate(
     itemsize = torch.empty((), dtype=dtype).element_size()
     save_bonds = _resolve_save(save_bonds, E * V * M * itemsize, "save_bonds")
     save_incentives = _resolve_save(save_incentives, E * M * itemsize, "save_incentives")
-    engine = plan_engine(epoch_impl, consensus_impl, (E, V, M), dtype, dev)
+    engine = plan_engine(
+        epoch_impl, consensus_impl, (E, V, M), dtype, dev, config.consensus_precision
+    )
 
     weights = torch.as_tensor(scenario.weights, dtype=dtype).to(dev)
     stakes = torch.as_tensor(scenario.stakes, dtype=dtype).to(dev)
@@ -401,7 +443,8 @@ def simulate(
     if engine in FUSED_RUNGS:
         out = _simulate_case_fused(
             weights, stakes, ri, re_, config, spec,
-            varying=engine == "fused_varying", **common,
+            varying=engine.startswith("fused_varying"),
+            mxu=engine in MXU_RUNGS, **common,
         )
     else:
         out = _simulate_scan(
@@ -443,3 +486,346 @@ def run_simulation(
         for i, validator in enumerate(case.validators)
     }
     return dividends_per_validator, list(result.bonds), list(result.incentives)
+
+
+# ---------------------------------------------------------------------------
+# the throughput paths: totals and final bonds, no per-epoch outputs
+
+#: The scaled path's rungs; the batch takes the scans and the eager rung.
+SCALED_IMPLS = ("auto", "eager", "fused", "fused_mxu", "fused_scan", "fused_scan_mxu")
+SCALED_BATCH_IMPLS = ("auto", "eager", "fused_scan", "fused_scan_mxu")
+#: What `auto` runs on CUDA tensors: whichever of the two bitwise-equal K5
+#: spellings chip_smoke.py measured faster at 256 x 4096 x 64 epochs: the
+#: tensor-core support, whose bisection took 734-740 us of device time
+#: against the VPU one's 749-750 us in two runs on an NVIDIA H100 80GB HBM3
+#: at 700 W (whole calls within 1%; PERF.md).
+SCALED_AUTO_SCAN = "fused_scan_mxu"
+
+
+def plan_scaled_engine(
+    epoch_impl: str,
+    consensus_impl: str,
+    shape,
+    dtype,
+    device: torch.device,
+    num_epochs: int,
+    precision: int = 100_000,
+    *,
+    batched: bool = False,
+) -> str:
+    """Resolve `epoch_impl` of :func:`simulate_scaled` (`shape [V, M]`) or
+    :func:`simulate_scaled_batch` (`[B, V, M]`, `batched=True`) to a rung
+    (the JAX package's `planner.resolve_scaled_engine` with the numeric
+    gates of `fused_scan_eligible`). `auto` runs the scaled scan
+    (:data:`SCALED_AUTO_SCAN`, its VPU spelling where the exact limb split
+    does not cover V) on float32 CUDA tensors with at least one epoch while
+    the dyadic quantize grid fits int32, else "eager". JAX's further gate
+    on Yuma 0 in x64 (`M * 2^iters >= 2^23`) guards its double-single
+    float64 emulation; the port divides in native float64 and drops it.
+    JAX's VMEM admission does not carry over: K5's state lives in device
+    memory. `consensus_impl` is validated on every rung; the fused rungs
+    bisect in-kernel and do not read it."""
+    resolve_consensus_impl(consensus_impl, *shape[-2:])
+    impls = SCALED_BATCH_IMPLS if batched else SCALED_IMPLS
+    if epoch_impl not in impls:
+        name = "simulate_scaled_batch" if batched else "simulate_scaled"
+        raise ValueError(
+            f"unknown epoch_impl {epoch_impl!r} for {name}; expected one of {impls}"
+        )
+    if epoch_impl != "auto":
+        return epoch_impl
+    V, M = shape[-2:]
+    if (
+        device.type != "cuda"
+        or dtype != torch.float32
+        or num_epochs < 1
+        or not dyadic_grid_fits_int32(M, bisection_iterations(precision))
+    ):
+        return "eager"
+    if SCALED_AUTO_SCAN == "fused_scan_mxu" and not exact_mxu_support_covers(V):
+        return "fused_scan"
+    return SCALED_AUTO_SCAN
+
+
+def _check_scalar_config(config: YumaConfig, name: str) -> None:
+    """A config with `[B]`-vector fields (a `config_grid` grid) is not
+    ported yet."""
+    for part in (config.simulation, config.yuma_params):
+        for f in fields(part):
+            if np.ndim(getattr(part, f.name)) > 0:
+                raise NotImplementedError(
+                    f"{name}: per-scenario config vectors ({f.name}) are not "
+                    "ported yet (ROADMAP queue A, slice 3: config_grid)"
+                )
+
+
+def _throughput_inputs(W, S, *extra):
+    """The device the tensors live on, and `S` / `extra` as tensors of
+    `W`'s dtype there."""
+    dev = resolve_device(W.device)
+    return dev, [torch.as_tensor(x, dtype=W.dtype, device=dev) for x in (S,) + extra]
+
+
+def _scaled_eager(W, S, scales, config, spec, consensus_impl, x64):
+    """The eager rung of the scaled path: epoch e runs :func:`yuma_epoch`
+    on `W * scales[e]`, any leading batch dims included."""
+    cfg = _tensor_config(config, W.device)
+    zero_b = torch.zeros_like(W)
+    carry = ScaledCarry(
+        bonds=zero_b,
+        w_prev=zero_b if spec.carries_prev_weights else None,
+        acc=torch.zeros(W.shape[:-1], dtype=W.dtype, device=W.device),
+    )
+    for e in range(scales.shape[0]):
+        Wv = W * scales[e]
+        first = e == 0
+        kernel_prev = None
+        if spec.bonds_mode is BondsMode.EMA_PREV:
+            kernel_prev = normalize_weight_rows(Wv) if first else carry.w_prev
+        res = yuma_epoch(
+            Wv, S, carry.bonds, cfg, bonds_mode=spec.bonds_mode, W_prev=kernel_prev,
+            first_epoch=first, consensus_impl=consensus_impl, x64=x64,
+        )
+        carry = ScaledCarry(
+            bonds=res[spec.bond_state_key],
+            w_prev=res["weight"] if spec.carries_prev_weights else None,
+            acc=carry.acc + _dividends_per_1k(res["validator_reward_normalized"], S, cfg),
+        )
+    return carry.acc, carry.bonds
+
+
+def _scaled_scan(W, S, scales, config, spec, engine, x64):
+    """K5 over the whole scan; the per-1000-tao conversion is linear in
+    D_n, so it is applied once to the in-kernel epoch sum (engine.py:1830
+    of the JAX package)."""
+    B_final, D_tot = fused_ema_scan(
+        W, normalize_stake(S), scales, mode=spec.bonds_mode,
+        mxu=engine == "fused_scan_mxu", x64=x64, **fused_hparams(config),
+    )
+    return _dividends_per_1k(D_tot, S, _tensor_config(config, W.device)), B_final
+
+
+def simulate_scaled(
+    W: torch.Tensor,
+    S: torch.Tensor,
+    scales: torch.Tensor,
+    config: Optional[YumaConfig] = None,
+    spec: Optional[VariantSpec] = None,
+    consensus_impl: str = "bisect",
+    epoch_impl: str = "auto",
+    *,
+    x64: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The epoch-varying throughput workload: epoch e simulates
+    `W * scales[e]` (`W [V, M]` base weights, `S [V]` raw stakes, `scales
+    [E]`), on the device `W` lives on. The scale is numerically almost
+    neutral (row normalization divides it out) but makes every epoch do
+    its full work.
+
+    `epoch_impl`: "auto" (see :func:`plan_scaled_engine`), "eager" (the
+    loop over :func:`yuma_epoch`, JAX's "xla"), "fused_scan" /
+    "fused_scan_mxu" (the whole scan in K5, all five bond models; with
+    the support on the tensor cores, bitwise the same), "fused" /
+    "fused_mxu" (K6 once per epoch; EMA family, no liquid alpha).
+    `spec` defaults to Yuma 1. `x64=True` runs Yuma 0's quantize divide in
+    float64, the JAX package's x64 parity mode.
+
+    Returns `(total_dividends [V], final_bonds [V, M])`: the dividend per
+    1000 tao summed over epochs.
+    """
+    config = config if config is not None else YumaConfig()
+    spec = spec if spec is not None else variant_for_version("Yuma 1 (paper)")
+    _check_scalar_config(config, "simulate_scaled")
+    if W.ndim != 2:
+        raise ValueError(f"W must be [V, M], got {tuple(W.shape)}")
+    dev, (S, scales) = _throughput_inputs(W, S, scales)
+    V, M = W.shape
+    consensus_impl = resolve_consensus_impl(consensus_impl, V, M)
+    engine = plan_scaled_engine(
+        epoch_impl, consensus_impl, (V, M), W.dtype, dev, scales.shape[0],
+        config.consensus_precision,
+    )
+    if engine in ("fused_scan", "fused_scan_mxu"):
+        return _scaled_scan(W, S, scales, config, spec, engine, x64)
+    if engine == "eager":
+        return _scaled_eager(W, S, scales, config, spec, consensus_impl, x64)
+    # "fused" / "fused_mxu": K6 once per epoch.
+    if spec.bonds_mode not in EMA_MODES:
+        raise ValueError("fused epoch_impl supports the EMA family only")
+    if config.liquid_alpha:
+        raise ValueError("fused epoch_impl does not support liquid alpha")
+    cfg = _tensor_config(config, dev)
+    hp = fused_hparams(config)
+    ema_hp = {k: hp[k] for k in ("kappa", "bond_penalty", "bond_alpha", "precision")}
+    S_n = normalize_stake(S)  # stake is epoch-constant: normalize once
+    zero_b = torch.zeros_like(W)
+    carry = ScaledCarry(
+        bonds=zero_b,
+        w_prev=zero_b if spec.carries_prev_weights else None,
+        acc=torch.zeros((V,), dtype=W.dtype, device=dev),
+    )
+    for e in range(scales.shape[0]):
+        first = e == 0
+        # The clip base and the carried previous weights are normalized with
+        # the eager rung's blocked miner_sum (JAX engine.py:1850, 1863).
+        W_n_now = normalize_weight_rows(W * scales[e])
+        clip = None
+        if spec.bonds_mode is BondsMode.EMA_PREV:
+            clip = W_n_now if first else carry.w_prev
+        B_next, D_n, _ = fused_ema_epoch(
+            W, S_n, carry.bonds, w_scale=scales[e], first_epoch=first, clip_base=clip,
+            mode=spec.bonds_mode, mxu=engine == "fused_mxu", x64=x64, **ema_hp,
+        )
+        carry = ScaledCarry(
+            bonds=B_next,
+            w_prev=W_n_now if spec.carries_prev_weights else None,
+            acc=carry.acc + _dividends_per_1k(D_n, S, cfg),
+        )
+    return carry.acc, carry.bonds
+
+
+def simulate_scaled_batch(
+    W: torch.Tensor,
+    S: torch.Tensor,
+    scales: torch.Tensor,
+    config: Optional[YumaConfig] = None,
+    spec: Optional[VariantSpec] = None,
+    consensus_impl: str = "bisect",
+    epoch_impl: str = "auto",
+    *,
+    x64: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """A scenario batch of the scaled workload: `W [B, V, M]`, `S [B, V]`,
+    one `scales [E]` shared by all. `epoch_impl`: "auto", "eager" (the
+    loop over :func:`yuma_epoch` with the batch as a leading dim),
+    "fused_scan" or "fused_scan_mxu" (K5 advancing every scenario each
+    epoch). Returns `(total_dividends [B, V], final_bonds [B, V, M])`."""
+    config = config if config is not None else YumaConfig()
+    spec = spec if spec is not None else variant_for_version("Yuma 1 (paper)")
+    _check_scalar_config(config, "simulate_scaled_batch")
+    if W.ndim != 3:
+        raise ValueError(f"W must be [B, V, M], got {tuple(W.shape)}")
+    dev, (S, scales) = _throughput_inputs(W, S, scales)
+    consensus_impl = resolve_consensus_impl(consensus_impl, *W.shape[-2:])
+    engine = plan_scaled_engine(
+        epoch_impl, consensus_impl, tuple(W.shape), W.dtype, dev, scales.shape[0],
+        config.consensus_precision, batched=True,
+    )
+    if engine == "eager":
+        return _scaled_eager(W, S, scales, config, spec, consensus_impl, x64)
+    return _scaled_scan(W, S, scales, config, spec, engine, x64)
+
+
+def simulate_constant(
+    W: torch.Tensor,
+    S: torch.Tensor,
+    num_epochs: int,
+    config: Optional[YumaConfig] = None,
+    spec: Optional[VariantSpec] = None,
+    consensus_impl: str = "bisect",
+    hoist_invariant: bool = False,
+    *,
+    x64: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The epoch-constant throughput path: `num_epochs` epochs of the same
+    `W [V, M]` and `S [V]`, on the device `W` lives on, with the dividend
+    total accumulated in the carry and no per-epoch outputs. It runs no
+    kernel: the eager loop over :func:`yuma_epoch`.
+
+    `hoist_invariant=True` runs the epoch's consensus front half (which
+    depends only on `(W, S)`) once and then only the bond recurrence and
+    the dividends, with the same update helpers :func:`yuma_epoch` uses;
+    it needs `num_epochs >= 1`. The constant path has no scenario, so no
+    bond reset fires. (JAX's `mesh=` and its HBM preflight are not ported
+    yet: ROADMAP queue A, slices 4 and 5.)
+
+    Returns `(total_dividends [V], final_bonds [V, M])`.
+    """
+    config = config if config is not None else YumaConfig()
+    spec = spec if spec is not None else variant_for_version("Yuma 1 (paper)")
+    _check_scalar_config(config, "simulate_constant")
+    if W.ndim != 2:
+        raise ValueError(f"W must be [V, M], got {tuple(W.shape)}")
+    dev, (S,) = _throughput_inputs(W, S)
+    V, M = W.shape
+    consensus_impl = resolve_consensus_impl(consensus_impl, V, M)
+    cfg = _tensor_config(config, dev)
+    if hoist_invariant:
+        return _simulate_constant_hoisted(W, S, num_epochs, cfg, spec, consensus_impl, x64)
+    zero_b = torch.zeros_like(W)
+    carry = TotalsCarry(
+        bonds=zero_b, w_prev=zero_b,
+        consensus=torch.zeros((M,), dtype=W.dtype, device=dev),
+        acc=torch.zeros((V,), dtype=W.dtype, device=dev),
+    )
+    for epoch in range(num_epochs):
+        first = epoch == 0
+        kernel_prev = None
+        if spec.bonds_mode is BondsMode.EMA_PREV:
+            kernel_prev = normalize_weight_rows(W) if first else carry.w_prev
+        res = yuma_epoch(
+            W, S, carry.bonds, cfg, bonds_mode=spec.bonds_mode, W_prev=kernel_prev,
+            first_epoch=first, consensus_impl=consensus_impl, x64=x64,
+        )
+        carry = TotalsCarry(
+            bonds=res[spec.bond_state_key],
+            w_prev=res["weight"] if spec.carries_prev_weights else carry.w_prev,
+            consensus=res["server_consensus_weight"],
+            acc=carry.acc + _dividends_per_1k(res["validator_reward_normalized"], S, cfg),
+        )
+    return carry.acc, carry.bonds
+
+
+def _simulate_constant_hoisted(W, S, num_epochs, cfg, spec, consensus_impl, x64):
+    """Epoch 0 of :func:`yuma_epoch` supplies every epoch-invariant value
+    (normalized weights and stakes, consensus, incentive, the liquid rate
+    and, for the EMA families, the purchase target); the loop then applies
+    only the bond update helpers of :mod:`..models.epoch`."""
+    if num_epochs < 1:
+        raise ValueError("hoist_invariant path requires num_epochs >= 1")
+    res0 = yuma_epoch(
+        W, S, None, cfg, bonds_mode=spec.bonds_mode, consensus_impl=consensus_impl,
+        x64=x64,
+    )
+    W_n, S_n, incentive = res0["weight"], res0["stake"], res0["server_incentive"]
+    if cfg.liquid_alpha and spec.bonds_mode is not BondsMode.CAPACITY:
+        rate, _, _ = liquid_alpha_rate(
+            res0["server_consensus_weight"], cfg.alpha_low, cfg.alpha_high,
+            override_consensus_high=cfg.override_consensus_high,
+            override_consensus_low=cfg.override_consensus_low,
+        )
+    else:
+        rate = torch.as_tensor(cfg.bond_alpha, dtype=W.dtype, device=W.device)
+
+    def dividends_of(B):
+        # The miner-axis sum as the full epoch spells it (miner_sum).
+        D = miner_sum(B * incentive)
+        if spec.bonds_mode is BondsMode.RELATIVE:
+            D = S_n * D
+        return _dividends_per_1k(D / (D.sum() + 1e-6), S, cfg)
+
+    if spec.bonds_mode in EMA_MODES:
+        B_target = res0["validator_bond"]
+        renorm = spec.bonds_mode is BondsMode.EMA_RUST
+
+        def bonds_update(B_prev):
+            return ema_bonds_update(B_target, B_prev, rate, None, renorm)
+
+        B0 = res0["validator_ema_bond"]
+    elif spec.bonds_mode is BondsMode.CAPACITY:
+
+        def bonds_update(B_prev):
+            return capacity_bonds_update(B_prev, W_n, S_n, cfg)
+
+        B0 = res0["validator_bonds"]
+    else:  # RELATIVE
+
+        def bonds_update(B_prev):
+            return relative_bonds_update(B_prev, W_n, rate)
+
+        B0 = res0["validator_bonds"]
+    carry = HoistedCarry(bonds=B0, acc=dividends_of(B0))
+    for _ in range(num_epochs - 1):
+        B_next = bonds_update(carry.bonds)
+        carry = HoistedCarry(bonds=B_next, acc=carry.acc + dividends_of(B_next))
+    return carry.acc, carry.bonds

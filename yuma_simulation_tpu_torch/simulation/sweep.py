@@ -19,6 +19,7 @@ from yuma_simulation_tpu_torch.ops.consensus import resolve_consensus_impl
 from yuma_simulation_tpu_torch.scenarios.base import Scenario
 from yuma_simulation_tpu_torch.simulation.engine import (
     FUSED_RUNGS,
+    MXU_RUNGS,
     _simulate_case_fused,
     _simulate_scan,
     plan_engine,
@@ -74,7 +75,10 @@ def simulate_batch(
     if weights.ndim != 4:
         raise ValueError(f"weights must be [B, E, V, M], got {tuple(weights.shape)}")
     dev = resolve_device(weights.device)
-    engine = plan_engine(epoch_impl, consensus_impl, weights.shape, weights.dtype, dev)
+    engine = plan_engine(
+        epoch_impl, consensus_impl, weights.shape, weights.dtype, dev,
+        config.consensus_precision,
+    )
     common = dict(
         save_bonds=save_bonds,
         save_incentives=save_incentives,
@@ -84,7 +88,8 @@ def simulate_batch(
     if engine in FUSED_RUNGS:
         return _simulate_case_fused(
             weights, stakes, reset_index, reset_epoch, config, spec,
-            varying=engine == "fused_varying", **common,
+            varying=engine.startswith("fused_varying"),
+            mxu=engine in MXU_RUNGS, **common,
         )
     V, M = weights.shape[-2:]
     return _simulate_scan(
