@@ -35,7 +35,8 @@ process per source, on first use), then:
    `simulate_scaled` with default arguments (auto) over 512 epochs at
    256 x 4096, `simulate_scaled_batch` (B=4), `simulate_scaled(epoch_impl=
    "fused_scan_mxu")`, `simulate_scaled(epoch_impl="fused")` over 16 epochs
-   (K6 16 times) and `simulate_constant` both ways over 64 epochs;
+   (K6 16 times) and `simulate_constant` both ways over 64 epochs; and
+   times K5's two spellings over 64 epochs in 16 pairs of alternating order;
 9. prints one `{"kernels": [...]}` line for K1-K6 (launches on the main
    paths, max |kernel - plain|, kernel and plain times from CUDA events,
    the roofline bound, and a library call's time where one exists), the
@@ -310,16 +311,26 @@ def scaled_phases(torch, dev, measured, launches, report):
     print(f"K6 ok: EMA / EMA_RUST / EMA_PREV+clip / m_real, first and later; "
           f"max |kernel - plain| {err6:.3g}", flush=True)
 
-    # ---- Timings: K5 over 64 epochs, its two spellings in turns; K6.
+    # ---- Timings: K5 over 64 epochs, its two spellings in 16 pairs, the
+    # order alternating from pair to pair so that drift cancels; K6.
     sc64 = scales_of(64)
-    t_vpu, t_mxu = [], []
-    for order in (False, True, True, False, False, True):
-        t = cuda_ms(torch, lambda: fused_ema_scan(W1, Sn1, sc64, mxu=order), 10)
-        (t_mxu if order else t_vpu).append(t)
-    k5_vpu, k5_mxu = min(t_vpu), min(t_mxu)
-    report["k5_spellings_ms_per_64_epochs"] = {"fused_scan": t_vpu, "fused_scan_mxu": t_mxu}
-    print(f"K5 at [{V}, {M}] x 64 epochs: VPU support {t_vpu} ms, tensor-core support "
-          f"{t_mxu} ms", flush=True)
+    pairs = []
+    for i in range(16):
+        t = {}
+        for mxu in ((False, True) if i % 2 == 0 else (True, False)):
+            t[mxu] = cuda_ms(torch, lambda: fused_ema_scan(W1, Sn1, sc64, mxu=mxu), 10)
+        pairs.append((t[False], t[True]))
+    t_vpu, t_mxu = [p[0] for p in pairs], [p[1] for p in pairs]
+    k5_vpu, k5_mxu = float(np.median(t_vpu)), float(np.median(t_mxu))
+    mxu_wins = sum(m < v for v, m in pairs)
+    gap = float(np.median([v - m for v, m in pairs]))
+    report["k5_spellings_ms_per_64_epochs"] = dict(
+        pairs_vpu_mxu=pairs, mxu_wins=mxu_wins, median_vpu_minus_mxu=gap,
+    )
+    print(f"K5 at [{V}, {M}] x 64 epochs, 16 alternated pairs: median VPU support "
+          f"{k5_vpu} ms, tensor-core support {k5_mxu} ms; tensor cores faster in "
+          f"{mxu_wins} of 16, median paired gap (VPU - tensor cores) {gap} ms; "
+          f"pairs {pairs}", flush=True)
     ops_epoch = (BISECT_OPS + ELEMENTWISE_OPS) * V * M
     k5 = dict(
         max_abs_err=err5, ms=k5_vpu, vpu_ms=k5_vpu, mxu_ms=k5_mxu,

@@ -146,8 +146,8 @@ def test_scans_match_plain(cuda, version, params, V, M):
             torch.testing.assert_close(k3[key], k2[key], rtol=0, atol=0)
         for key in ("dividends_normalized", "bonds", "final_bonds"):
             torch.testing.assert_close(k3[key], k2[key], rtol=0, atol=1e-6)
-    counts = launch_counts()
-    assert (counts["case_scan"], counts["varying_scan"], counts["support_mma"]) == (1, 2, 0)
+    assert launch_counts() == {"consensus_bisect": 0, "case_scan": 1, "varying_scan": 2,
+                               "support_mma": 0, "ema_scan": 0, "ema_epoch": 0}
 
 
 @pytest.mark.parametrize("x64", [False, True], ids=["f32", "x64"])
@@ -352,41 +352,40 @@ def _hp(params):
 @pytest.mark.parametrize("V,M", SHAPES, ids=[f"{v}x{m}" for v, m in SHAPES])
 @pytest.mark.parametrize("version,params", VERSIONS, ids=IDS)
 def test_ema_scan_matches_plain(cuda, version, params, V, M, batched):
-    """K5 against its plain version (tile 3 and the auto tile), for every
-    version; its mxu spelling bitwise."""
-    W, S_n, scales = _scaled_inputs(V, M)
-    if not batched:
-        W, S_n = W[0], S_n[0]
+    """K5 against its plain version at E=9 (one tile of 9 epochs) and E=17
+    (17 tiles of one), for every version; its mxu spelling bitwise, with
+    one tensor-core bisection launched per tile."""
     mode = variant_for_version(version).bonds_mode
     kw = dict(mode=mode, x64=mode is BondsMode.EMA_RUST, **_hp(params))
     reset_launch_counts()
-    for tile in (3, None):
-        ref = fused_ema_scan(W, S_n, scales, epoch_tile=tile, **kw)
-        got = fused_ema_scan(W.to(cuda), S_n.to(cuda), scales.to(cuda), epoch_tile=tile, **kw)
+    for E in (9, 17):
+        W, S_n, scales = _scaled_inputs(V, M, E=E)
+        if not batched:
+            W, S_n = W[0], S_n[0]
+        ref = fused_ema_scan(W, S_n, scales, **kw)
+        got = fused_ema_scan(W.to(cuda), S_n.to(cuda), scales.to(cuda), **kw)
         for g, r, key in zip(got, ref, ("bonds", "D_n total")):
             torch.testing.assert_close(g.cpu(), r, rtol=RTOL, atol=ATOL,
-                                       msg=lambda m: f"{version} tile {tile} {key}: {m}")
-        mxu = fused_ema_scan(W.to(cuda), S_n.to(cuda), scales.to(cuda), epoch_tile=tile,
-                             mxu=True, **kw)
+                                       msg=lambda m: f"{version} E={E} {key}: {m}")
+        mxu = fused_ema_scan(W.to(cuda), S_n.to(cuda), scales.to(cuda), mxu=True, **kw)
         for g, x in zip(got, mxu):
             torch.testing.assert_close(x, g, rtol=0, atol=0)
     counts = launch_counts()
-    assert (counts["ema_scan"], counts["support_mma"]) == (4, 2), counts
+    assert (counts["ema_scan"], counts["support_mma"]) == (4, 1 + 17), counts
 
 
 @pytest.mark.parametrize("batched", [False, True], ids=["single", "batched"])
 def test_ema_scan_recompute_prev_bitwise(cuda, batched):
-    W, S_n, scales = _scaled_inputs(40, 300, seed=1)
-    if not batched:
-        W, S_n = W[0], S_n[0]
-    W, S_n, scales = W.to(cuda), S_n.to(cuda), scales.to(cuda)
-    ref = fused_ema_scan(W, S_n, scales, mode=BondsMode.EMA_PREV, epoch_tile=1)
-    for tile in (1, 3, 9):
-        for recompute in (False, True):
-            got = fused_ema_scan(W, S_n, scales, mode=BondsMode.EMA_PREV, epoch_tile=tile,
-                                 recompute_prev=recompute)
-            for g, r in zip(got, ref):
-                torch.testing.assert_close(g, r, rtol=0, atol=0)
+    """EMA_PREV's two spellings bitwise, at tiles 1 (E=17), 2 and 9."""
+    for E in (17, 2, 9):
+        W, S_n, scales = _scaled_inputs(40, 300, E=E, seed=1)
+        if not batched:
+            W, S_n = W[0], S_n[0]
+        W, S_n, scales = W.to(cuda), S_n.to(cuda), scales.to(cuda)
+        ref = fused_ema_scan(W, S_n, scales, mode=BondsMode.EMA_PREV, recompute_prev=False)
+        got = fused_ema_scan(W, S_n, scales, mode=BondsMode.EMA_PREV, recompute_prev=True)
+        for g, r in zip(got, ref):
+            torch.testing.assert_close(g, r, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("m_real", [None, 250], ids=["all", "m_real"])

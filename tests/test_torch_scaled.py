@@ -47,7 +47,6 @@ from yuma_simulation_tpu_torch.ops.consensus import (
 from yuma_simulation_tpu_torch.ops.cuda_epoch import fused_ema_epoch, fused_ema_scan
 from yuma_simulation_tpu_torch.ops.normalize import normalize_weight_rows
 from yuma_simulation_tpu_torch.simulation.engine import (
-    SCALED_AUTO_SCAN,
     plan_scaled_engine,
     simulate_constant,
     simulate_scaled,
@@ -161,16 +160,16 @@ def test_ema_scan_liquid_overrides_take_effect(jax_scan):
 @pytest.mark.parametrize("batched", [False, True], ids=["single", "batched"])
 def test_ema_scan_recompute_prev_bitwise(batched):
     """EMA_PREV's two spellings: the previous W_n carried, or re-derived
-    from W * scales[e-1] - bitwise the same, at tiles 1, 2 and 8."""
+    from W * scales[e-1] - bitwise the same, at tiles 1 (E=17), 2 and 8
+    (the tile is the largest divisor of E up to 16)."""
     W, S_n = (W_NP, SN_NP) if batched else (W_NP[0], SN_NP[0])
-    args = (torch.tensor(W), torch.tensor(S_n), torch.tensor(SCALES_NP))
-    ref = fused_ema_scan(*args, mode=BondsMode.EMA_PREV, recompute_prev=False, epoch_tile=1)
-    for tile in (1, 2, 8):
-        for recompute in (False, True):
-            got = fused_ema_scan(*args, mode=BondsMode.EMA_PREV, recompute_prev=recompute,
-                                 epoch_tile=tile)
-            for x, y in zip(got, ref):
-                _equal(x, y, f"tile {tile} recompute {recompute}")
+    scales = torch.tensor(1.0 + 1e-4 * np.random.default_rng(3).random(17), dtype=torch.float32)
+    for n in (17, 2, 8):
+        args = (torch.tensor(W), torch.tensor(S_n), scales[:n])
+        ref = fused_ema_scan(*args, mode=BondsMode.EMA_PREV, recompute_prev=False)
+        got = fused_ema_scan(*args, mode=BondsMode.EMA_PREV, recompute_prev=True)
+        for x, y in zip(got, ref):
+            _equal(x, y, f"E={n}")
 
 
 # ---------------------------------------------------------------------------
@@ -339,8 +338,8 @@ def test_plan_scaled_engine():
         return plan_scaled_engine(impl, "bisect", shape, kw.pop("dtype", f32), dev, epochs, **kw)
 
     assert plan("auto", dev=cpu) == "eager"
-    assert plan("auto") == SCALED_AUTO_SCAN
-    assert plan("auto", (4, 256, 4096), batched=True) == SCALED_AUTO_SCAN
+    assert plan("auto") == "fused_scan"
+    assert plan("auto", (4, 256, 4096), batched=True) == "fused_scan"
     assert plan("auto", (2**14 + 1, 8)) == "fused_scan"
     assert plan("auto", (8, 16384)) == "eager"  # M * 2^17 >= 2^31
     assert plan("auto", (8, 64), precision=2**26) == "eager"

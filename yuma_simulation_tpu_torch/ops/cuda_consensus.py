@@ -27,8 +27,8 @@ from yuma_simulation_tpu_torch.ops.consensus import (
 from yuma_simulation_tpu_torch.ops.launches import COUNTERS
 
 LAUNCHES = COUNTERS["consensus_bisect"]
-#: K4's count: every wrapper call that ran the tensor-core bisection (this
-#: one with `mma=True`, and the scans with `mxu=True`, which run it inside).
+#: K4's count: every launch of the tensor-core bisection, by this wrapper
+#: with `mma=True` and inside the scans with `mxu=True` (one per epoch tile).
 MMA_LAUNCHES = COUNTERS["support_mma"]
 
 _P = ctypes.c_void_p

@@ -497,7 +497,7 @@ def _scan_cuda(W, S, hp, reset_index, reset_epoch, state, *, T, p, kernel: str):
         raise RuntimeError(f"{kernel} kernel failed: CUDA error {err}")
     counter.add()
     if p["mxu"]:
-        MMA_LAUNCHES.add()
+        MMA_LAUNCHES.add(E // T)  # run_scan launches k_bisect_mma once per tile
     out = {k: v for k, v in out.items() if v is not None}
     out["final_bonds"] = bonds
     out["final_consensus"] = cprev[:, 0]
@@ -761,7 +761,6 @@ def _ema_scan(
     override_consensus_low: Optional[float] = None,
     mode: BondsMode = BondsMode.EMA, mxu: bool = False, precision: int = 100_000,
     recompute_prev: Optional[bool] = None, x64: bool = False,
-    epoch_tile: Optional[int] = None,
 ):
     if mode not in SCAN_MODES:
         raise ValueError(f"fused scan does not implement bonds mode {mode}")
@@ -787,7 +786,7 @@ def _ema_scan(
         raise ValueError("the fused scans take float32 weights and stakes")
     W4 = W.reshape(Bn, 1, V, M).contiguous()
     S3 = S_n.reshape(Bn, 1, V).contiguous()
-    T = _epoch_tile(epoch_tile, (Bn, E, V, M), dev, "scaled scan")
+    T = _epoch_tile(None, (Bn, E, V, M), dev, "scaled scan")
     hp = _hp_rows(
         Bn, dev, kappa=kappa, bond_penalty=bond_penalty, bond_alpha=bond_alpha,
         capacity_alpha=capacity_alpha, decay_rate=decay_rate,
@@ -819,10 +818,11 @@ def fused_ema_scan(
     re-normalized). Keyword arguments: the hyperparameters (scalars or
     `[Bb]` per scenario), `mode`, `mxu` (K4, V <= 2^14), `precision`,
     `recompute_prev` (EMA_PREV: re-derive the previous epoch's weights
-    instead of carrying them; bitwise the same), `x64` (Yuma 0's float64
-    quantize) and `epoch_tile` (None: the largest divisor of E up to 16).
-    Returns `(B_final [(Bb,) V, M], D_n_total [(Bb,) V])`, the sum over
-    epochs of the normalized dividends."""
+    instead of carrying them; bitwise the same) and `x64` (Yuma 0's float64
+    quantize). The epochs run in tiles of the largest divisor of E up to
+    16 whose scratch fits (:func:`varying_scan_epoch_tile`). Returns
+    `(B_final [(Bb,) V, M], D_n_total [(Bb,) V])`, the sum over epochs of
+    the normalized dividends."""
     return _ema_scan(W, S_n, scales, plain=False, **kwargs)
 
 

@@ -17,8 +17,8 @@ class LaunchCounter:
     name: str
     count: int = 0
 
-    def add(self) -> None:
-        self.count += 1
+    def add(self, n: int = 1) -> None:
+        self.count += n
 
 
 #: One counter per kernel, by name.

@@ -50,7 +50,6 @@ from yuma_simulation_tpu_torch.models.variants import (
 from yuma_simulation_tpu_torch.ops.consensus import (
     bisection_iterations,
     dyadic_grid_fits_int32,
-    exact_mxu_support_covers,
     resolve_consensus_impl,
 )
 from yuma_simulation_tpu_torch.ops.cuda_epoch import (
@@ -494,12 +493,6 @@ def run_simulation(
 #: The scaled path's rungs; the batch takes the scans and the eager rung.
 SCALED_IMPLS = ("auto", "eager", "fused", "fused_mxu", "fused_scan", "fused_scan_mxu")
 SCALED_BATCH_IMPLS = ("auto", "eager", "fused_scan", "fused_scan_mxu")
-#: What `auto` runs on CUDA tensors: whichever of the two bitwise-equal K5
-#: spellings chip_smoke.py measured faster at 256 x 4096 x 64 epochs: the
-#: tensor-core support, whose bisection took 734-740 us of device time
-#: against the VPU one's 749-750 us in two runs on an NVIDIA H100 80GB HBM3
-#: at 700 W (whole calls within 1%; PERF.md).
-SCALED_AUTO_SCAN = "fused_scan_mxu"
 
 
 def plan_scaled_engine(
@@ -516,10 +509,13 @@ def plan_scaled_engine(
     """Resolve `epoch_impl` of :func:`simulate_scaled` (`shape [V, M]`) or
     :func:`simulate_scaled_batch` (`[B, V, M]`, `batched=True`) to a rung
     (the JAX package's `planner.resolve_scaled_engine` with the numeric
-    gates of `fused_scan_eligible`). `auto` runs the scaled scan
-    (:data:`SCALED_AUTO_SCAN`, its VPU spelling where the exact limb split
-    does not cover V) on float32 CUDA tensors with at least one epoch while
-    the dyadic quantize grid fits int32, else "eager". JAX's further gate
+    gates of `fused_scan_eligible`). `auto` runs the scaled scan with the
+    VPU support ("fused_scan") on float32 CUDA tensors with at least one
+    epoch while the dyadic quantize grid fits int32, else "eager". Its
+    tensor-core spelling is bitwise the same and was not measurably faster
+    at 256 x 4096 on an NVIDIA H100 80GB HBM3 at 700 W: faster in 11 of
+    chip_smoke.py's 16 alternated pairs, short of the 13 fixed beforehand
+    (PERF.md). JAX's further gate
     on Yuma 0 in x64 (`M * 2^iters >= 2^23`) guards its double-single
     float64 emulation; the port divides in native float64 and drops it.
     JAX's VMEM admission does not carry over: K5's state lives in device
@@ -534,7 +530,7 @@ def plan_scaled_engine(
         )
     if epoch_impl != "auto":
         return epoch_impl
-    V, M = shape[-2:]
+    M = shape[-1]
     if (
         device.type != "cuda"
         or dtype != torch.float32
@@ -542,9 +538,7 @@ def plan_scaled_engine(
         or not dyadic_grid_fits_int32(M, bisection_iterations(precision))
     ):
         return "eager"
-    if SCALED_AUTO_SCAN == "fused_scan_mxu" and not exact_mxu_support_covers(V):
-        return "fused_scan"
-    return SCALED_AUTO_SCAN
+    return "fused_scan"
 
 
 def _check_scalar_config(config: YumaConfig, name: str) -> None:
@@ -667,8 +661,11 @@ def simulate_scaled(
     for e in range(scales.shape[0]):
         first = e == 0
         # The clip base and the carried previous weights are normalized with
-        # the eager rung's blocked miner_sum (JAX engine.py:1850, 1863).
-        W_n_now = normalize_weight_rows(W * scales[e])
+        # the eager rung's blocked miner_sum (JAX engine.py:1850, 1863);
+        # EMA and EMA_RUST read neither.
+        W_n_now = None
+        if spec.bonds_mode is BondsMode.EMA_PREV or spec.carries_prev_weights:
+            W_n_now = normalize_weight_rows(W * scales[e])
         clip = None
         if spec.bonds_mode is BondsMode.EMA_PREV:
             clip = W_n_now if first else carry.w_prev
