@@ -37,10 +37,13 @@ process per source, on first use), then:
    "fused_scan_mxu")`, `simulate_scaled(epoch_impl="fused")` over 16 epochs
    (K6 16 times) and `simulate_constant` both ways over 64 epochs; and
    times K5's two spellings over 64 epochs in 16 pairs of alternating order;
-9. prints one `{"kernels": [...]}` line for K1-K6 (launches on the main
-   paths, max |kernel - plain|, kernel and plain times from CUDA events,
-   the roofline bound, and a library call's time where one exists), the
-   card line, and last `{"ok": true, "device": {...}}`.
+9. prints one `{"phases": {...}}` line, the device ms of each phase
+   kernel over one call of K2, K3 and K5 (both spellings) at 256 x 4096 x
+   64 epochs (torch.profiler), and one `{"kernels": [...]}` line for
+   K1-K6 (launches on the main paths, max |kernel - plain|, kernel and
+   plain times from CUDA events, the roofline bound, and a library call's
+   time where one exists), the card line, and last `{"ok": true,
+   "device": {...}}`.
 
 Any failure raises and exits non-zero. Without CUDA it exits 2 and prints
 no result. The numbers and a per-kernel profile table are also written
@@ -157,6 +160,40 @@ def check_equal(label, got, ref):
     if not torch.equal(got, ref):
         bad = int((got != ref).sum())
         raise AssertionError(f"{label}: {bad} of {got.numel()} values differ")
+
+
+def phase_profile(torch, smi, runs) -> dict:
+    """Device ms of each phase kernel over one call of each `(name, fn)`
+    of `runs`, from torch.profiler (CUPTI): kernels by their `k_*` name,
+    device-to-device copies as `copies`, and `total`. The profiler's own
+    table goes to build/chip_smoke/chip_smoke_profile.txt."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    phases = {}
+    with open(os.path.join(OUT_DIR, "chip_smoke_profile.txt"), "w") as f:
+        for name, fn in runs:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            f.write(f"== {name} [{E}, {V}, {M}], one call, {smi}\n")
+            f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20))
+            f.write("\n")
+            ms: dict = {}
+            for evt in prof.key_averages():
+                kernel = re.search(r"\bk_[a-z_]+", evt.key)
+                if kernel:
+                    key = kernel.group(0)
+                elif evt.key.startswith("Memcpy") or evt.key.startswith("Memset"):
+                    key = "copies"
+                else:
+                    continue
+                ms[key] = ms.get(key, 0.0) + evt.self_device_time_total / 1e3
+            assert ms.get("k_bond", 0.0) > 0.0, (name, ms)  # the profiler saw the card
+            ms["total"] = sum(ms.values())
+            phases[name] = ms
+    return phases
 
 
 def k4_phase(torch, dev, W, S, measured, errs):
@@ -543,24 +580,15 @@ def main() -> int:
         scans[name] = rec
         print(f"{name} timing at [{E}, {V}, {M}]: {rec}", flush=True)
     # Where the scans' time goes, by phase kernel (torch.profiler / CUPTI).
-    from torch.profiler import ProfilerActivity, profile
-
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "chip_smoke_profile.txt"), "w") as f:
-        W1, S1 = W[0].contiguous(), (S[0] / S[0].sum()).contiguous()
-        sc = (1.0 + 1e-7 * torch.arange(E, dtype=torch.float32, device=dev)).contiguous()
-        for name, fn in (
-            ("case_scan", lambda: fused_case_scan(W, S, **time_kw)),
-            ("varying_scan", lambda: fused_varying_scan(W, S, epoch_tile=tile, **time_kw)),
-            ("ema_scan (VPU support)", lambda: fused_ema_scan(W1, S1, sc)),
-            ("ema_scan (tensor-core support)", lambda: fused_ema_scan(W1, S1, sc, mxu=True)),
-        ):
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            f.write(f"== {name} [{E}, {V}, {M}], one call, {smi}\n")
-            f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20))
-            f.write("\n")
+    W1, S1 = W[0].contiguous(), (S[0] / S[0].sum()).contiguous()
+    sc = (1.0 + 1e-7 * torch.arange(E, dtype=torch.float32, device=dev)).contiguous()
+    report["phases"] = phase_profile(torch, smi, (
+        ("case_scan", lambda: fused_case_scan(W, S, **time_kw)),
+        ("varying_scan", lambda: fused_varying_scan(W, S, epoch_tile=tile, **time_kw)),
+        ("ema_scan", lambda: fused_ema_scan(W1, S1, sc)),
+        ("ema_scan_mxu", lambda: fused_ema_scan(W1, S1, sc, mxu=True)),
+    ))
 
     # ---- The main path, through the entry points.
     scenario = Scenario(
@@ -672,6 +700,7 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 
+    print(json.dumps({"phases": report["phases"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,187 @@
+#!/usr/bin/env python3
+"""Time the port's epoch scans with the phase kernels' tiling constants
+changed, against the committed ones, on one NVIDIA GPU.
+
+    python3 scripts/torch_phase_variants.py [--out DIR]   # from the repo root
+
+Each variant is `csrc/` with a few constants of `scan_phases.cuh` replaced
+(the bond phase's warps per block and validators per thread in registers;
+the row sum's rows per block, columns per ring stage and ring depth). Every
+variant is built with the package's nvcc flags, one process per source, all
+at once; then each variant's K2, K3 and K5 are held to the committed
+build's at 256 x 4096 x 64 epochs for the five bond models of
+chip_smoke.py (consensus and incentives bitwise, the rest within atol
+2e-6 / rtol 1e-5), timed by CUDA events in three rounds of alternating
+order, and profiled by phase kernel (chip_smoke.phase_profile). Prints
+one JSON line per variant and writes `variants.json` under DIR (default
+build/phase_variants). Exits non-zero without CUDA or on any mismatch.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+#: name -> [(text in the committed scan_phases.cuh, its replacement)]
+VARIANTS = {
+    "committed": [],
+    "bond 8 warps x 32 validators": [
+        ("kBondWarps = 32;", "kBondWarps = 8;"), ("kBondCache = 8;", "kBondCache = 32;")],
+    "bond 16 warps x 16 validators": [
+        ("kBondWarps = 32;", "kBondWarps = 16;"), ("kBondCache = 8;", "kBondCache = 16;")],
+    "rowsum 128 columns x 8 stages": [
+        ("kSumCols = 256;", "kSumCols = 128;"), ("kSumStages = 4;", "kSumStages = 8;")],
+    "rowsum 4 rows": [("kSumRows = 8;", "kSumRows = 4;")],
+}
+
+
+def build(out_dir: str) -> dict:
+    """{variant: {source: loaded library}} for case_scan.cu and ema_scan.cu."""
+    from yuma_simulation_tpu_torch.ops import _build
+
+    procs = []
+    for i, (name, subs) in enumerate(VARIANTS.items()):
+        src_dir = os.path.join(out_dir, f"v{i}", "csrc")
+        shutil.rmtree(src_dir, ignore_errors=True)
+        shutil.copytree(str(_build.CSRC), src_dir)
+        header = os.path.join(src_dir, "scan_phases.cuh")
+        with open(header) as f:
+            text = f.read()
+        for old, new in subs:
+            if text.count(old) != 1:
+                raise SystemExit(f"{name}: {old!r} not found once in scan_phases.cuh")
+            text = text.replace(old, new)
+        with open(header, "w") as f:
+            f.write(text)
+        for src in ("case_scan.cu", "ema_scan.cu"):
+            lib = os.path.join(src_dir, src.replace(".cu", ".so"))
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", src_dir, "-o", lib,
+                   os.path.join(src_dir, src)]
+            procs.append((name, src, lib, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs: dict = {}
+    for name, src, lib, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc {name} {src} failed:\n{log}")
+        libs.setdefault(name, {})[src] = ctypes.CDLL(lib)
+    return libs
+
+
+def use(libs: dict, name: str) -> None:
+    """Make the wrappers launch variant `name`'s kernels."""
+    from yuma_simulation_tpu_torch.ops import _build
+
+    _build.load("consensus.cu")
+    _build._libs.update(libs[name])
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "phase_variants"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_phase_variants: CUDA is not available", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from yuma_simulation_tpu_torch.models.config import YumaConfig, YumaParams
+    from yuma_simulation_tpu_torch.models.variants import variant_for_version
+    from yuma_simulation_tpu_torch.ops.cuda_epoch import (
+        fused_case_scan, fused_ema_scan, fused_varying_scan)
+    from yuma_simulation_tpu_torch.simulation.engine import fused_hparams
+
+    os.makedirs(args.out, exist_ok=True)
+    cs.OUT_DIR = args.out
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    libs = build(args.out)
+    print(f"card: {smi}; built {len(libs)} variants in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    dev = torch.device("cuda")
+    W_np, S_np, quiet = cs.workload(0, cs.E)
+    W, S = torch.tensor(W_np, device=dev), torch.tensor(S_np, device=dev)
+    W1, S1 = W[0].contiguous(), (S[0] / S[0].sum()).contiguous()
+    sc = (1.0 + 1e-7 * torch.arange(cs.E, dtype=torch.float32, device=dev)).contiguous()
+    Wb = W[:4].contiguous()
+    Sb = (S[:4] / S[:4].sum(-1, keepdim=True)).contiguous()
+    runs = {
+        "K3": lambda **kw: fused_varying_scan(W, S, epoch_tile=16, **kw),
+        "K2": lambda **kw: fused_case_scan(W, S, **kw),
+        "K5": lambda **kw: dict(zip(("bonds", "totals"), fused_ema_scan(W1, S1, sc, **kw))),
+        "K5 B=4": lambda **kw: dict(zip(("bonds", "totals"), fused_ema_scan(Wb, Sb, sc, **kw))),
+    }
+
+    ref = {}
+    for name in libs:
+        use(libs, name)
+        for version, params in cs.VERSIONS:
+            spec = variant_for_version(version)
+            kw = dict(mode=spec.bonds_mode, x64=spec.bonds_mode.value == "ema_rust",
+                      **fused_hparams(YumaConfig(yuma_params=YumaParams(**params))))
+            scan_kw = dict(kw, reset_index=quiet, reset_epoch=cs.E // 2,
+                           reset_mode=spec.reset_mode, save_consensus=True)
+            for kernel, run in runs.items():
+                out = run(**(kw if kernel.startswith("K5") else scan_kw))
+                torch.cuda.synchronize()
+                if name == "committed":
+                    ref[version, kernel] = out
+                    continue
+                for key, got in out.items():
+                    want = ref[version, kernel][key]
+                    if key in ("consensus", "incentives"):
+                        cs.check_equal(f"{name} {kernel} {version} {key}", got, want)
+                    else:
+                        cs.check_close(f"{name} {kernel} {version} {key}", got, want)
+    del ref
+
+    quiet_kw = dict(save_bonds=False, save_incentives=False)
+    times: dict = {name: {k: [] for k in runs} for name in libs}
+    order = list(libs)
+    for rnd in range(3):
+        for name in order if rnd % 2 == 0 else order[::-1]:
+            use(libs, name)
+            for kernel, run in runs.items():
+                kw = {} if kernel.startswith("K5") else quiet_kw
+                times[name][kernel].append(cs.cuda_ms(torch, lambda: run(**kw), 5))
+    report = {"card": smi, "shape": [cs.E, cs.V, cs.M], "variants": {}}
+    for name in libs:
+        use(libs, name)
+        phases = cs.phase_profile(torch, smi, [
+            (kernel, lambda run=run, kernel=kernel: run(
+                **({} if kernel.startswith("K5") else quiet_kw)))
+            for kernel, run in runs.items()
+        ])
+        rec = dict(
+            substitutions=VARIANTS[name],
+            median_ms={k: float(np.median(v)) for k, v in times[name].items()},
+            ms=times[name],
+            phases_ms=phases,
+        )
+        report["variants"][name] = rec
+        print(json.dumps({"variant": name, "median_ms": rec["median_ms"],
+                          "k_bond_ms": {k: p.get("k_bond") for k, p in phases.items()},
+                          "k_rowsum_ms": {k: p.get("k_rowsum") for k, p in phases.items()}}),
+              flush=True)
+    with open(os.path.join(args.out, "variants.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,72 @@
+"""The argument structs the CUDA scans take, as `csrc/scan_phases.cuh`
+declares them, against the `ctypes` mirrors that `ops/cuda_epoch.py`
+passes: the same fields in the same order with the same widths. A mismatch
+passes every CPU test (the CPU never calls the kernels) and hands the
+kernels shifted arguments on the card, so it is checked here, by parsing
+the header."""
+
+import ctypes
+import re
+from pathlib import Path
+
+import pytest
+
+from yuma_simulation_tpu_torch.ops import cuda_epoch
+
+HEADER = Path(cuda_epoch.__file__).resolve().parent.parent / "csrc" / "scan_phases.cuh"
+
+_SCALARS = {"int": ctypes.c_int, "float": ctypes.c_float}
+_STRUCTS = {"LiquidSpec": cuda_epoch._LiquidSpec}
+
+
+def _c_fields(struct: str) -> list:
+    """`[(name, ctypes type), ...]` of `struct <struct> { ... };` in the
+    header: pointers as `c_void_p`, `int` / `float` scalars and arrays,
+    nested structs as their mirrors."""
+    text = re.sub(r"//[^\n]*", "", HEADER.read_text())
+    body = re.search(r"struct\s+%s\s*\{(.*?)\};" % struct, text, re.S)
+    assert body, f"struct {struct} not found in {HEADER.name}"
+    fields = []
+    for decl in body.group(1).split(";"):
+        decl = " ".join(decl.split())
+        if not decl:
+            continue
+        m = re.fullmatch(r"(?:const )?(\w+)\s*(\*?)\s*(.+)", decl)
+        assert m, decl
+        base, ptr, names = m.groups()
+        for name in names.split(","):
+            name = name.strip()
+            if ptr or name.startswith("*"):
+                fields.append((name.lstrip("*").strip(), ctypes.c_void_p))
+                continue
+            arr = re.fullmatch(r"(\w+)\[(\d+)\]", name)
+            ctype = _SCALARS.get(base) or _STRUCTS[base]
+            if arr:
+                fields.append((arr.group(1), ctype * int(arr.group(2))))
+            else:
+                fields.append((name, ctype))
+    return fields
+
+
+@pytest.mark.parametrize(
+    "struct,mirror",
+    [("LiquidSpec", cuda_epoch._LiquidSpec), ("ScanArgs", cuda_epoch._ScanArgs)],
+    ids=["LiquidSpec", "ScanArgs"],
+)
+def test_ctypes_mirror_matches_header(struct, mirror):
+    want = _c_fields(struct)
+    got = list(mirror._fields_)
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (name, g), (_, w) in zip(got, want):
+        assert ctypes.sizeof(g) == ctypes.sizeof(w), name
+        assert ctypes.alignment(g) == ctypes.alignment(w), name
+        assert getattr(g, "_type_", g) == getattr(w, "_type_", w), name
+    assert ctypes.sizeof(mirror) == ctypes.sizeof(
+        type("C" + struct, (ctypes.Structure,), {"_fields_": want})
+    )
+
+
+def test_bond_tile_matches_header():
+    """The dividend-partial scratch is sized with the kernel's miner tile."""
+    m = re.search(r"constexpr int kBondTM = (\d+);", HEADER.read_text())
+    assert m and int(m.group(1)) == cuda_epoch.BOND_TILE

@@ -57,12 +57,21 @@ ATOL, RTOL = 2e-6, 1e-5
 VERSIONS = canonical_versions()
 IDS = [name for name, _ in VERSIONS]
 # Scenario 0 resets (ALWAYS) at epoch 4; scenario 1's miner 3 loses all
-# weight from epoch 3, so the CONDITIONAL rule fires at its epoch 5.
-RESET_INDEX = np.array([2, 3, -1], np.int32)
-RESET_EPOCH = np.array([4, 5, -1], np.int32)
-# (V, M): the CPU tests' shape, and one that spans several row blocks,
-# miner tiles and row-sum chunks of the kernels.
-SHAPES = [(6, 18), (40, 300)]
+# weight from epoch 3, so the CONDITIONAL rule fires at its epoch 5; in a
+# batch of 4, scenario 3's miner 1 loses its weight from epoch 5 and resets
+# at epoch 7.
+RESET_INDEX = np.array([2, 3, -1, 1], np.int32)
+RESET_EPOCH = np.array([4, 5, -1, 7], np.int32)
+# (V, M, B): the CPU tests' shape, and one that spans several row blocks,
+# miner tiles and row-sum chunks of the kernels; then the edges of the
+# bond phase's tiling (32-miner tiles, 8 validator slices of at most 32
+# validators in registers) and of the row sum (8-row blocks, 16-byte
+# copies only when M % 4 == 0): a single validator, V = 7 (fewer
+# validators than slices), M = 33 and 65 (ragged tiles, M % 4 != 0), a
+# batch of 4 with resets firing, and V = 300 (slices of 38: the re-read
+# tail past the register cache).
+SHAPES = [(6, 18, 3), (40, 300, 3), (1, 33, 3), (7, 65, 4), (300, 40, 4)]
+SHAPE_IDS = [f"{v}x{m}" + ("" if b == 3 else f"-b{b}") for v, m, b in SHAPES]
 
 
 @pytest.fixture
@@ -77,15 +86,17 @@ def _suite(V, M, seed=0, B=3, E=10):
     W = rng.random((B, E, V, M)).astype(np.float32)
     W[W < 0.3] = 0.0
     W[1, 3:, :, 3] = 0.0
+    if B > 3:
+        W[3, 5:, :, 1] = 0.0
     S = (rng.random((B, E, V)) + 0.01).astype(np.float32)
     return torch.tensor(W), torch.tensor(S)
 
 
-def _scan_kwargs(version, params, **extra):
+def _scan_kwargs(version, params, B=3, **extra):
     spec = variant_for_version(version)
     kw = fused_hparams(YumaConfig(yuma_params=params))
     kw.update(
-        reset_index=torch.tensor(RESET_INDEX), reset_epoch=torch.tensor(RESET_EPOCH),
+        reset_index=torch.tensor(RESET_INDEX[:B]), reset_epoch=torch.tensor(RESET_EPOCH[:B]),
         reset_mode=spec.reset_mode, mode=spec.bonds_mode,
         save_bonds=True, save_incentives=True, save_consensus=True,
     )
@@ -127,14 +138,15 @@ def test_k1_matches_plain_bitwise(cuda, lead, V, M):
     torch.testing.assert_close(got.cpu(), stake_weighted_median(W, S, 0.5), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("V,M", SHAPES, ids=[f"{v}x{m}" for v, m in SHAPES])
+@pytest.mark.parametrize("V,M,B", SHAPES, ids=SHAPE_IDS)
 @pytest.mark.parametrize("version,params", VERSIONS, ids=IDS)
-def test_scans_match_plain(cuda, version, params, V, M):
-    """K2, and K3 at tiles 2 and 5, on a batched suite with firing resets;
-    K3 also held to K2 under the varying scan's own contract: consensus and
-    incentives bitwise, dividends and bonds within 1e-6."""
-    W, S = _suite(V, M)
-    kw = _scan_kwargs(version, params, return_carry=True)
+def test_scans_match_plain(cuda, version, params, V, M, B):
+    """K2, and K3 at tiles 2 and 5, on a batched suite with firing resets
+    and saved bonds; K3 also held to K2 under the varying scan's own
+    contract: consensus and incentives bitwise, dividends and bonds within
+    1e-6."""
+    W, S = _suite(V, M, B=B)
+    kw = _scan_kwargs(version, params, B=B, return_carry=True)
     reset_launch_counts()
     k2 = fused_case_scan(W.to(cuda), S.to(cuda), **kw)
     _assert_matches(k2, fused_case_scan(W, S, **kw), f"{version} case scan")
@@ -349,9 +361,9 @@ def _hp(params):
 
 
 @pytest.mark.parametrize("batched", [False, True], ids=["single", "batched"])
-@pytest.mark.parametrize("V,M", SHAPES, ids=[f"{v}x{m}" for v, m in SHAPES])
+@pytest.mark.parametrize("V,M,B", SHAPES, ids=SHAPE_IDS)
 @pytest.mark.parametrize("version,params", VERSIONS, ids=IDS)
-def test_ema_scan_matches_plain(cuda, version, params, V, M, batched):
+def test_ema_scan_matches_plain(cuda, version, params, V, M, B, batched):
     """K5 against its plain version at E=9 (one tile of 9 epochs) and E=17
     (17 tiles of one), for every version; its mxu spelling bitwise, with
     one tensor-core bisection launched per tile."""
@@ -359,7 +371,7 @@ def test_ema_scan_matches_plain(cuda, version, params, V, M, batched):
     kw = dict(mode=mode, x64=mode is BondsMode.EMA_RUST, **_hp(params))
     reset_launch_counts()
     for E in (9, 17):
-        W, S_n, scales = _scaled_inputs(V, M, E=E)
+        W, S_n, scales = _scaled_inputs(V, M, E=E, B=B)
         if not batched:
             W, S_n = W[0], S_n[0]
         ref = fused_ema_scan(W, S_n, scales, **kw)
@@ -396,8 +408,24 @@ def test_ema_scan_recompute_prev_bitwise(cuda, batched):
     ids=["ema", "ema-rust", "ema-prev", "ema-prev-clip"],
 )
 def test_ema_epoch_matches_plain(cuda, mode, with_clip, first, m_real):
+    _check_ema_epoch(cuda, 40, 300, mode, with_clip, first, m_real)
+
+
+@pytest.mark.parametrize("cut", [False, True], ids=["all", "m_real"])
+@pytest.mark.parametrize("first", [False, True], ids=["later", "first"])
+@pytest.mark.parametrize(
+    "mode,with_clip",
+    [("EMA", False), ("EMA_RUST", False), ("EMA_PREV", False), ("EMA_PREV", True)],
+    ids=["ema", "ema-rust", "ema-prev", "ema-prev-clip"],
+)
+@pytest.mark.parametrize("V,M", [(1, 33), (7, 65), (300, 40)], ids=["1x33", "7x65", "300x40"])
+def test_ema_epoch_edge_shapes_match_plain(cuda, V, M, mode, with_clip, first, cut):
+    """K6 at the edges of the bond phase's tiling (see SHAPES)."""
+    _check_ema_epoch(cuda, V, M, mode, with_clip, first, M - M // 6 if cut else None)
+
+
+def _check_ema_epoch(cuda, V, M, mode, with_clip, first, m_real):
     rng = np.random.default_rng(11)
-    V, M = 40, 300
     W = rng.random((V, M)).astype(np.float32)
     W[W < 0.3] = 0.0
     if m_real is not None:

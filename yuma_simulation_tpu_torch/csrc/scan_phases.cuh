@@ -7,17 +7,51 @@
 // epoch:
 //   1 reset injection           one block per scenario
 //   2 stake normalization       one block per (epoch, scenario)
-//   3 row normalization         sums: one block per (epoch, scenario, 32
+//   3 row normalization         sums: one block per (epoch, scenario, 8
 //                               rows); divide: one block per row
 //   4 bisection (K1's body, or  one block per (epoch, scenario, 128 miners),
 //     K4's with mxu)            the W_n tile staged in shared memory
 //   5 quantize denominator      one block per (epoch, scenario), int32 sum
 //   6 clip / rank, incentive,   one thread per miner column; one block
 //     liquid counting bisection per (epoch, scenario)
-//   7 bond update               one thread per (scenario, miner) column
-//   8 dividends, normalization  one block per (scenario, validator)
+//   7 bond update and the       one block of 32 warps per (scenario, 32
+//     dividend partials         miners), a validator slice per warp
+//   8 dividend normalization    one block per scenario
 // Phases 2-6 run once per T-epoch tile with the tile as a grid dimension
 // (T = 1 is one epoch per step), then phases 1, 7 and 8 T times in order.
+//
+// What bounds phases 3 and 7, and what their design does about it:
+// - Phase 3's row sum feeds the consensus, so each row is one chain of M
+//   dependent float32 adds (~8-9 us at M = 4096): no tree, no split. The
+//   floor is that chain, run for every row of the launch at once, so
+//   k_rowsum gives each row its own adding lane, only 8 rows per block
+//   (K2's and K6's 256 rows per epoch spread over 32 blocks), and keeps
+//   the adder off device memory: the block's producer warp fills a
+//   4-stage ring of 256-column chunks in shared memory with 16-byte
+//   cp.async copies, and the adder reads one float4 per four in-order
+//   adds. K3 and K5 run 16 epochs' rows per launch and pay the chain once
+//   per tile; K2 and K6 pay it every epoch, at about twice the chain
+//   (PERF.md).
+// - Phase 7 must read W_n (or EMA_PREV's clip base) and the bonds once and
+//   write the bonds once: ~12 MB per epoch at 256 x 4096, ~3.6 us at
+//   3.35 TB/s. Bytes bound it, and only if enough loads are in flight.
+//   k_bond gives each (scenario, 32-miner tile) one block of 32 warps,
+//   each warp a contiguous validator slice with lane = miner, so every
+//   load is 128 contiguous bytes and a warp's whole slice (up to 8
+//   validators) is loaded at once into registers: at 256 x 4096 the 128
+//   blocks hold all 8 MB of the epoch's reads in flight. (8 warps x 32
+//   validators, at 255 registers a thread, measured twice as slow; 16
+//   warps x 16 in between: PERF.md.) The column sums run from
+//   registers and combine the 32 warp partials in warp order; the update,
+//   EMA_RUST's second sum and the dividend partials (sum over the tile's
+//   miners of B_next * incentive, in miner order) run from the same
+//   registers, so the bonds are read and written once and no second
+//   kernel re-reads them. A slice longer than the register cache
+//   (V > 256) re-reads its tail from device memory.
+// - Phase 8 reads only the dividend partials (V x M / 32 floats, 128 KB at
+//   256 x 4096) and normalizes V values: its time is about one small
+//   launch. k_dnorm sums each validator's partials in contiguous tile
+//   groups, one thread per group, so its loads are not one serial chain.
 //
 // What the scans take: W [B, EW, V, M] and S [B, ES, V] with EW, ES the
 // epochs stored (E, or 1 for epoch-constant inputs); an optional per-epoch
@@ -34,7 +68,8 @@
 // each operation rounds as the plain version's does.
 //
 // The bond state lives in one device buffer [B, V, M] that the bond phase
-// updates in place (each thread owns one column); the carry buffers
+// updates in place (each thread owns one column of one validator slice);
+// the carry buffers
 // (bonds, previous consensus, previous W_n) are seeded by the wrapper, so
 // the carry / epoch_offset contract of pallas_epoch.py:1566-1575 holds.
 #pragma once
@@ -53,6 +88,22 @@ enum Hp { KAPPA = 0, BETA, ALPHA, CAP_ALPHA, DECAY, LOGIT_LOW, LOGIT_NUM, ALO, A
 enum ClipSrc { CLIP_SCAN = 0, CLIP_GIVEN = 1, CLIP_OWN = 2 };
 
 constexpr float kMaxInt = 18446744073709551616.0f;  // float32(2^64 - 1)
+
+// Phase 3a (k_rowsum): rows per block (one adding lane each), columns per
+// ring stage, ring depth, and the padded row stride in floats (= 4 mod 32,
+// so the 8 adders' float4 reads fall in 32 distinct banks).
+constexpr int kSumRows = 8;
+constexpr int kSumCols = 256;
+constexpr int kSumStages = 4;
+constexpr int kSumStride = kSumCols + 4;
+// Phase 7 (k_bond): miners per block (one warp width; ops/cuda_epoch.py::
+// BOND_TILE sizes the dividend-partial scratch with it), warps per block,
+// and validators per thread held in registers.
+constexpr int kBondTM = 32;
+constexpr int kBondWarps = 32;
+constexpr int kBondThreads = 32 * kBondWarps;
+constexpr int kBondCache = 8;
+static_assert(kBondTM == 32 && kBondCache <= 32, "lane = miner; one partial per lane");
 
 }  // namespace
 
@@ -91,6 +142,7 @@ struct ScanArgs {
   float* inc;            // [T, B, M] scratch
   float* rate;           // [T, B, M] scratch
   float* dsum;           // [B, V] scratch
+  float* dpart;          // [B, ceil(M / kBondTM), V] scratch: dividend partials
   float* rden;           // [T, B, V] scratch: row denominators
   float* pden;           // [B, V] scratch: recomputed previous row denominators
   const float* scales;   // [E] per-epoch weight scale or null
@@ -143,42 +195,88 @@ __global__ void k_stake(const float* __restrict__ S, float* __restrict__ sn,
   }
 }
 
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // Phase 3a: the row denominators sum(W * scale) + 1e-6 of slab s = t * B
 // + b at epoch e0 + t. The row sum feeds the consensus, so it adds left
-// to right (ops/normalize.py::sequential_sum). One block of 8 warps per
-// 32 rows: all warps stage [32 x 128] column chunks of the scaled weights
-// into shared memory (coalesced, double-buffered, so the next chunk's
-// loads overlap this chunk's adds), and lane r of warp 0 adds row r's
-// values in order.
-__global__ void k_rowsum(const float* __restrict__ W, const float* __restrict__ scales,
-                         float* __restrict__ den, int B, int WE, int e0, int V,
-                         int M) {
-  constexpr int kRows = 32, kCols = 128;
-  __shared__ float tile[2][kRows][kCols + 1];
-  const int v0 = blockIdx.x * kRows, s = blockIdx.y, t = s / B, b = s % B;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rows = min(kRows, V - v0);
+// to right (ops/normalize.py::sequential_sum). One block of two warps per
+// kSumRows rows: warp 1 keeps a kSumStages-deep ring of [rows x kSumCols]
+// chunks in flight with cp.async (16-byte copies when VEC: M % 4 == 0 and
+// W 16-byte aligned; else 4-byte), and lane r of warp 0 adds row r's
+// values in order, one float4 per four adds, each value multiplied by the
+// epoch's scale just before its add. One barrier per chunk: the chunk the
+// adder takes has landed, and the stage the producer refills was read in
+// the previous step.
+template <bool VEC>
+__global__ void __launch_bounds__(64) k_rowsum(const float* __restrict__ W,
+                                               const float* __restrict__ scales,
+                                               float* __restrict__ den, int B,
+                                               int WE, int e0, int V, int M) {
+  __shared__ __align__(16) float ring[kSumStages][kSumRows][kSumStride];
+  const int v0 = blockIdx.x * kSumRows, s = blockIdx.y, t = s / B, b = s % B;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rows = min(kSumRows, V - v0);
+  const int nchunks = (M + kSumCols - 1) / kSumCols;
   const float sc = epoch_scale(scales, e0 + t);
   const float* Wb = W + epoch_slice(b, WE, e0 + t, (size_t)V * M) + (size_t)v0 * M;
-  auto stage = [&](int buf, int m0) {
-    const int cols = min(kCols, M - m0);
-    for (int i = tid; i < kRows * kCols; i += blockDim.x) {
-      const int r = i / kCols, c = i - r * kCols;
-      if (r < rows && c < cols) tile[buf][r][c] = Wb[(size_t)r * M + m0 + c] * sc;
+  // Producer: chunk k into stage k % kSumStages, one commit group per
+  // chunk (an empty one past the end keeps the group count uniform).
+  auto produce = [&](int k) {
+    if (k < nchunks) {
+      const int m0 = k * kSumCols, cols = min(kSumCols, M - m0);
+      float(*dst)[kSumStride] = ring[k % kSumStages];
+      if (VEC) {
+        constexpr int kQuads = kSumCols / 4;
+        for (int i = lane; i < kSumRows * kQuads; i += 32) {
+          const int r = i / kQuads, c = (i - r * kQuads) * 4;
+          if (r < rows && c < cols) cp_async16(&dst[r][c], Wb + (size_t)r * M + m0 + c);
+        }
+      } else {
+        for (int i = lane; i < kSumRows * kSumCols; i += 32) {
+          const int r = i / kSumCols, c = i - r * kSumCols;
+          if (r < rows && c < cols) cp_async4(&dst[r][c], Wb + (size_t)r * M + m0 + c);
+        }
+      }
     }
+    cp_async_commit();
   };
+  if (warp == 1) {
+    for (int k = 0; k < kSumStages - 1; ++k) produce(k);
+  }
   float acc = 0.0f;
-  int buf = 0;
-  stage(0, 0);
-  __syncthreads();
-  for (int m0 = 0; m0 < M; m0 += kCols) {
-    if (m0 + kCols < M) stage(buf ^ 1, m0 + kCols);
-    if (warp == 0 && lane < rows) {
-      const int cols = min(kCols, M - m0);
-      for (int c = 0; c < cols; ++c) acc += tile[buf][lane][c];
-    }
+  for (int k = 0; k < nchunks; ++k) {
+    if (warp == 1) cp_async_wait<kSumStages - 2>();  // chunk k has landed
     __syncthreads();
-    buf ^= 1;
+    if (warp == 1) {
+      produce(k + kSumStages - 1);
+    } else if (lane < rows) {
+      const float* row = ring[k % kSumStages][lane];
+      const int cols = min(kSumCols, M - k * kSumCols);
+      int c = 0;
+#pragma unroll 8
+      for (; c + 4 <= cols; c += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(row + c);
+        acc += x.x * sc;
+        acc += x.y * sc;
+        acc += x.z * sc;
+        acc += x.w * sc;
+      }
+      for (; c < cols; ++c) acc += row[c] * sc;
+    }
   }
   if (warp == 0 && lane < rows) den[(size_t)s * V + v0 + lane] = acc + 1e-6f;
 }
@@ -368,114 +466,226 @@ __global__ void k_reset(ScanArgs a, const float* __restrict__ cp, int eg) {
     a.bonds[((size_t)b * a.V + v) * a.M + ri] = 0.0f;
 }
 
-// Phase 7: the bond update of epoch t of the tile, in place, one thread
-// per (scenario, miner) column; column sums run over validators in order.
-__global__ void k_bond(ScanArgs a, int t, int eg) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x, b = blockIdx.y;
-  if (m >= a.M) return;
-  const int V = a.V, M = a.M;
-  const int s = t * a.B + b;
-  const float* wn = a.wn + (size_t)s * V * M + m;
-  const float* base = clip_base(a, t, b, eg) + m;
-  const float* sn = a.sn + (size_t)s * V;
-  const float c = a.C[(size_t)s * M + m];
-  const float* hp = a.hp + (size_t)b * NHP;
-  float* bc = a.bonds + (size_t)b * V * M + m;
-  const bool liquid_rate = a.liquid && a.mode != CAPACITY;
-  const float rate = liquid_rate ? a.rate[(size_t)s * M + m] : hp[ALPHA];
-  const bool first = eg == 0;
+struct BondShared {
+  float col[kBondWarps][kBondTM];               // per-warp column partials
+  float prod[kBondWarps][kBondCache][kBondTM + 1];  // B_next * incentive
+};
+
+// Sum over the block's warps of one partial per (warp, column), added in
+// warp order; every thread must call it.
+__device__ __forceinline__ float column_sum(BondShared& sh, int warp, int lane,
+                                            float part) {
+  __syncthreads();  // the previous call's readers are done
+  sh.col[warp][lane] = part;
+  __syncthreads();
+  float tot = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kBondWarps; ++w) tot += sh.col[w][lane];
+  return tot;
+}
+
+// Phase 7 for bond model MODE: the bond update of epoch t of the tile, in
+// place, for the block's (scenario b, kBondTM-miner tile), and the tile's
+// dividend partials dpart[b, tile, v] = sum over the tile's miners, in
+// order, of B_next[v, m] * incentive[m]. Warp w owns validators [w * per,
+// (w + 1) * per), lane the miner; column sums add each warp's slice in
+// validator order, then the warp partials in warp order.
+template <int MODE>
+__device__ __forceinline__ void bond_tile(const ScanArgs& a, int t, int e, int eg,
+                                          BondShared& sh) {
   using yuma::max_nan;
   using yuma::min_nan;
   using yuma::nan_to_num;
+  constexpr bool kEma = MODE == EMA_RUST || MODE == EMA || MODE == EMA_PREV;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tile = blockIdx.x, ntiles = gridDim.x, b = blockIdx.y;
+  const int V = a.V, M = a.M, s = t * a.B + b;
+  const int m = tile * kBondTM + lane;
+  const bool live = m < M;
+  const int mc = live ? m : M - 1;  // a lane past M reads column M - 1, writes nothing
+  const int per = (V + kBondWarps - 1) / kBondWarps;
+  const int v0 = min(V, warp * per), n = min(V, v0 + per) - v0;
+  const size_t vm = (size_t)V * M;
+  // The bond target's weights: this epoch's W_n, or EMA_PREV's clip base
+  // (which is also its bond base); CAPACITY and RELATIVE read W_n.
+  const float* X = clip_base(a, t, b, eg) + mc;
+  const float* sn = a.sn + (size_t)s * V;
+  float* bc = a.bonds + (size_t)b * vm + mc;
+  float* bout = a.bonds_out ? a.bonds_out + ((size_t)b * a.E + e) * vm + mc : nullptr;
+  const float* hp = a.hp + (size_t)b * NHP;
+  const float c = a.C[(size_t)s * M + mc];
+  const float inc = a.inc[(size_t)s * M + mc];
+  const float rate =
+      (a.liquid && MODE != CAPACITY) ? a.rate[(size_t)s * M + mc] : hp[ALPHA];
+  const float keep = 1.0f - rate;
+  const bool first = eg == 0;
+  const float beta = hp[BETA], omb = 1.0f - beta;
+  const float omd = 1.0f - hp[DECAY], cap_alpha = hp[CAP_ALPHA];
 
-  if (a.mode == CAPACITY) {
-    const float omd = 1.0f - hp[DECAY], cap_alpha = hp[CAP_ALPHA];
-#pragma unroll 8
-    for (int v = 0; v < V; ++v) {
-      const size_t i = (size_t)v * M;
-      const float cap = sn[v] * kMaxInt;
-      const float old = bc[i];
-      const float remaining = max_nan(cap - old, 0.0f);
-      const float purchase = min_nan(cap_alpha * cap, remaining) * wn[i];
-      bc[i] = min_nan(omd * old + purchase, cap);
-    }
-    return;
-  }
-  if (a.mode == RELATIVE) {
-    const float keep = 1.0f - rate;
-#pragma unroll 8
-    for (int v = 0; v < V; ++v) {
-      const size_t i = (size_t)v * M;
-      const float dec = bc[i] * keep;
-      const float remaining = max_nan(1.0f - dec, 0.0f);
-      const float purchase = min_nan(rate * wn[i], remaining);
-      bc[i] = min_nan(dec + purchase, 1.0f);
-    }
-    return;
-  }
   // EMA families: B_t = nan_to_num(S * W_x / colsum), W_x the clipped
   // weights (Yuma 0) or the beta-blend of the bond base and them.
-  const float beta = hp[BETA], omb = 1.0f - beta;
-  const float* bond_base = a.mode == EMA ? wn : base;
-  auto target = [&](int v) {
-    const size_t i = (size_t)v * M;
-    const float wc = min_nan(base[i], c);
-    if (a.mode == EMA_RUST) return sn[v] * wc;
-    return sn[v] * (omb * bond_base[i] + beta * wc);
+  auto target = [&](int v, float x) {
+    const float wc = min_nan(x, c);
+    if (MODE == EMA_RUST) return sn[v] * wc;
+    return sn[v] * (omb * x + beta * wc);
   };
-  float col = 0.0f;
-#pragma unroll 8
-  for (int v = 0; v < V; ++v) col += target(v);
-  const float den = a.mode == EMA_RUST ? col + 1e-6f : col;
-  const float keep = 1.0f - rate;
-  float col2 = 0.0f;
-#pragma unroll 8
-  for (int v = 0; v < V; ++v) {
-    const size_t i = (size_t)v * M;
-    const float bt = nan_to_num(target(v) / den);
-    const float ema = rate * bt + keep * bc[i];
-    const float bn = first ? bt : ema;  // a select, never a blend
-    bc[i] = bn;
-    col2 += bn;
-  }
-  if (a.mode == EMA_RUST) {
-    const float den2 = col2 + 1e-6f;
-#pragma unroll 8
-    for (int v = 0; v < V; ++v) {
-      const size_t i = (size_t)v * M;
-      bc[i] = nan_to_num(bc[i] / den2);
+  auto direct = [&](int v, float x, float old) {  // CAPACITY, RELATIVE
+    if (MODE == CAPACITY) {
+      const float cap = sn[v] * kMaxInt;
+      const float remaining = max_nan(cap - old, 0.0f);
+      const float purchase = min_nan(cap_alpha * cap, remaining) * x;
+      return min_nan(omd * old + purchase, cap);
+    }
+    const float dec = old * keep;
+    const float remaining = max_nan(1.0f - dec, 0.0f);
+    const float purchase = min_nan(rate * x, remaining);
+    return min_nan(dec + purchase, 1.0f);
+  };
+
+  // Load the slice's first kBondCache validators at once.
+  float xr[kBondCache], ob[kBondCache];
+#pragma unroll
+  for (int i = 0; i < kBondCache; ++i) {
+    if (i < n) {
+      const size_t o = (size_t)(v0 + i) * M;
+      xr[i] = X[o];
+      ob[i] = bc[o];
     }
   }
-}
-
-// Phase 8a: D[v] = sum_m B[v, m] * incentive[m] (times S_n[v] for RELATIVE);
-// also copies the bond row into the per-epoch output when it is saved.
-__global__ void k_dividend(ScanArgs a, int t, int e) {
-  const int v = blockIdx.x, b = blockIdx.y, s = t * a.B + b;
-  const int M = a.M;
-  const float* row = a.bonds + ((size_t)b * a.V + v) * M;
-  const float* inc = a.inc + (size_t)s * M;
-  float* out = a.bonds_out
-                   ? a.bonds_out + (((size_t)b * a.E + e) * a.V + v) * M
-                   : nullptr;
-  float acc = 0.0f;
-  for (int m = threadIdx.x; m < M; m += blockDim.x) {
-    const float x = row[m];
-    acc += x * inc[m];
-    if (out) out[m] = x;
+  float den = 0.0f, den2 = 0.0f;
+  auto next = [&](float tg, float old) {
+    const float bt = nan_to_num(tg / den);
+    const float ema = rate * bt + keep * old;
+    return first ? bt : ema;  // a select, never a blend
+  };
+  if (kEma) {
+    float col = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kBondCache; ++i) {
+      if (i < n) {
+        xr[i] = target(v0 + i, xr[i]);
+        col += xr[i];
+      }
+    }
+    for (int i = kBondCache; i < n; ++i) col += target(v0 + i, X[(size_t)(v0 + i) * M]);
+    den = column_sum(sh, warp, lane, col);
+    if (MODE == EMA_RUST) den = den + 1e-6f;
+    float col2 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kBondCache; ++i) {
+      if (i < n) {
+        xr[i] = next(xr[i], ob[i]);
+        col2 += xr[i];
+      }
+    }
+    if (MODE == EMA_RUST) {
+      for (int i = kBondCache; i < n; ++i) {
+        const size_t o = (size_t)(v0 + i) * M;
+        col2 += next(target(v0 + i, X[o]), bc[o]);
+      }
+      den2 = column_sum(sh, warp, lane, col2) + 1e-6f;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kBondCache; ++i) {
+      if (i < n) xr[i] = direct(v0 + i, xr[i], ob[i]);
+    }
   }
-  float d = yuma::block_sum(acc);
-  if (a.mode == RELATIVE) d = a.sn[(size_t)s * a.V + v] * d;
-  if (threadIdx.x == 0) a.dsum[(size_t)b * a.V + v] = d;
+  auto finish = [&](float bn) { return MODE == EMA_RUST ? nan_to_num(bn / den2) : bn; };
+  // Validators past the register cache: their inputs again from device
+  // memory (each is written only below, after its last read).
+  auto tail = [&](int i) {
+    const int v = v0 + i;
+    const size_t o = (size_t)v * M;
+    const float x = X[o], old = bc[o];
+    return kEma ? finish(next(target(v, x), old)) : direct(v, x, old);
+  };
+
+  // Write each bond once (and its saved copy), and the dividend partials,
+  // kBondCache validators at a time: lane j of the warp adds validator
+  // j's kBondTM products in miner order.
+  float(*prod)[kBondTM + 1] = sh.prod[warp];
+  float* dp = a.dpart + ((size_t)b * ntiles + tile) * V + v0;
+  auto put = [&](int j, int i, float bn) {
+    if (live) {
+      const size_t o = (size_t)(v0 + i) * M;
+      bc[o] = bn;
+      if (bout) bout[o] = bn;
+    }
+    prod[j][lane] = live ? bn * inc : 0.0f;
+  };
+  auto flush = [&](int i0, int cnt) {
+    __syncwarp();
+    if (lane < cnt) {
+      float d = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kBondTM; ++k) d += prod[lane][k];
+      dp[i0 + lane] = d;
+    }
+    __syncwarp();
+  };
+#pragma unroll
+  for (int i = 0; i < kBondCache; ++i) {
+    if (i < n) put(i, i, finish(xr[i]));
+  }
+  flush(0, min(n, kBondCache));
+  for (int i0 = kBondCache; i0 < n; i0 += kBondCache) {
+    const int cnt = min(kBondCache, n - i0);
+    for (int j = 0; j < cnt; ++j) put(j, i0 + j, tail(i0 + j));
+    flush(i0, cnt);
+  }
 }
 
-// Phase 8b: D_n = D / (sum(D) + 1e-6), one block per scenario; stored per
-// epoch and/or added to the running epoch sum (epoch order, float32).
-__global__ void k_dnorm(ScanArgs a, int e) {
-  const int b = blockIdx.x;
-  const float* d = a.dsum + (size_t)b * a.V;
+__global__ void __launch_bounds__(kBondThreads) k_bond(ScanArgs a, int t, int e, int eg) {
+  __shared__ BondShared sh;
+  switch (a.mode) {
+    case EMA_RUST: bond_tile<EMA_RUST>(a, t, e, eg, sh); break;
+    case EMA: bond_tile<EMA>(a, t, e, eg, sh); break;
+    case EMA_PREV: bond_tile<EMA_PREV>(a, t, e, eg, sh); break;
+    case CAPACITY: bond_tile<CAPACITY>(a, t, e, eg, sh); break;
+    default: bond_tile<RELATIVE>(a, t, e, eg, sh); break;
+  }
+}
+
+// Phase 8: D[v] = the sum of validator v's `ntiles` dividend partials
+// (times S_n[v] for RELATIVE), then D_n = D / (sum(D) + 1e-6), one block
+// of kDnormThreads per scenario; stored per epoch and/or added to the
+// running epoch sum (epoch order, float32). While V <= kDnormThreads / 2,
+// each validator's tiles are cut into G contiguous groups, one thread each
+// (neighbouring threads on neighbouring validators), each group summed in
+// tile order and the G group sums added in group order.
+constexpr int kDnormThreads = 1024;
+__global__ void __launch_bounds__(kDnormThreads) k_dnorm(ScanArgs a, int t, int e,
+                                                         int ntiles) {
+  __shared__ float part[kDnormThreads];
+  const int b = blockIdx.x, s = t * a.B + b, V = a.V;
+  const float* dp = a.dpart + (size_t)b * ntiles * V;
+  float* d = a.dsum + (size_t)b * V;
+  const int G = max(1, min(ntiles, kDnormThreads / V));
+  const int per = (ntiles + G - 1) / G;
+  auto tiles = [&](int v, int k0, int k1) {
+    float x = 0.0f;
+#pragma unroll 8
+    for (int k = k0; k < k1; ++k) x += dp[(size_t)k * V + v];
+    return x;
+  };
+  if (G > 1) {
+    const int g = threadIdx.x / V, v = threadIdx.x - g * V;
+    if (g < G) part[threadIdx.x] = tiles(v, min(ntiles, g * per), min(ntiles, (g + 1) * per));
+    __syncthreads();
+  }
   float acc = 0.0f;
-  for (int v = threadIdx.x; v < a.V; v += blockDim.x) acc += d[v];
+  for (int v = threadIdx.x; v < V; v += blockDim.x) {
+    float x = 0.0f;
+    if (G > 1) {
+      for (int g = 0; g < G; ++g) x += part[g * V + v];
+    } else {
+      x = tiles(v, 0, ntiles);
+    }
+    if (a.mode == RELATIVE) x = a.sn[(size_t)s * V + v] * x;
+    d[v] = x;
+    acc += x;
+  }
   const float den = yuma::block_sum(acc) + 1e-6f;
   for (int v = threadIdx.x; v < a.V; v += blockDim.x) {
     const float x = d[v] / den;
@@ -494,8 +704,13 @@ __global__ void k_dnorm(ScanArgs a, int e) {
 // `out` [nslab, V, M], with `den` [nslab, V] scratch.
 int normalize_rows(const ScanArgs& a, int e0, int nslab, float* den, float* out,
                    cudaStream_t st) {
-  k_rowsum<<<dim3((a.V + 31) / 32, nslab), 256, 0, st>>>(a.W, a.scales, den, a.B,
-                                                        a.w_epochs, e0, a.V, a.M);
+  const dim3 grid((a.V + kSumRows - 1) / kSumRows, nslab);
+  const bool vec = a.M % 4 == 0 && reinterpret_cast<uintptr_t>(a.W) % 16 == 0;
+  if (vec) {
+    k_rowsum<true><<<grid, 64, 0, st>>>(a.W, a.scales, den, a.B, a.w_epochs, e0, a.V, a.M);
+  } else {
+    k_rowsum<false><<<grid, 64, 0, st>>>(a.W, a.scales, den, a.B, a.w_epochs, e0, a.V, a.M);
+  }
   CHECK_LAUNCH();
   k_rowdiv<<<nslab * a.V, 256, 0, st>>>(a.W, a.scales, den, out, a.B, a.w_epochs,
                                         e0, a.V, a.M);
@@ -509,6 +724,7 @@ int run_scan(const ScanArgs& a, int T) {
   const int fits = ((long long)a.m_real << a.iters) < (1LL << 31);
   const size_t bm = (size_t)B * M, bvm = (size_t)B * V * M;
   const int col_blocks = (M + 127) / 128;
+  const int bond_tiles = (M + kBondTM - 1) / kBondTM;
   const bool scan_prev = a.mode == EMA_PREV && a.clip_src == CLIP_SCAN;
   for (int e0 = 0; e0 < a.E; e0 += T) {
     const int nslab = T * B;
@@ -541,11 +757,9 @@ int run_scan(const ScanArgs& a, int T) {
         k_reset<<<B, 256, 0, st>>>(a, cp, eg);
         CHECK_LAUNCH();
       }
-      k_bond<<<dim3(col_blocks, B), 128, 0, st>>>(a, t, eg);
+      k_bond<<<dim3(bond_tiles, B), kBondThreads, 0, st>>>(a, t, e, eg);
       CHECK_LAUNCH();
-      k_dividend<<<dim3(V, B), 256, 0, st>>>(a, t, e);
-      CHECK_LAUNCH();
-      k_dnorm<<<B, 256, 0, st>>>(a, e);
+      k_dnorm<<<B, kDnormThreads, 0, st>>>(a, t, e, bond_tiles);
       CHECK_LAUNCH();
     }
     // Carry the tile's last consensus (and W_n) into the next tile.

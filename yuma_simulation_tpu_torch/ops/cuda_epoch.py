@@ -64,6 +64,10 @@ SCAN_MODES = EMA_MODES + (BondsMode.CAPACITY, BondsMode.RELATIVE)
 #: Epoch-tile ceiling of :func:`fused_varying_scan` (pallas_epoch.py:1848).
 VARYING_EPOCH_TILE_MAX = 16
 
+#: Miners per block of the bond phase (`kBondTM` in csrc/scan_phases.cuh):
+#: the kernel leaves one dividend partial per validator per tile.
+BOND_TILE = 32
+
 _MODE_CODE = {
     BondsMode.EMA_RUST: 0,
     BondsMode.EMA: 1,
@@ -385,8 +389,8 @@ class _ScanArgs(ctypes.Structure):
         for name in (
             "W", "S", "hp", "reset_index", "reset_epoch", "bonds", "cprev",
             "wprev", "dn", "bonds_out", "inc_out", "cons_out", "wn", "sn",
-            "sint", "chi", "C", "inc", "rate", "dsum", "rden", "pden", "scales",
-            "dacc", "stream",
+            "sint", "chi", "C", "inc", "rate", "dsum", "dpart", "rden", "pden",
+            "scales", "dacc", "stream",
         )
     ] + [
         (name, ctypes.c_int)
@@ -465,7 +469,8 @@ def _scan_cuda(W, S, hp, reset_index, reset_epoch, state, *, T, p, kernel: str):
         wn=empty(T, Bn, V, M), sn=empty(T, Bn, V),
         sint=empty(T, Bn, V, dtype=torch.int32), chi=empty(T, Bn, M),
         C=empty(T, Bn, M), inc=empty(T, Bn, M), rate=empty(T, Bn, M),
-        dsum=empty(Bn, V), rden=empty(T, Bn, V), pden=empty(Bn, V),
+        dsum=empty(Bn, V), dpart=empty(Bn, -(-M // BOND_TILE), V),
+        rden=empty(T, Bn, V), pden=empty(Bn, V),
     )
     scales = p["scales"]
     if scales is not None:
