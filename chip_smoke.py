@@ -8,7 +8,9 @@ process per source, on first use), then:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. holds K1 (consensus bisection) against its plain PyTorch version at
-   256 validators x 4096 miners: `c_high` bitwise equal;
+   256 validators x 4096 miners, one slab and a batch of 16: `c_high`
+   bitwise equal; times a wrapper call (CUDA events) and the kernel alone
+   (torch.profiler) at both;
 3. holds K2 (case scan) and K3 (varying scan) against their plain versions
    at 256 x 4096 x 64 epochs of per-epoch weights, one run per bond model:
    quantized consensus bitwise, dividends and bonds within atol 2e-6 /
@@ -22,7 +24,8 @@ process per source, on first use), then:
    x 9 versions at beta=1.0 through `auto`, held to the golden CSV within
    1.5e-6;
 6. holds K4 (the bisection's support on the tensor cores) against its
-   plain version at 256 x 4096 bitwise, and K2, K3 and K5 with `mxu=True`
+   plain version at 256 x 4096 bitwise, timed as K1 at one slab and 16,
+   and K2, K3 and K5 with `mxu=True`
    against `mxu=False` at 256 x 4096 x 16 epochs for the five bond models,
    bitwise on every output;
 7. holds K5 (the scaled scan) against its plain version at 256 x 4096,
@@ -39,11 +42,12 @@ process per source, on first use), then:
    times K5's two spellings over 64 epochs in 16 pairs of alternating order;
 9. prints one `{"phases": {...}}` line, the device ms of each phase
    kernel over one call of K2, K3 and K5 (both spellings) at 256 x 4096 x
-   64 epochs (torch.profiler), and one `{"kernels": [...]}` line for
-   K1-K6 (launches on the main paths, max |kernel - plain|, kernel and
-   plain times from CUDA events, the roofline bound, and a library call's
-   time where one exists), the card line, and last `{"ok": true,
-   "device": {...}}`.
+   64 epochs (torch.profiler), one `{"bisect": {...}}` line (K1's and
+   K4's event and device ms at 1 and 16 slabs), and one `{"kernels":
+   [...]}` line for K1-K6 (launches on the main paths, max |kernel -
+   plain|, kernel and plain times from CUDA events, the roofline bound,
+   and a library call's time where one exists), the card line, and last
+   `{"ok": true, "device": {...}}`.
 
 Any failure raises and exits non-zero. Without CUDA it exits 2 and prints
 no result. The numbers and a per-kernel profile table are also written
@@ -89,6 +93,8 @@ VERSIONS = [
 ]
 ATOL, RTOL = 2e-6, 1e-5
 OUT_DIR = os.path.join("build", "chip_smoke")
+#: Calls that open a profiled window and are not counted (kernel_device_ms).
+WINDOW_WARMUP = 5
 
 
 def workload(seed: int, E: int, nnz: int = 48, strong: int = 64):
@@ -144,6 +150,84 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def kernel_device_ms(torch, fn, kernel: str, reps: int) -> float:
+    """Mean device milliseconds of one launch of kernel `kernel` (its
+    `k_*` name), from torch.profiler (CUPTI): the last `reps` of its
+    launches in a window of WINDOW_WARMUP + `reps` calls of `fn` (each
+    launching it once), after one call outside the window. The profiler
+    may drop the first launches of a window (PERF.md §7), so the window's
+    first WINDOW_WARMUP calls are not counted; every call launches the
+    same kernel on the same inputs. A window that sees fewer than `reps`
+    launches is taken again, twice at most, and then the script fails."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    calls = WINDOW_WARMUP + reps
+    seen = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        spans = []
+        for evt in prof.events():
+            found = re.search(r"\bk_[a-z_]+", evt.name)
+            if evt.device_type == DeviceType.CUDA and found and found.group(0) == kernel:
+                spans.append((evt.time_range.start, evt.time_range.end))
+        if len(spans) < calls:
+            print(f"{kernel}: the profiler kept {len(spans)} of {calls} launches", flush=True)
+        if len(spans) >= reps:
+            return sum(end - start for start, end in sorted(spans)[-reps:]) / 1e3 / reps
+        seen.append(len(spans))
+    raise AssertionError(f"{kernel}: the profiler kept {seen} of {calls} launches")
+
+
+def bisect_phase(torch, W, S, mma: bool) -> dict:
+    """K1 (or K4 with `mma`) against its plain version at one slab
+    [V, M] (the first epoch of the workload) and at 16 slabs [16, V, M]
+    (its first 16 epochs), bitwise; at each, the event ms of one wrapper
+    call and the kernel's device ms (torch.profiler). K4 is also held to
+    the masked integer sum (the plain version without mxu). Returns the
+    one-slab record of the kernel line, with the 16-slab one under
+    "slabs16"."""
+    from yuma_simulation_tpu_torch.ops.consensus import stake_weighted_median
+    from yuma_simulation_tpu_torch.ops.cuda_consensus import stake_weighted_median_cuda
+
+    label, kernel = ("K4", "k_bisect_mma") if mma else ("K1", "k_bisect")
+    recs = {}
+    for n in (1, 16):
+        Wn = (W[:n] / (W[:n].sum(-1, keepdim=True) + 1e-6)).contiguous()
+        Sn = (S[:n] / S[:n].sum(-1, keepdim=True)).contiguous()
+        if n == 1:
+            Wn, Sn = Wn[0], Sn[0]
+        got = stake_weighted_median_cuda(Wn, Sn, 0.5, mma=mma)
+        plain = stake_weighted_median(Wn, Sn, 0.5, mxu=mma)
+        torch.cuda.synchronize()
+        check_equal(f"{label} c_high vs its plain version, {n} slab(s)", got, plain)
+        if mma:
+            vpu = stake_weighted_median(Wn, Sn, 0.5)
+            check_equal(f"{label} c_high vs the masked integer sum, {n} slab(s)", got, vpu)
+        rec = dict(
+            max_abs_err=max_err(got, plain),
+            ms=cuda_ms(torch, lambda: stake_weighted_median_cuda(Wn, Sn, 0.5, mma=mma), 50),
+            device_ms=kernel_device_ms(
+                torch, lambda: stake_weighted_median_cuda(Wn, Sn, 0.5, mma=mma), kernel, 20),
+            plain_ms=cuda_ms(torch, lambda: stake_weighted_median(Wn, Sn, 0.5, mxu=mma), 5),
+        )
+        # K4 compares on the vector units and adds on the tensor cores.
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            4 * n * (V * M + V + M), n * (17 if mma else BISECT_OPS) * V * M,
+            int8_ops=n * 17 * 2 * 4 * V * M if mma else 0.0,
+        )
+        recs[n] = rec
+        print(f"{label} ok at {n} slab(s) of [{V}, {M}]: bitwise; {rec}", flush=True)
+    return dict(recs[1], slabs16=recs[16])
+
+
 def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
@@ -197,16 +281,13 @@ def phase_profile(torch, smi, runs) -> dict:
 
 
 def k4_phase(torch, dev, W, S, measured, errs):
-    """K4 against its plain version at 256 x 4096, bitwise; K2, K3 and K5
-    with mxu against their VPU spellings at 256 x 4096 x 16, bitwise; the
-    time of torch._int_mm on one halving's contraction as the library
-    yardstick."""
+    """K4 against its plain version at one slab and at 16 slabs of 256 x
+    4096, bitwise (bisect_phase); K2, K3 and K5 with mxu against their VPU
+    spellings at 256 x 4096 x 16, bitwise; the time of torch._int_mm on
+    one halving's contraction as the library yardstick."""
     from yuma_simulation_tpu_torch.models.config import YumaConfig, YumaParams
     from yuma_simulation_tpu_torch.models.variants import variant_for_version
-    from yuma_simulation_tpu_torch.ops.consensus import (
-        stake_weighted_median,
-        support_fixed_stakes,
-    )
+    from yuma_simulation_tpu_torch.ops.consensus import support_fixed_stakes
     from yuma_simulation_tpu_torch.ops.cuda_consensus import stake_weighted_median_cuda
     from yuma_simulation_tpu_torch.ops.cuda_epoch import (
         fused_case_scan,
@@ -215,23 +296,11 @@ def k4_phase(torch, dev, W, S, measured, errs):
     )
     from yuma_simulation_tpu_torch.simulation.engine import fused_hparams
 
+    rec = bisect_phase(torch, W, S, mma=True)
+    rec["library_ms"] = None
     Wn = (W[0] / (W[0].sum(-1, keepdim=True) + 1e-6)).contiguous()
     Sn = (S[0] / S[0].sum()).contiguous()
     got = stake_weighted_median_cuda(Wn, Sn, 0.5, mma=True)
-    plain = stake_weighted_median(Wn, Sn, 0.5, mxu=True)
-    vpu = stake_weighted_median(Wn, Sn, 0.5)
-    torch.cuda.synchronize()
-    check_equal("K4 c_high vs its plain version", got, plain)
-    check_equal("K4 c_high vs the masked integer sum", got, vpu)
-    rec = dict(
-        max_abs_err=max_err(got, plain),
-        ms=cuda_ms(torch, lambda: stake_weighted_median_cuda(Wn, Sn, 0.5, mma=True), 50),
-        plain_ms=cuda_ms(torch, lambda: stake_weighted_median(Wn, Sn, 0.5, mxu=True), 5),
-        library_ms=None,
-    )
-    rec["bound_ms"], rec["bound_by"] = bound_ms(
-        4 * (V * M + V + M), 17 * V * M, int8_ops=17 * 2 * 4 * V * M
-    )
     # One halving's contraction as one library call: int8 limbs must stay
     # below 128, so S_int < 2^31 takes five 7-bit limbs, padded to the 32
     # rows torch._int_mm asks for.
@@ -477,8 +546,6 @@ def main() -> int:
         variant_for_version,
     )
     from yuma_simulation_tpu_torch.ops import _build
-    from yuma_simulation_tpu_torch.ops.consensus import stake_weighted_median
-    from yuma_simulation_tpu_torch.ops.cuda_consensus import stake_weighted_median_cuda
     from yuma_simulation_tpu_torch.ops.cuda_epoch import (
         fused_case_scan,
         fused_case_scan_plain,
@@ -514,20 +581,9 @@ def main() -> int:
     W = torch.tensor(W_np, device=dev)
     S = torch.tensor(S_np, device=dev)
 
-    # ---- K1: consensus bisection vs its plain version, bitwise.
-    Wn = (W[0] / (W[0].sum(-1, keepdim=True) + 1e-6)).contiguous()
-    Sn = (S[0] / S[0].sum()).contiguous()
-    c_kernel = stake_weighted_median_cuda(Wn, Sn, 0.5)
-    c_plain = stake_weighted_median(Wn, Sn, 0.5)
-    torch.cuda.synchronize()
-    check_equal("K1 c_high", c_kernel, c_plain)
-    k1 = dict(
-        max_abs_err=max_err(c_kernel, c_plain),
-        ms=cuda_ms(torch, lambda: stake_weighted_median_cuda(Wn, Sn, 0.5), 50),
-        plain_ms=cuda_ms(torch, lambda: stake_weighted_median(Wn, Sn, 0.5), 5),
-    )
-    k1["bound_ms"], k1["bound_by"] = bound_ms(4 * (V * M + V + M), 17 * 2 * V * M)
-    print(f"K1 ok: bitwise; {k1}", flush=True)
+    # ---- K1: consensus bisection vs its plain version, bitwise, at one
+    # slab and at 16; event and device times.
+    k1 = bisect_phase(torch, W, S, mma=False)
 
     # ---- K2 / K3 vs their plain versions, one run per bond model.
     tile = 16
@@ -697,10 +753,17 @@ def main() -> int:
             library_ms=m.get("library_ms"),
         ))
     report["kernels"] = kernels
+
+    report["bisect"] = {
+        name: {str(n): {k: rec[k] for k in ("ms", "device_ms", "bound_ms", "max_abs_err")}
+               for n, rec in ((1, measured[name]), (16, measured[name]["slabs16"]))}
+        for name in ("consensus_bisect", "support_mma")
+    }
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 
     print(json.dumps({"phases": report["phases"]}))
+    print(json.dumps({"bisect": report["bisect"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

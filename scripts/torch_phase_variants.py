@@ -1,20 +1,28 @@
 #!/usr/bin/env python3
-"""Time the port's epoch scans with the phase kernels' tiling constants
+"""Time the port's kernels with the tiling constants of their CUDA sources
 changed, against the committed ones, on one NVIDIA GPU.
 
-    python3 scripts/torch_phase_variants.py [--out DIR]   # from the repo root
+    python3 scripts/torch_phase_variants.py [--group all|phases|bisect] [--out DIR]
 
-Each variant is `csrc/` with a few constants of `scan_phases.cuh` replaced
-(the bond phase's warps per block and validators per thread in registers;
-the row sum's rows per block, columns per ring stage and ring depth). Every
-variant is built with the package's nvcc flags, one process per source, all
-at once; then each variant's K2, K3 and K5 are held to the committed
-build's at 256 x 4096 x 64 epochs for the five bond models of
-chip_smoke.py (consensus and incentives bitwise, the rest within atol
-2e-6 / rtol 1e-5), timed by CUDA events in three rounds of alternating
-order, and profiled by phase kernel (chip_smoke.phase_profile). Prints
-one JSON line per variant and writes `variants.json` under DIR (default
-build/phase_variants). Exits non-zero without CUDA or on any mismatch.
+Run from the repo root. Each variant is `csrc/` with a few constants
+replaced: in `scan_phases.cuh` the bond phase's warps per block and
+validators per thread in registers, and the row sum's rows per block,
+columns per ring stage and ring depth (group "phases"); in `common.cuh`
+the consensus bisection's layout: K1's miners per block, warps and
+validators per warp in registers, K1's 16- against 4-byte loads, and
+K4's register cap (group "bisect"). Every variant of the chosen group
+(default all) is built with the package's nvcc flags, one process per
+source, all at once. Then each variant's K2, K3 and K5 (and K5 with the
+tensor-core support) are held to the committed build's at 256 x 4096 x
+64 epochs for the five bond models of chip_smoke.py (consensus and
+incentives bitwise, the rest within atol 2e-6 / rtol 1e-5), timed by CUDA
+events in three rounds of alternating order, and profiled by phase kernel
+(chip_smoke.phase_profile); K1 and K4 alone are held bitwise to the
+committed build at one slab [256, 4096] and at 16 slabs [16, 256, 4096]
+and their device ms taken from the profiler in the same three rounds.
+Prints one JSON line per variant and writes `variants.json` under DIR
+(default build/phase_variants). Exits non-zero without CUDA or on any
+mismatch.
 """
 
 from __future__ import annotations
@@ -31,38 +39,68 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-#: name -> [(text in the committed scan_phases.cuh, its replacement)]
+PHASES, COMMON = "scan_phases.cuh", "common.cuh"
+#: name -> [(file in csrc/, text in the committed file, its replacement)]
 VARIANTS = {
     "committed": [],
     "bond 8 warps x 32 validators": [
-        ("kBondWarps = 32;", "kBondWarps = 8;"), ("kBondCache = 8;", "kBondCache = 32;")],
+        (PHASES, "kBondWarps = 32;", "kBondWarps = 8;"),
+        (PHASES, "kBondCache = 8;", "kBondCache = 32;")],
     "bond 16 warps x 16 validators": [
-        ("kBondWarps = 32;", "kBondWarps = 16;"), ("kBondCache = 8;", "kBondCache = 16;")],
+        (PHASES, "kBondWarps = 32;", "kBondWarps = 16;"),
+        (PHASES, "kBondCache = 8;", "kBondCache = 16;")],
     "rowsum 128 columns x 8 stages": [
-        ("kSumCols = 256;", "kSumCols = 128;"), ("kSumStages = 4;", "kSumStages = 8;")],
-    "rowsum 4 rows": [("kSumRows = 8;", "kSumRows = 4;")],
+        (PHASES, "kSumCols = 256;", "kSumCols = 128;"),
+        (PHASES, "kSumStages = 4;", "kSumStages = 8;")],
+    "rowsum 4 rows": [(PHASES, "kSumRows = 8;", "kSumRows = 4;")],
+    "bisect 8 warps x 32 validators": [
+        (COMMON, "kBisectRows = 16;", "kBisectRows = 8;"),
+        (COMMON, "kBisectWarps = 4;", "kBisectWarps = 8;")],
+    "bisect 16 warps x 16 validators": [
+        (COMMON, "kBisectRows = 16;", "kBisectRows = 4;"),
+        (COMMON, "kBisectWarps = 4;", "kBisectWarps = 16;")],
+    "bisect 32 warps x 8 validators": [
+        (COMMON, "kBisectRows = 16;", "kBisectRows = 2;"),
+        (COMMON, "kBisectWarps = 4;", "kBisectWarps = 32;")],
+    "bisect 2 warps x 128 validators": [
+        (COMMON, "kBisectRows = 16;", "kBisectRows = 32;"),
+        (COMMON, "kBisectWarps = 4;", "kBisectWarps = 2;")],
+    "bisect 64 miners, 8 warps x 32 validators": [
+        (COMMON, "kBisectTM = 32;", "kBisectTM = 64;"),
+        (COMMON, "kBisectWarps = 4;", "kBisectWarps = 8;")],
+    "bisect 64 miners, 4 warps x 64 validators": [
+        (COMMON, "kBisectTM = 32;", "kBisectTM = 64;"),
+        (COMMON, "kBisectRows = 16;", "kBisectRows = 32;")],
+    "bisect 4-byte first loads": [
+        (COMMON, "kBisectVecLoads = true;", "kBisectVecLoads = false;")],
+    "mma no register cap": [(COMMON, "kMmaMinBlocks = 4;", "kMmaMinBlocks = 1;")],
 }
+SOURCES = ("consensus.cu", "case_scan.cu", "ema_scan.cu")
 
 
-def build(out_dir: str) -> dict:
-    """{variant: {source: loaded library}} for case_scan.cu and ema_scan.cu."""
+def group_of(name: str) -> str:
+    files = {f for f, _, _ in VARIANTS[name]}
+    return "bisect" if COMMON in files else "phases"
+
+
+def build(out_dir: str, names: list) -> dict:
+    """{variant: {source: loaded library}} for the variants `names`."""
     from yuma_simulation_tpu_torch.ops import _build
 
     procs = []
-    for i, (name, subs) in enumerate(VARIANTS.items()):
+    for i, name in enumerate(names):
         src_dir = os.path.join(out_dir, f"v{i}", "csrc")
         shutil.rmtree(src_dir, ignore_errors=True)
         shutil.copytree(str(_build.CSRC), src_dir)
-        header = os.path.join(src_dir, "scan_phases.cuh")
-        with open(header) as f:
-            text = f.read()
-        for old, new in subs:
+        for fname, old, new in VARIANTS[name]:
+            path = os.path.join(src_dir, fname)
+            with open(path) as f:
+                text = f.read()
             if text.count(old) != 1:
-                raise SystemExit(f"{name}: {old!r} not found once in scan_phases.cuh")
-            text = text.replace(old, new)
-        with open(header, "w") as f:
-            f.write(text)
-        for src in ("case_scan.cu", "ema_scan.cu"):
+                raise SystemExit(f"{name}: {old!r} not found once in {fname}")
+            with open(path, "w") as f:
+                f.write(text.replace(old, new))
+        for src in SOURCES:
             lib = os.path.join(src_dir, src.replace(".cu", ".so"))
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", src_dir, "-o", lib,
                    os.path.join(src_dir, src)]
@@ -81,7 +119,7 @@ def use(libs: dict, name: str) -> None:
     """Make the wrappers launch variant `name`'s kernels."""
     from yuma_simulation_tpu_torch.ops import _build
 
-    _build.load("consensus.cu")
+    _build.load("consensus.cu")  # builds and registers every committed source first
     _build._libs.update(libs[name])
 
 
@@ -90,6 +128,7 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--group", choices=("all", "phases", "bisect"), default="all")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "phase_variants"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -98,6 +137,7 @@ def main() -> int:
     import chip_smoke as cs
     from yuma_simulation_tpu_torch.models.config import YumaConfig, YumaParams
     from yuma_simulation_tpu_torch.models.variants import variant_for_version
+    from yuma_simulation_tpu_torch.ops.cuda_consensus import stake_weighted_median_cuda
     from yuma_simulation_tpu_torch.ops.cuda_epoch import (
         fused_case_scan, fused_ema_scan, fused_varying_scan)
     from yuma_simulation_tpu_torch.simulation.engine import fused_hparams
@@ -108,8 +148,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+    names = [n for n in VARIANTS
+             if n == "committed" or args.group in ("all", group_of(n))]
     t0 = time.perf_counter()
-    libs = build(args.out)
+    libs = build(args.out, names)
     print(f"card: {smi}; built {len(libs)} variants in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -124,7 +166,21 @@ def main() -> int:
         "K3": lambda **kw: fused_varying_scan(W, S, epoch_tile=16, **kw),
         "K2": lambda **kw: fused_case_scan(W, S, **kw),
         "K5": lambda **kw: dict(zip(("bonds", "totals"), fused_ema_scan(W1, S1, sc, **kw))),
+        "K5 mxu": lambda **kw: dict(zip(("bonds", "totals"),
+                                        fused_ema_scan(W1, S1, sc, mxu=True, **kw))),
         "K5 B=4": lambda **kw: dict(zip(("bonds", "totals"), fused_ema_scan(Wb, Sb, sc, **kw))),
+    }
+    # K1 and K4 alone: one slab (K2's and K6's phase 4) and 16 (K3's, K5's).
+    Wn16 = (W[:16] / (W[:16].sum(-1, keepdim=True) + 1e-6)).contiguous()
+    Sn16 = (S[:16] / S[:16].sum(-1, keepdim=True)).contiguous()
+    # With one halving (precision 2) as well: the difference is the time of
+    # 16 halvings, the rest the launch and the first loads.
+    alone = {
+        f"{label} x{n}" + ("" if p == 100_000 else " 1 halving"): (
+            kernel, lambda n=n, mma=mma, p=p: stake_weighted_median_cuda(
+                Wn16[0] if n == 1 else Wn16, Sn16[0] if n == 1 else Sn16, 0.5, p, mma=mma))
+        for label, kernel, mma in (("K1", "k_bisect", False), ("K4", "k_bisect_mma", True))
+        for n in (1, 16) for p in (100_000, 2)
     }
 
     ref = {}
@@ -148,10 +204,18 @@ def main() -> int:
                         cs.check_equal(f"{name} {kernel} {version} {key}", got, want)
                     else:
                         cs.check_close(f"{name} {kernel} {version} {key}", got, want)
+        for label, (_, run) in alone.items():
+            got = run()
+            torch.cuda.synchronize()
+            if name == "committed":
+                ref[label] = got
+            else:
+                cs.check_equal(f"{name} {label} c_high", got, ref[label])
     del ref
 
     quiet_kw = dict(save_bonds=False, save_incentives=False)
     times: dict = {name: {k: [] for k in runs} for name in libs}
+    device: dict = {name: {k: [] for k in alone} for name in libs}
     order = list(libs)
     for rnd in range(3):
         for name in order if rnd % 2 == 0 else order[::-1]:
@@ -159,6 +223,8 @@ def main() -> int:
             for kernel, run in runs.items():
                 kw = {} if kernel.startswith("K5") else quiet_kw
                 times[name][kernel].append(cs.cuda_ms(torch, lambda: run(**kw), 5))
+            for label, (kernel, run) in alone.items():
+                device[name][label].append(cs.kernel_device_ms(torch, run, kernel, 20))
     report = {"card": smi, "shape": [cs.E, cs.V, cs.M], "variants": {}}
     for name in libs:
         use(libs, name)
@@ -171,13 +237,18 @@ def main() -> int:
             substitutions=VARIANTS[name],
             median_ms={k: float(np.median(v)) for k, v in times[name].items()},
             ms=times[name],
+            alone_device_ms={k: float(np.median(v)) for k, v in device[name].items()},
+            alone_device_ms_rounds=device[name],
             phases_ms=phases,
         )
         report["variants"][name] = rec
-        print(json.dumps({"variant": name, "median_ms": rec["median_ms"],
-                          "k_bond_ms": {k: p.get("k_bond") for k, p in phases.items()},
-                          "k_rowsum_ms": {k: p.get("k_rowsum") for k, p in phases.items()}}),
-              flush=True)
+        print(json.dumps({
+            "variant": name, "median_ms": rec["median_ms"],
+            "alone_device_ms": rec["alone_device_ms"],
+            "k_bisect_ms": {k: p.get("k_bisect", p.get("k_bisect_mma")) for k, p in phases.items()},
+            "k_bond_ms": {k: p.get("k_bond") for k, p in phases.items()},
+            "k_rowsum_ms": {k: p.get("k_rowsum") for k, p in phases.items()},
+        }), flush=True)
     with open(os.path.join(args.out, "variants.json"), "w") as f:
         json.dump(report, f, indent=1)
     return 0

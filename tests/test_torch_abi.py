@@ -1,6 +1,7 @@
 """The argument structs the CUDA scans take, as `csrc/scan_phases.cuh`
 declares them, against the `ctypes` mirrors that `ops/cuda_epoch.py`
-passes: the same fields in the same order with the same widths. A mismatch
+passes: the same fields in the same order with the same widths; and the
+bisection entry's parameters against its wrapper's argtypes. A mismatch
 passes every CPU test (the CPU never calls the kernels) and hands the
 kernels shifted arguments on the card, so it is checked here, by parsing
 the header."""
@@ -11,7 +12,7 @@ from pathlib import Path
 
 import pytest
 
-from yuma_simulation_tpu_torch.ops import cuda_epoch
+from yuma_simulation_tpu_torch.ops import cuda_consensus, cuda_epoch
 
 HEADER = Path(cuda_epoch.__file__).resolve().parent.parent / "csrc" / "scan_phases.cuh"
 
@@ -70,3 +71,20 @@ def test_bond_tile_matches_header():
     """The dividend-partial scratch is sized with the kernel's miner tile."""
     m = re.search(r"constexpr int kBondTM = (\d+);", HEADER.read_text())
     assert m and int(m.group(1)) == cuda_epoch.BOND_TILE
+
+
+def test_bisect_argtypes_match_source():
+    """`yuma_bisect`'s C parameters (csrc/consensus.cu) against the
+    `ctypes` argtypes its wrapper sets: a float passed as an int, or a
+    dropped pointer, would shift every argument after it on the card."""
+    source = HEADER.with_name("consensus.cu").read_text()
+    m = re.search(r'extern "C" int yuma_bisect\((.*?)\)', source, re.S)
+    assert m, "yuma_bisect not found in consensus.cu"
+    want = []
+    for param in m.group(1).split(","):
+        param = " ".join(param.split())
+        if "*" in param:
+            want.append(ctypes.c_void_p)
+        else:
+            want.append(_SCALARS[param.split()[-2]])
+    assert cuda_consensus.BISECT_ARGTYPES == want

@@ -2,10 +2,12 @@
 the card, at small shapes and over the options that chip_smoke.py's one
 configuration does not reach: every version, liquid alpha overrides,
 batched suites with firing resets, several epoch tiles, the carry /
-epoch_offset contract, the float-sum quantize fallback, K1's and K4's
-narrower and unstaged miner tiles, the tensor-core (K4) spellings of every
-scan, the scaled scan (K5) and the single fused epoch (K6) with their
-options, and the refusals on CUDA tensors.
+epoch_offset contract, the float-sum quantize fallback, K1 and K4 at
+every edge of their register layouts (V, M, batch, knife-edge weights on
+the 2^-17 grid, NaN / +-inf, zero and all-holding stakes), the
+tensor-core (K4) spellings of every scan, the scaled scan (K5) and the
+single fused epoch (K6) with their options, and the refusals on CUDA
+tensors.
 
 Every test is marked `cuda` and takes the `cuda` fixture, which skips it
 where no CUDA device is present. The JAX package is not needed (the card's
@@ -115,21 +117,68 @@ def _assert_matches(got: dict, ref: dict, label: str, atol=ATOL, rtol=RTOL):
                                        msg=lambda m: f"{label} {key}: {m}")
 
 
-@pytest.mark.parametrize(
-    "lead,V,M",
-    [((), 8, 32), ((), 256, 700), ((3,), 1000, 200), ((), 4096, 160)],
-    ids=["small", "tile128", "tile32-batched", "unstaged"],
-)
-def test_k1_matches_plain_bitwise(cuda, lead, V, M):
-    """K1 at a 128-miner tile, at the 32-miner tile that a large V forces
-    (over a leading batch dim), and beyond shared memory (unstaged)."""
-    rng = np.random.default_rng(V)
-    W = rng.random(lead + (V, M)).astype(np.float32)
-    W[W < 0.5] = 0.0
-    W = W / (W.sum(-1, keepdims=True) + np.float32(1e-6))
-    S = rng.lognormal(0.0, 1.2, lead + (V,)).astype(np.float32)
+# K1's and K4's edge cases beyond the existing ones (lead, V, M, kind):
+# V across every layout boundary of launch_bisect (a single validator; one
+# k-step of K4, 32 validators, and one past it; 255, 256 = all
+# warps' register slices at the committed 4 warps x 64, and 257, whose tail
+# is re-read every halving; 1000 and 4096, long tails, and K4's k-steps past
+# its 8 in registers), M across the tiles (1, 31, 33, 4097; 4096 takes K1's
+# 16-byte loads), one slab and a leading batch. "grid" weights lie on the
+# 2^-17 grid, so midpoints hit them exactly (the strict `>` at knife
+# edges), with a row of zeros, a zero-stake validator and NaN / +-inf
+# weights; "holder" gives one validator all the stake (S_int = 2^30).
+BISECT_EDGES = [
+    ((), 1, 33, "grid"), ((), 31, 4097, "grid"), ((), 32, 1, "grid"),
+    ((), 33, 31, "grid"), ((), 255, 4096, "grid"), ((), 256, 4096, "grid"),
+    ((2,), 256, 4096, "holder"), ((), 257, 33, "grid"), ((2,), 1000, 4097, "grid"),
+    ((), 4096, 31, "grid"), ((3,), 33, 1, "holder"),
+]
+BISECT_EDGE_IDS = [
+    f"{kind}-{V}x{M}" + (f"-b{lead[0]}" if lead else "") for lead, V, M, kind in BISECT_EDGES
+]
+
+
+def _bisect_inputs(lead, V, M, kind, seed):
+    """Weights `[*lead, V, M]` and normalized stakes `[*lead, V]` (CPU).
+    "random": uniform weights, half of them zero, row-normalized, lognormal
+    (sigma 1.2) stakes; "grid" and "holder" as BISECT_EDGES says."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        W = rng.random(lead + (V, M)).astype(np.float32)
+        W[W < 0.5] = 0.0
+        W = W / (W.sum(-1, keepdims=True) + np.float32(1e-6))
+        S = rng.lognormal(0.0, 1.2, lead + (V,)).astype(np.float32)
+        S = S / S.sum(-1, keepdims=True)
+        return torch.tensor(W), torch.tensor(S)
+    W = (rng.integers(0, 2**17 + 1, size=lead + (V, M)) * 2.0**-17).astype(np.float32)
+    W[rng.random(W.shape) < 0.5] = 0.0
+    S = rng.lognormal(0.0, 2.0, lead + (V,)).astype(np.float32)
+    if kind == "holder":
+        S[:] = 0.0
+        S[..., V // 2] = 1.0
+    else:
+        W[..., 0, :] = 0.0
+        if V > 1:
+            S[..., 1] = 0.0
+        flat = W.reshape(-1)
+        cells = rng.choice(flat.size, size=min(flat.size, 3 * (1 + flat.size // 997)),
+                           replace=False)
+        flat[cells] = np.array([np.nan, np.inf, -np.inf], np.float32)[np.arange(cells.size) % 3]
     S = S / S.sum(-1, keepdims=True)
-    W, S = torch.tensor(W), torch.tensor(S)
+    return torch.tensor(W), torch.tensor(S)
+
+
+@pytest.mark.parametrize(
+    "lead,V,M,kind",
+    [((), 8, 32, "random"), ((), 256, 700, "random"), ((3,), 1000, 200, "random"),
+     ((), 4096, 160, "random")] + BISECT_EDGES,
+    ids=["small", "tile128", "tile32-batched", "unstaged"] + BISECT_EDGE_IDS,
+)
+def test_k1_matches_plain_bitwise(cuda, lead, V, M, kind):
+    """K1 against its plain version, bitwise, at the shapes the earlier
+    staged layout took (small, 128-miner tiles, 32-miner tiles over a batch,
+    unstaged) and at every edge of the register layout (BISECT_EDGES)."""
+    W, S = _bisect_inputs(lead, V, M, kind, seed=V)
     reset_launch_counts()
     got = stake_weighted_median_cuda(W.to(cuda), S.to(cuda), 0.5)
     torch.cuda.synchronize()
@@ -293,6 +342,9 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         stake_weighted_median_cuda(Wn.t(), Sn, 0.5)
     with pytest.raises(ValueError, match="shape"):
         stake_weighted_median_cuda(Wn, Sn[:3], 0.5)
+    for mma in (False, True):  # launch_bisect refuses an empty miner axis
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            stake_weighted_median_cuda(Wn[:, :0].contiguous(), Sn, 0.5, mma=mma)
     with pytest.raises(ValueError, match="float32"):
         fused_case_scan(W.to(cuda).double(), S.to(cuda).double())
 
@@ -302,20 +354,25 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
 
 
 @pytest.mark.parametrize(
-    "lead,V,M",
-    [((), 8, 32), ((), 256, 700), ((3,), 1000, 200), ((), 4096, 160), ((), 33, 4097)],
-    ids=["small", "tile128", "tile32-batched", "unstaged", "ragged"],
+    "lead,V,M,kind",
+    [((), 8, 32, "grid0"), ((), 256, 700, "grid0"), ((3,), 1000, 200, "grid0"),
+     ((), 4096, 160, "grid0"), ((), 33, 4097, "grid0")] + BISECT_EDGES,
+    ids=["small", "tile128", "tile32-batched", "unstaged", "ragged"] + BISECT_EDGE_IDS,
 )
-def test_k4_matches_plain_bitwise(cuda, lead, V, M):
+def test_k4_matches_plain_bitwise(cuda, lead, V, M, kind):
     """K4 against the plain bisection (masked integer sum) and the plain
     limb contraction, with weights on the 2^-17 grid so that midpoints
-    hit them exactly (the strict `>` at knife edges)."""
-    rng = np.random.default_rng(V + M)
-    W = (rng.integers(0, 2**17 + 1, size=lead + (V, M)) * 2.0**-17).astype(np.float32)
-    W[rng.random(W.shape) < 0.5] = 0.0
-    S = rng.lognormal(0.0, 2.0, lead + (V,)).astype(np.float32)
-    S = S / S.sum(-1, keepdims=True)
-    W, S = torch.tensor(W), torch.tensor(S)
+    hit them exactly (the strict `>` at knife edges); "grid0" is the grid
+    without the special rows and values of BISECT_EDGES."""
+    if kind == "grid0":
+        rng = np.random.default_rng(V + M)
+        W = (rng.integers(0, 2**17 + 1, size=lead + (V, M)) * 2.0**-17).astype(np.float32)
+        W[rng.random(W.shape) < 0.5] = 0.0
+        S = rng.lognormal(0.0, 2.0, lead + (V,)).astype(np.float32)
+        S = S / S.sum(-1, keepdims=True)
+        W, S = torch.tensor(W), torch.tensor(S)
+    else:
+        W, S = _bisect_inputs(lead, V, M, kind, seed=V + M)
     reset_launch_counts()
     got = stake_weighted_median_cuda(W.to(cuda), S.to(cuda), 0.5, mma=True)
     torch.cuda.synchronize()

@@ -115,12 +115,38 @@ def test_quantize_u16_matches_jax_exactly(sum_dtype):
     )
 
 
-@pytest.mark.parametrize("seed", [3, 4])
-def test_k1_plain_matches_pallas_and_bisect_exactly(seed):
-    """K1's plain version (what its wrapper runs on CPU tensors) against
-    the Pallas kernel in interpret mode and the XLA bisection: bitwise."""
-    W, S = _normalized(seed, V=8, M=32)
-    got = stake_weighted_median_cuda(_t(W), _t(S), 0.5).numpy()
+def _knife_edge(seed, V, M):
+    """Weights on the 2^-17 grid (every bisection midpoint is a grid point,
+    so midpoints hit weights exactly and the strict `>` decides), half of
+    them zero, a row of zeros, a zero-stake validator; normalized stakes."""
+    rng = np.random.default_rng(seed)
+    W = (rng.integers(0, 2**17 + 1, size=(V, M)) * 2.0**-17).astype(np.float32)
+    W[rng.random(W.shape) < 0.5] = 0.0
+    W[0] = 0.0
+    S = rng.lognormal(0.0, 2.0, V).astype(np.float32)
+    S[1] = 0.0
+    return W, (S / S.sum()).astype(np.float32)
+
+
+@pytest.mark.parametrize(
+    "seed,V,M,grid,mxu",
+    [
+        pytest.param(3, 8, 32, False, False, id="3"),
+        pytest.param(4, 8, 32, False, False, id="4"),
+        pytest.param(5, 33, 256, True, False, id="grid-33x256"),
+        pytest.param(6, 33, 256, True, True, id="grid-33x256-mxu"),
+        pytest.param(7, 63, 129, True, False, id="grid-63x129"),
+        pytest.param(8, 63, 129, True, True, id="grid-63x129-mxu"),
+    ],
+)
+def test_k1_plain_matches_pallas_and_bisect_exactly(seed, V, M, grid, mxu):
+    """K1's plain version (what its wrapper runs on CPU tensors; with mxu,
+    K4's) against the Pallas kernel in interpret mode and the XLA
+    bisection: bitwise. The card tests hold the kernels to this plain
+    version, so it is held to JAX on the same knife-edge inputs: weights
+    on the 2^-17 grid, V not a multiple of 32."""
+    W, S = _knife_edge(seed, V, M) if grid else _normalized(seed, V=V, M=M)
+    got = stake_weighted_median_cuda(_t(W), _t(S), 0.5, mma=mxu).numpy()
     np.testing.assert_array_equal(
         got, np.asarray(stake_weighted_median_pallas(_j(W), _j(S), 0.5, interpret=True))
     )

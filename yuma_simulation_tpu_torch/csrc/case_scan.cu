@@ -20,10 +20,10 @@
 // What the design does about it: the epoch is split into phase kernels
 // (scan_phases.cuh), each sized to its own parallelism. The case scan runs
 // phases 2-6 for one epoch at a time; the varying scan runs them once per
-// T-epoch tile with the tile as a grid dimension (at 256 x 4096 one
-// epoch's bisection is only 32 blocks for 132 SMs - the tile is what
-// fills the card). The phase kernels are shared, so the two scans agree
-// bitwise.
+// T-epoch tile with the tile as a grid dimension, so a tile's row sums
+// pay their chain once and its bisections (128 blocks an epoch at 256 x
+// 4096, common.cuh) run side by side. The phase kernels are shared, so
+// the two scans agree bitwise.
 #include "scan_phases.cuh"
 
 // K2: one epoch per step (phases 2-6 with a tile of 1).

@@ -1,7 +1,7 @@
 // Shared device code of the port's CUDA kernels: float helpers with the
 // JAX package's NaN/inf semantics, a block reduction in a fixed order, and
-// the consensus bisection kernel itself (K1's body, also the consensus
-// phase of the case and varying scans).
+// the consensus bisection kernels themselves (K1 and K4, also the
+// consensus phase of every scan).
 //
 // Determinism: every float reduction here runs in a fixed order (each
 // thread a strided sequential sum, then a fixed shuffle tree), never with
@@ -9,6 +9,7 @@
 // support is an int32 sum, exact in any order.
 #pragma once
 
+#include <algorithm>
 #include <cfloat>
 #include <cmath>
 #include <cstddef>
@@ -66,251 +67,421 @@ __device__ T block_sum(T v) {
   return red[32];
 }
 
-// Consensus bisection of one `[V, TM]` miner tile of one slab (a slab is
-// one (epoch, scenario) `[V, M]` matrix). Block = (TM miner columns) x
-// (VS validator lanes). With STAGED, the tile of W_n is copied to dynamic
-// shared memory once and all halvings read it there; otherwise every
-// halving reads W_n from global memory (large V).
+
+// ---------------------------------------------------------------------------
+// The consensus bisection: K1 (k_bisect), K4 (k_bisect_mma), and
+// launch_bisect, which picks between them. K1's body is also phase 4 of
+// every scan (scan_phases.cuh::run_scan), K4's with mxu.
 //
-// Each halving: every thread sums the fixed-point stakes of its validator
-// lane whose weight is strictly above the midpoint (int32, exact), the VS
-// partials of a column are added (exact), and the sum rounded once to
-// float32 is compared strictly with kappa (ops/consensus.py::
-// support_rounded). Returns the final c_high per miner.
-template <bool STAGED>
-__global__ void k_bisect(const float* __restrict__ wn,
-                         const int* __restrict__ sint,
-                         const float* __restrict__ kappa, int kappa_stride,
-                         int B, float* __restrict__ chi, int V, int M,
-                         int iters) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int TM = blockDim.x, VS = blockDim.y;
-  const int s = blockIdx.y;
-  const float kap = kappa[(s % B) * kappa_stride];
-  const float* W = wn + (size_t)s * V * M;
-  const int* Si = sint + (size_t)s * V;
-  int* part = reinterpret_cast<int*>(smem);  // [VS][TM]
-  int* dec = part + VS * TM;                 // [TM]
-  int* Ss = dec + TM;                        // [V]
-  float* Ws = reinterpret_cast<float*>(Ss + V);  // [V][TM] when STAGED
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * TM + tx, nt = TM * VS;
-  const int m0 = blockIdx.x * TM, m = m0 + tx;
-  for (int v = tid; v < V; v += nt) Ss[v] = Si[v];
-  if (STAGED) {
-    for (int i = tid; i < V * TM; i += nt) {
-      const int v = i / TM, c = i - v * TM;
-      Ws[i] = (m0 + c < M) ? W[(size_t)v * M + m0 + c] : 0.0f;
-    }
+// Replaces: the Pallas body _consensus_kernel of the JAX package's
+//   ops/pallas_consensus.py :: stake_weighted_median_pallas (K1), and the
+//   mxu=True support of its scans, ops/pallas_epoch.py :: _stake_limb_split
+//   / _support_limbs_mxu (K4).
+//
+// Contract (ops/consensus.py::stake_weighted_median): per miner, `iters`
+// halvings of [0, 1] (17 at the default precision); mid = (hi + lo) * 0.5
+// in float32; the support is the int32 sum of the fixed-point stakes
+// S_int[v] whose weight is strictly above mid (a NaN weight never is),
+// rounded once to float32, times 2^-30, compared strictly with kappa; the
+// result is the final hi. The support is an exact integer, so any thread
+// layout and any order of the partial sums gives the plain version's
+// result bit for bit.
+//
+// What bounds both on the H100: a launch must read W_n once, 4 MiB a slab
+// at 256 x 4096 (~1.25 us at 3.35 TB/s); the halvings are 17 compares and
+// adds per cell (~0.5 us a slab at the 67 T/s vector rate). Besides, the
+// halvings are a chain: each needs the one before it decided, so a slab
+// takes at least 17 halvings' latency (K1: one block barrier each).
+//
+// What both designs do about it: W_n is loaded into registers once, every
+// load of a thread issued before the first halving, and never staged in a
+// per-block [V, TM] tile, so a block needs a few KB of shared memory at
+// most and one slab at 4096 miners fills 128 blocks (the staged tile of
+// earlier versions allowed 32 blocks, one per SM). Each halving then runs
+// from registers.
+
+// What one bisection launch reads and writes. A slab is one (epoch,
+// scenario) [V, M] matrix.
+struct BisectArgs {
+  const float* wn;     // [nslab, V, M] row-normalized weights
+  const int* sint;     // [nslab, V] fixed-point stakes, or null: then
+  const float* sn;     // [nslab, V] normalized stakes, rounded on load
+  const float* kappa;  // slab s reads kappa[(s % B) * kappa_stride]; or
+  float kappa0;        // null: this kappa for every slab
+  int kappa_stride, B;
+  float* chi;          // [nslab, M] the final c_high
+  int nslab, V, M, iters;
+};
+
+__device__ __forceinline__ float bisect_kappa(const BisectArgs& a, int s) {
+  return a.kappa ? a.kappa[(size_t)(s % a.B) * a.kappa_stride] : a.kappa0;
+}
+
+// The fixed-point stake of validator v of slab s, 0 past V:
+// round(S * 2^30), half to even (ops/consensus.py::support_fixed_stakes).
+__device__ __forceinline__ int bisect_stake(const BisectArgs& a, int s, int v) {
+  if (v >= a.V) return 0;
+  const size_t i = (size_t)s * a.V + v;
+  return a.sint ? a.sint[i] : __float2int_rn(a.sn[i] * kFixed);
+}
+
+// One halving's decision for one miner (ops/consensus.py::support_rounded).
+__device__ __forceinline__ void bisect_decide(int support, float kap, float mid,
+                                              float& lo, float& hi) {
+  const bool above = (__int2float_rn(support) * kInvFixed) > kap;
+  lo = above ? mid : lo;
+  hi = above ? hi : mid;
+}
+
+// K1's layout: miners per block, row steps a lane holds in registers, and
+// the most warps a block has. A lane holds 4 adjacent miners; kBisectQuads
+// lanes span the tile and kBisectSub lanes share a warp's rows, so a warp
+// holds kBisectSub * kBisectRows validators (64 at the committed 16 x 4).
+constexpr int kBisectTM = 32;
+constexpr int kBisectRows = 16;
+constexpr int kBisectWarps = 4;
+constexpr int kBisectQuads = kBisectTM / 4;
+constexpr int kBisectSub = 32 / kBisectQuads;
+static_assert(kBisectTM == 32 || kBisectTM == 64 || kBisectTM == 128,
+              "4 miners a lane, at most one warp across the tile");
+// Whether K1 loads W_n 16 bytes at a time where M % 4 == 0 and W_n is
+// 16-byte aligned (scripts/torch_phase_variants.py times 4-byte loads
+// against it).
+constexpr bool kBisectVecLoads = true;
+
+// Weights m .. m+3 of one row, 0 past M: one 16-byte load with VEC (M % 4
+// == 0 and 16-byte aligned rows, so the four are all in or all out), else
+// four.
+template <bool VEC>
+__device__ __forceinline__ float4 load_quad(const float* row, int m, int M) {
+  if (VEC) {
+    return m < M ? *reinterpret_cast<const float4*>(row + m)
+                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
-  __syncthreads();
-  float lo = 0.0f, hi = 1.0f;
-  for (int it = 0; it < iters; ++it) {
-    const float mid = (hi + lo) * 0.5f;
-    int acc = 0;
-    if (STAGED || m < M) {
-      for (int v = ty; v < V; v += VS) {
-        const float w = STAGED ? Ws[v * TM + tx] : W[(size_t)v * M + m];
-        acc += (w > mid) ? Ss[v] : 0;
+  return make_float4(m < M ? row[m] : 0.0f, m + 1 < M ? row[m + 1] : 0.0f,
+                     m + 2 < M ? row[m + 2] : 0.0f, m + 3 < M ? row[m + 3] : 0.0f);
+}
+
+// acc += st where w > mid (ordered: a NaN never is), as a compare and a
+// predicated add: two instructions (the compiler's select-and-add takes
+// two and a half).
+__device__ __forceinline__ void add_if_above(int& acc, float w, float mid, int st) {
+  asm("{\n .reg .pred p;\n setp.gt.f32 p, %1, %2;\n @p add.s32 %0, %0, %3;\n}"
+      : "+r"(acc)
+      : "f"(w), "f"(mid), "r"(st));
+}
+
+__device__ __forceinline__ void add_above(int (&acc)[4], float4 w, int st,
+                                          const float (&mid)[4]) {
+  add_if_above(acc[0], w.x, mid[0], st);
+  add_if_above(acc[1], w.y, mid[1], st);
+  add_if_above(acc[2], w.z, mid[2], st);
+  add_if_above(acc[3], w.w, mid[3], st);
+}
+
+// K1 - the consensus bisection. One block of nw warps per (slab,
+// kBisectTM-miner tile): at 256 x 4096, 128 blocks a slab. Lane (sub, q)
+// holds miners m .. m+3 (m = tile + 4q; the kBisectQuads lanes of one row
+// read 128 contiguous bytes) and row steps r = 0 .. rw-1 of its warp's
+// contiguous validator slice, validator v0 + r * kBisectSub. The first
+// kBisectRows steps and their stakes are loaded into registers once; a
+// longer slice (V > kBisectWarps * kBisectSub * kBisectRows) re-reads its
+// tail from L2 every halving. Each halving: compares and predicated adds
+// from registers, a shuffle sum over the kBisectSub row lanes, one int4 partial
+// per (warp, quad) into shared memory double-buffered by the halving's
+// parity (a warp rewrites a buffer only after the next barrier, when every
+// warp has read it), one barrier, and every warp adds the nw partials of
+// its miners in warp order and decides in registers: no second barrier.
+template <bool VEC>
+__global__ void __launch_bounds__(32 * kBisectWarps)
+    k_bisect(const BisectArgs a, int rw) {
+  __shared__ __align__(16) int part[2][kBisectWarps][kBisectTM];
+  const int tiles = (a.M + kBisectTM - 1) / kBisectTM;
+  const int s = blockIdx.x / tiles;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int q = lane % kBisectQuads, sub = lane / kBisectQuads;
+  const int m = (blockIdx.x - s * tiles) * kBisectTM + 4 * q;
+  const float* W = a.wn + (size_t)s * a.V * a.M;
+  const int v0 = warp * rw * kBisectSub + sub;
+  float4 w[kBisectRows];
+  int st[kBisectRows];
+#pragma unroll
+  for (int r = 0; r < kBisectRows; ++r) {
+    const int v = v0 + r * kBisectSub;
+    const bool in = r < rw && v < a.V;
+    w[r] = in ? load_quad<VEC>(W + (size_t)v * a.M, m, a.M)
+              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    st[r] = in ? bisect_stake(a, s, v) : 0;
+  }
+  const float kap = bisect_kappa(a, s);
+  float lo[4] = {0.0f, 0.0f, 0.0f, 0.0f}, hi[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+  for (int it = 0; it < a.iters; ++it) {
+    float mid[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) mid[j] = (hi[j] + lo[j]) * 0.5f;
+    int acc[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int r = 0; r < kBisectRows; ++r) add_above(acc, w[r], st[r], mid);
+    for (int r = kBisectRows; r < rw; ++r) {
+      const int v = v0 + r * kBisectSub;
+      if (v < a.V) {
+        add_above(acc, load_quad<VEC>(W + (size_t)v * a.M, m, a.M),
+                  bisect_stake(a, s, v), mid);
       }
     }
-    part[tid] = acc;
-    __syncthreads();
-    if (ty == 0) {
-      int tot = 0;
-      for (int j = 0; j < VS; ++j) tot += part[j * TM + tx];
-      dec[tx] = (__int2float_rn(tot) * kInvFixed) > kap;
+#pragma unroll
+    for (int o = kBisectQuads; o < 32; o <<= 1) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], o);
+    }
+    int(*p)[kBisectTM] = part[it & 1];
+    if (sub == 0) {
+      *reinterpret_cast<int4*>(&p[warp][4 * q]) = make_int4(acc[0], acc[1], acc[2], acc[3]);
     }
     __syncthreads();
-    const bool above = dec[tx] != 0;
-    lo = above ? mid : lo;
-    hi = above ? hi : mid;
+    int tot[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int u = 0; u < kBisectWarps; ++u) {
+      if (u >= nw) break;
+      const int4 x = *reinterpret_cast<const int4*>(&p[u][4 * q]);
+      tot[0] += x.x;
+      tot[1] += x.y;
+      tot[2] += x.z;
+      tot[3] += x.w;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bisect_decide(tot[j], kap, mid[j], lo[j], hi[j]);
   }
-  if (ty == 0 && m < M) chi[(size_t)s * M + m] = hi;
+  if (warp == 0 && sub == 0) {
+    float* out = a.chi + (size_t)s * a.M;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (m + j < a.M) out[m + j] = hi[j];
+    }
+  }
 }
 
 // K4 - the same bisection with the support sum on the tensor cores.
 //
-// Replaces: the mxu=True form of the JAX package's Pallas kernels
-//   (ops/pallas_epoch.py :: _stake_limb_split, _support_limbs_mxu, used in
-//   _consensus_phase): the int32 support sum as an exact matrix product.
-//
 // Exact by construction: S_int < 2^31 is cut into four u8 limbs, and each
-// halving contracts the limb rows [4, V] with the u8 0/1 mask
-// [W_n > mid] [V, M] on the tensor cores (mma.sync m16n8k32, u8 x u8 ->
-// s32). Every product is exact and an s32 partial sum of limbs stays
-// below V * 255 < 2^31, so each limb sum is the exact integer; shifting
-// the four sums back together in int32 gives the VPU path's support bit
-// for bit (the TPU needed a bf16 head/residual split because its dot
-// rounds operands to bf16; u8 operands need no such split).
+// halving contracts the limb rows [4, V] with the s8 mask -128 [W_n > mid]
+// [V, M] (0 or -128: a byte of what one compare gives) on the tensor cores
+// (mma.sync m16n8k32, u8 x s8 -> s32). Every product is exact and an s32
+// partial sum stays within 128 * 255 * V <= 2^29 (V <= 2^14), so each limb
+// sum is the exact integer times -128; shifting the four sums back
+// together in int32 gives K1's support bit for bit
+// (the TPU needed a bf16 head/residual split because its dot rounds
+// operands to bf16; u8 operands need no such split).
 //
-// What bounds it: like K1, reading W_n once (bytes); the contraction is
-// 2 * 4 * V * M int8 operations per halving, nothing at 1,979 TOPS. The
-// tensor cores replace the int adds, not the traversal: every halving
-// still reads the staged [V, TM] tile from shared memory once.
+// What bounds it: as K1, reading W_n once and the halving chain; the
+// contraction is 2 * 4 * V * M int8 operations a halving, nothing at
+// 1,979 TOPS. A halving's chain is the mask build (one compare a weight,
+// three byte permutes per four), kMmaSteps / kMmaChains dependent mmas
+// and 8 shuffles.
 //
-// Layout: one warp per 8-miner group. A (16 x 32, row-major) holds the 4
-// limb rows of 32 validators (rows 4..15 zero); B (32 x 8, column-major)
-// the mask of those validators for the warp's 8 miners. Lane (g, t) =
-// (lane / 4, lane % 4) feeds A row g, k = 4t..4t+3 and 16+4t..16+4t+3,
-// and B column g at the same k; it gets D[g][2t], D[g][2t+1] back, so
-// lanes g < 4 hold limb g's sums of miners 2t and 2t+1. The W_n tile is
-// staged with a row stride of TM + 2, which makes the 32 lanes' loads of
-// one B fragment fall in 32 distinct banks.
-__device__ __forceinline__ void mma_u8_m16n8k32(int (&d)[4], unsigned a0,
-                                                unsigned a2, unsigned b0,
-                                                unsigned b1) {
+// Design: one warp owns 8 miners over all V; a block is kMmaWarps warps
+// (at 256 x 4096, 128 blocks a slab). Lane (g, t) = (lane / 4, lane % 4)
+// feeds A row g, k = 4t..4t+3 and 16+4t..16+4t+3 (rows 4..15 zero), and B
+// column g at the same k; it gets D[g][2t], D[g][2t+1] back, so lanes
+// g < 4 hold limb g's sums of miners 2t and 2t+1. Before the first
+// halving each lane loads, for the first kMmaSteps 32-validator k-steps,
+// its 8 B-fragment weights of miner n0 + g and its two A-fragment limb
+// words into registers. A halving then builds the masks from registers,
+// issues one mma per k-step, gathers miner g's four limb sums by shuffles
+// and decides: no shared memory and no barrier in the loop; lo and hi
+// live in registers (the 4 lanes of a miner hold the same copy). k-steps
+// past kMmaSteps (V > 256) are re-read from L2 every halving. A lane reads
+// its fragments from global memory 4 bytes at a time: a block staging its
+// [256, 32] tile by 16-byte cp.async measured no faster (PERF.md).
+
+// D += A * B with A u8 (the limbs) and B s8 (the mask bytes, 0 or -128),
+// so every limb sum comes back times -128.
+__device__ __forceinline__ void mma_u8s8_m16n8k32(int (&d)[4], unsigned a0,
+                                                  unsigned a2, unsigned b0,
+                                                  unsigned b1) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
 }
 
 constexpr int kLimbs = 4;
+// K4's layout: warps per block (8 miners each), and the 32-validator
+// k-steps a lane holds in registers (V <= 256).
+constexpr int kMmaWarps = 4;
+constexpr int kMmaSteps = 8;
+constexpr int kMmaChains = 4;  // accumulator chains a halving (divides kMmaSteps)
+// Blocks an SM must hold at once: caps K4 at 128 registers a thread, so
+// four blocks (16 warps) share an SM when a launch has enough of them.
+constexpr int kMmaMinBlocks = 4;
 
-// One byte per validator: (w > mid), lowest k in the lowest byte.
+// 1.0f (0x3f800000) where w > mid (ordered: a NaN never is), else 0.0f,
+// as its bits: one instruction.
+__device__ __forceinline__ unsigned gt_one(float w, float mid) {
+  float r;
+  asm("set.gt.f32.f32 %0, %1, %2;" : "=f"(r) : "f"(w), "f"(mid));
+  return __float_as_uint(r);
+}
+
+// One byte per validator, lowest k in the lowest byte: byte 2 of the
+// compare's 1.0f, 0x80 (-128 as s8) where w > mid, else 0. Four compares
+// and three byte permutes.
 __device__ __forceinline__ unsigned mask4(float w0, float w1, float w2,
                                           float w3, float mid) {
-  return (unsigned)(w0 > mid) | ((unsigned)(w1 > mid) << 8) |
-         ((unsigned)(w2 > mid) << 16) | ((unsigned)(w3 > mid) << 24);
+  const unsigned lo = __byte_perm(gt_one(w0, mid), gt_one(w1, mid), 0x0062);
+  const unsigned hi = __byte_perm(gt_one(w2, mid), gt_one(w3, mid), 0x0062);
+  return __byte_perm(lo, hi, 0x5410);
 }
 
-template <bool STAGED>
-__global__ void k_bisect_mma(const float* __restrict__ wn,
-                             const int* __restrict__ sint,
-                             const float* __restrict__ kappa, int kappa_stride,
-                             int B, float* __restrict__ chi, int V, int M,
-                             int iters, int TM) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int VP = (V + 31) & ~31, TS = TM + 2;
-  float* lo = reinterpret_cast<float*>(smem);            // [TM]
-  float* hi = lo + TM;                                   // [TM]
-  unsigned char* limb = reinterpret_cast<unsigned char*>(hi + TM);  // [4][VP]
-  float* Ws = reinterpret_cast<float*>(limb + kLimbs * VP);  // [VP][TS]
-  const int s = blockIdx.y;
-  const float kap = kappa[(s % B) * kappa_stride];
-  const float* W = wn + (size_t)s * V * M;
-  const int* Si = sint + (size_t)s * V;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int warp = tid >> 5, nw = nt >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.x * TM;
-  for (int v = tid; v < VP; v += nt) {
-    const unsigned x = v < V ? (unsigned)Si[v] : 0u;
-    for (int j = 0; j < kLimbs; ++j) limb[j * VP + v] = (x >> (8 * j)) & 255u;
+// Lane (g, t)'s two A-fragment words of one k-step, from that k-step's
+// stakes one a lane (lane l holds S_int of validator 32 ks + l): byte i of
+// a0 is limb g of lane 4t + i's stake, of a2 of lane 16 + 4t + i's; both
+// 0 on lanes g >= 4, which feed the zero rows. Every lane must call it.
+__device__ __forceinline__ void limb_words(int sv, int g, int t, unsigned& a0,
+                                           unsigned& a2) {
+  unsigned x[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[i] = (unsigned)__shfl_sync(0xffffffffu, sv, 4 * t + i);
+    x[4 + i] = (unsigned)__shfl_sync(0xffffffffu, sv, 16 + 4 * t + i);
   }
-  for (int c = tid; c < TM; c += nt) {
-    lo[c] = 0.0f;
-    hi[c] = 1.0f;
-  }
-  if (STAGED) {
-    for (int i = tid; i < VP * TM; i += nt) {
-      const int v = i / TM, c = i - v * TM;
-      Ws[v * TS + c] = (v < V && m0 + c < M) ? W[(size_t)v * M + m0 + c] : 0.0f;
+  const unsigned sel = (unsigned)(g | ((g + 4) << 4));  // byte g of x, of y
+  a0 = __byte_perm(__byte_perm(x[0], x[1], sel), __byte_perm(x[2], x[3], sel), 0x5410);
+  a2 = __byte_perm(__byte_perm(x[4], x[5], sel), __byte_perm(x[6], x[7], sel), 0x5410);
+  if (g >= kLimbs) a0 = a2 = 0u;
+}
+
+// The k index of B-fragment element i of lane (g, t) within its k-step.
+__device__ __forceinline__ int frag_k(int t, int i) {
+  return 4 * t + (i & 3) + 16 * (i >> 2);
+}
+
+// Lane (g, t)'s B-fragment weights of the first kMmaSteps k-steps, miner
+// n0 + g: w[ks][i] = W[32 ks + frag_k(t, i)][n0 + g], 0 past V or M, read
+// from global memory 4 bytes at a time (each warp-wide load takes 4 rows
+// x 32 bytes).
+__device__ __forceinline__ void load_fragments(const float* W, int V, int M,
+                                               int n0, int ksteps,
+                                               float (&w)[kMmaSteps][8]) {
+  const int lane = threadIdx.x & 31, t = lane & 3, col = n0 + (lane >> 2);
+#pragma unroll
+  for (int ks = 0; ks < kMmaSteps; ++ks) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int v = 32 * ks + frag_k(t, i);
+      w[ks][i] = (ks < ksteps && v < V && col < M) ? W[(size_t)v * M + col] : 0.0f;
     }
-  }
-  __syncthreads();
-  for (int it = 0; it < iters; ++it) {
-    for (int grp = warp; grp < (TM >> 3); grp += nw) {
-      const int n0 = grp * 8, col = n0 + g;
-      const float mid = (hi[col] + lo[col]) * 0.5f;
-      const bool live = STAGED || m0 + col < M;
-      int acc[4] = {0, 0, 0, 0};
-      for (int k0 = 0; k0 < VP; k0 += 32) {
-        float w[8];
-        for (int i = 0; i < 8; ++i) {
-          const int v = k0 + t * 4 + (i & 3) + (i >> 2) * 16;
-          if (STAGED) {
-            w[i] = Ws[v * TS + col];
-          } else {
-            w[i] = (live && v < V) ? W[(size_t)v * M + m0 + col] : 0.0f;
-          }
-        }
-        const unsigned b0 = mask4(w[0], w[1], w[2], w[3], mid);
-        const unsigned b1 = mask4(w[4], w[5], w[6], w[7], mid);
-        unsigned a0 = 0u, a2 = 0u;
-        if (g < kLimbs) {
-          a0 = *reinterpret_cast<const unsigned*>(limb + g * VP + k0 + t * 4);
-          a2 = *reinterpret_cast<const unsigned*>(limb + g * VP + k0 + 16 + t * 4);
-        }
-        mma_u8_m16n8k32(acc, a0, a2, b0, b1);
-      }
-      // Recombine the limb sums of miners n0 + 2t and n0 + 2t + 1, most
-      // significant limb first (every partial is <= the exact support,
-      // which fits int32).
-      unsigned s0 = 0u, s1 = 0u;
-      for (int j = kLimbs - 1; j >= 0; --j) {
-        s0 = (s0 << 8) + (unsigned)__shfl_sync(0xffffffffu, acc[0], j * 4 + t);
-        s1 = (s1 << 8) + (unsigned)__shfl_sync(0xffffffffu, acc[1], j * 4 + t);
-      }
-      __syncwarp();  // every lane has read its mid before lanes 0..3 move it
-      if (g == 0) {
-        for (int h = 0; h < 2; ++h) {
-          const int c = n0 + 2 * t + h;
-          const float m = (hi[c] + lo[c]) * 0.5f;
-          const int tot = (int)(h ? s1 : s0);
-          if ((__int2float_rn(tot) * kInvFixed) > kap) {
-            lo[c] = m;
-          } else {
-            hi[c] = m;
-          }
-        }
-      }
-      __syncwarp();
-    }
-  }
-  __syncthreads();
-  for (int c = tid; c < TM; c += nt) {
-    if (m0 + c < M) chi[(size_t)s * M + m0 + c] = hi[c];
   }
 }
 
-// Launch k_bisect (mma = 0) or k_bisect_mma (mma = 1, V <= 2^14) over
-// `nslab` slabs. The miner tile is the widest of 128/64/32 whose W_n
-// block fits the shared-memory budget (128 columns at V <= ~380); larger
-// V reads W_n from global memory.
-inline cudaError_t launch_bisect(const float* wn, const int* sint,
-                                 const float* kappa, int kappa_stride, int B,
-                                 int nslab, float* chi, int V, int M,
-                                 int iters, cudaStream_t st, int mma = 0) {
-  constexpr size_t kBudget = 200 * 1024;
-  constexpr int kThreads = 512;
-  const size_t VP = (size_t)((V + 31) & ~31);
-  if (mma && V > (1 << 14)) return cudaErrorInvalidValue;
-  auto need = [&](int tm, bool staged) -> size_t {
-    if (mma)
-      return 2 * sizeof(float) * tm + kLimbs * VP +
-             (staged ? sizeof(float) * VP * (tm + 2) : 0);
-    return sizeof(int) * (kThreads + tm + (size_t)V) +
-           (staged ? sizeof(float) * (size_t)V * tm : 0);
-  };
-  int TM = 128;
-  bool staged = false;
-  for (int tm = 128; tm >= 32; tm >>= 1) {
-    if (need(tm, true) <= kBudget) {
-      TM = tm;
-      staged = true;
-      break;
-    }
+constexpr int kMmaTile = 8 * kMmaWarps;  // miners a block
+
+__global__ void __launch_bounds__(32 * kMmaWarps, kMmaMinBlocks)
+    k_bisect_mma(const BisectArgs a) {
+  const int groups = (a.M + 7) / 8;
+  const int per_slab = (groups + kMmaWarps - 1) / kMmaWarps;
+  const int s = blockIdx.x / per_slab;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = (blockIdx.x - s * per_slab) * kMmaWarps + warp;
+  if (grp >= groups) return;  // the whole warp; nothing below waits for it
+  const int g = lane >> 2, t = lane & 3, n0 = grp * 8, col = n0 + g;
+  const int ksteps = (a.V + 31) / 32;
+  const float* W = a.wn + (size_t)s * a.V * a.M;
+  // The weights' loads go out first; the limb words are built from one
+  // coalesced stake load a k-step while they are in flight.
+  float w[kMmaSteps][8];
+  load_fragments(W, a.V, a.M, n0, ksteps, w);
+  int sv[kMmaSteps];
+#pragma unroll
+  for (int ks = 0; ks < kMmaSteps; ++ks) {
+    sv[ks] = ks < ksteps ? bisect_stake(a, s, 32 * ks + lane) : 0;
   }
-  const size_t smem = need(TM, staged);
-  if (smem > kBudget) return cudaErrorInvalidValue;
-  const dim3 grid((M + TM - 1) / TM, nslab);
-  auto go = [&](auto kernel, dim3 block, auto... args) -> cudaError_t {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, block, smem, st>>>(wn, sint, kappa, kappa_stride, B, chi, V,
-                                      M, iters, args...);
-    return cudaGetLastError();
-  };
+  unsigned la[kMmaSteps][2];
+#pragma unroll
+  for (int ks = 0; ks < kMmaSteps; ++ks) limb_words(sv[ks], g, t, la[ks][0], la[ks][1]);
+  const float kap = bisect_kappa(a, s);
+  const int src = g >> 1;  // lanes 4j + src hold limb j's sums of miner g
+  float lo = 0.0f, hi = 1.0f;
+  for (int it = 0; it < a.iters; ++it) {
+    const float mid = (hi + lo) * 0.5f;
+    // Every register k-step, unguarded (past V its weights and limbs are
+    // 0 and add 0), so the mask builds interleave; kMmaChains accumulator
+    // chains shorten the dependent mma latency a halving waits for, and
+    // their sum is exact.
+    int part[kMmaChains][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < kMmaSteps; ++ks) {
+      mma_u8s8_m16n8k32(part[ks % kMmaChains], la[ks][0], la[ks][1],
+                        mask4(w[ks][0], w[ks][1], w[ks][2], w[ks][3], mid),
+                        mask4(w[ks][4], w[ks][5], w[ks][6], w[ks][7], mid));
+    }
+    int acc[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      acc[j] = part[0][j];
+#pragma unroll
+      for (int c = 1; c < kMmaChains; ++c) acc[j] += part[c][j];
+    }
+    for (int ks = kMmaSteps; ks < ksteps; ++ks) {
+      float x[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int v = 32 * ks + frag_k(t, i);
+        x[i] = (v < a.V && col < a.M) ? W[(size_t)v * a.M + col] : 0.0f;
+      }
+      unsigned a0, a2;
+      limb_words(bisect_stake(a, s, 32 * ks + lane), g, t, a0, a2);
+      mma_u8s8_m16n8k32(acc, a0, a2, mask4(x[0], x[1], x[2], x[3], mid),
+                        mask4(x[4], x[5], x[6], x[7], mid));
+    }
+    // Miner g's support from its limb sums (each came back times -128),
+    // most significant limb first (every partial is <= the exact support,
+    // which fits int32).
+    unsigned tot = 0u;
+#pragma unroll
+    for (int j = kLimbs - 1; j >= 0; --j) {
+      const int x0 = __shfl_sync(0xffffffffu, acc[0], 4 * j + src);
+      const int x1 = __shfl_sync(0xffffffffu, acc[1], 4 * j + src);
+      tot = (tot << 8) + ((unsigned)(-((g & 1) ? x1 : x0)) >> 7);
+    }
+    bisect_decide((int)tot, kap, mid, lo, hi);
+  }
+  if (t == 0 && col < a.M) a.chi[(size_t)s * a.M + col] = hi;
+}
+
+// Launch K1 (mma = 0) or K4 (mma = 1) over a.nslab slabs on `st`, with a
+// one-dimensional grid, the miner tiles of a slab adjacent. K1: blocks of
+// nw warps, nw the fewest whose register slices cover V (at most
+// kBisectWarps), each warp's slice rw row steps a lane. K4: blocks of
+// kMmaWarps warps. K1 takes 16-byte loads when M % 4 == 0 and W_n is
+// 16-byte aligned. Refuses (cudaErrorInvalidValue) empty shapes, K4
+// past V = 2^14 (ops/consensus.py::MXU_MAX_VALIDATORS) and grids past
+// 2^31 - 1 blocks; returns the launch status.
+inline cudaError_t launch_bisect(const BisectArgs& a, cudaStream_t st, int mma = 0) {
+  if (a.nslab < 1 || a.V < 1 || a.M < 1 || a.iters < 0 || (a.kappa && a.B < 1)) {
+    return cudaErrorInvalidValue;
+  }
+  if (mma && a.V > (1 << 14)) return cudaErrorInvalidValue;
+  const int tm = mma ? kMmaTile : kBisectTM;
+  const long long blocks = (long long)a.nslab * ((a.M + tm - 1) / tm);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (mma) {
-    return staged ? go(k_bisect_mma<true>, dim3(kThreads), TM)
-                  : go(k_bisect_mma<false>, dim3(kThreads), TM);
+    k_bisect_mma<<<(unsigned)blocks, 32 * kMmaWarps, 0, st>>>(a);
+    return cudaGetLastError();
   }
-  const dim3 block(TM, kThreads / TM);
-  return staged ? go(k_bisect<true>, block) : go(k_bisect<false>, block);
+  const bool vec = kBisectVecLoads && a.M % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(a.wn) % 16 == 0;
+  const int per_warp = kBisectSub * kBisectRows;
+  const int nw = std::min(kBisectWarps, (a.V + per_warp - 1) / per_warp);
+  const int rw = (a.V + nw * kBisectSub - 1) / (nw * kBisectSub);
+  if (vec) {
+    k_bisect<true><<<(unsigned)blocks, 32 * nw, 0, st>>>(a, rw);
+  } else {
+    k_bisect<false><<<(unsigned)blocks, 32 * nw, 0, st>>>(a, rw);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace yuma

@@ -1,51 +1,42 @@
-// K1 - the consensus bisection kernel.
+// K1 - the consensus bisection kernel, and K4's standalone entry.
 //
 // Replaces: yuma_simulation_tpu/ops/pallas_consensus.py ::
 //   stake_weighted_median_pallas (the Pallas body _consensus_kernel), the
-//   17-halving stake-weighted median per miner over a [V, M] weight block.
+//   17-halving stake-weighted median per miner over a [V, M] weight block;
+//   with mma set, the tensor-core support of the JAX package's mxu=True
+//   scans (ops/pallas_epoch.py :: _stake_limb_split, _support_limbs_mxu).
 //
 // What bounds it on the H100: one call must read W_n once (4 MiB at the
 // 256 x 4096 flagship shape, ~1.25 us at 3.35 TB/s); the 17 halvings are
-// ~36 M int32 compare-adds (~0.5 us at the 67 T/s vector rate). So it is
-// bound by bytes, IF the 17 traversals do not go back to device memory.
+// ~36 M int32 compare-adds (~0.5 us at the 67 T/s vector rate), and a
+// chain: each halving waits for the one before it.
 //
 // What the design does about it: the TPU kernel keeps a whole [V, 512]
-// block in VMEM; an SM has 227 KB of shared memory, so each block here
-// stages a [V, 128] miner tile of W_n (128 KB at V = 256) into dynamic
-// shared memory once and runs all halvings from there: W_n is read from
-// device memory exactly once. 4 validator lanes per column (512 threads)
-// share each column's support sum; the int32 sum is exact, so the result
-// is bitwise the plain version's for any thread layout
-// (ops/consensus.py). The body lives in common.cuh, shared with the
-// scans' consensus phase.
-//
-// With mma set, the same entry runs K4 (k_bisect_mma, common.cuh): the
-// support sums of every halving on the tensor cores, bitwise the same.
+// block in VMEM. Here each thread loads its share of W_n into registers
+// once and every halving runs from there, in blocks small enough that one
+// slab at 4096 miners fills 128 of them (k_bisect, k_bisect_mma and their
+// layout are in common.cuh, shared with the scans' consensus phase). The
+// support is an exact int32 sum, so the result is bitwise the plain
+// version's (ops/consensus.py) for any thread layout. The stakes are
+// rounded to fixed point as they are loaded and kappa is passed by value,
+// so a call is one launch with no copies.
 #include "common.cuh"
 
-namespace {
-
-// Canonical fixed-point stakes round(S * 2^30), half to even.
-__global__ void k_stake_int(const float* __restrict__ s, int* __restrict__ sint,
-                            size_t n) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) sint[i] = __float2int_rn(s[i] * yuma::kFixed);
-}
-
-}  // namespace
-
-// c_hi [nslab, M] of W_n [nslab, V, M] and normalized stakes S_n
-// [nslab, V]; `sint` is [nslab, V] int32 scratch; `kappa` one float on
-// the device; `mma` selects K4. Launches on `stream`, allocates nothing,
-// and returns the launch status (cudaGetLastError()).
-extern "C" int yuma_bisect(const float* wn, const float* sn, int* sint,
-                           const float* kappa, float* chi, int nslab, int V,
-                           int M, int iters, int mma, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t n = (size_t)nslab * V;
-  k_stake_int<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(sn, sint, n);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)yuma::launch_bisect(wn, sint, kappa, 0, 1, nslab, chi, V, M,
-                                  iters, st, mma);
+// c_hi [nslab, M] of W_n [nslab, V, M], normalized stakes S_n [nslab, V]
+// and `kappa`; `mma` selects K4. Launches on `stream`, allocates nothing,
+// and returns the launch status (cudaErrorInvalidValue for a shape
+// launch_bisect does not take).
+extern "C" int yuma_bisect(const float* wn, const float* sn, float kappa,
+                           float* chi, int nslab, int V, int M, int iters,
+                           int mma, void* stream) {
+  yuma::BisectArgs a{};
+  a.wn = wn;
+  a.sn = sn;
+  a.kappa0 = kappa;
+  a.chi = chi;
+  a.nslab = nslab;
+  a.V = V;
+  a.M = M;
+  a.iters = iters;
+  return (int)yuma::launch_bisect(a, static_cast<cudaStream_t>(stream), mma);
 }

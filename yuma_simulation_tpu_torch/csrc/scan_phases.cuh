@@ -9,8 +9,9 @@
 //   2 stake normalization       one block per (epoch, scenario)
 //   3 row normalization         sums: one block per (epoch, scenario, 8
 //                               rows); divide: one block per row
-//   4 bisection (K1's body, or  one block per (epoch, scenario, 128 miners),
-//     K4's with mxu)            the W_n tile staged in shared memory
+//   4 bisection (K1's body, or  one block of 4 warps per (epoch, scenario,
+//     K4's with mxu)            32 miners), W_n held in registers
+//                               (common.cuh)
 //   5 quantize denominator      one block per (epoch, scenario), int32 sum
 //   6 clip / rank, incentive,   one thread per miner column; one block
 //     liquid counting bisection per (epoch, scenario)
@@ -739,8 +740,18 @@ int run_scan(const ScanArgs& a, int T) {
                                    a.s_normalized);
     CHECK_LAUNCH();
     if ((rc = normalize_rows(a, e0, nslab, a.rden, a.wn, st))) return rc;
-    cudaError_t err = yuma::launch_bisect(a.wn, a.sint, a.hp + KAPPA, NHP, B,
-                                          nslab, a.chi, V, M, a.iters, st, a.mxu);
+    yuma::BisectArgs ba{};
+    ba.wn = a.wn;
+    ba.sint = a.sint;
+    ba.kappa = a.hp + KAPPA;
+    ba.kappa_stride = NHP;
+    ba.B = B;
+    ba.chi = a.chi;
+    ba.nslab = nslab;
+    ba.V = V;
+    ba.M = M;
+    ba.iters = a.iters;
+    cudaError_t err = yuma::launch_bisect(ba, st, a.mxu);
     if (err != cudaSuccess) return (int)err;
     k_quantize<<<nslab, 1024, 0, st>>>(a.chi, a.C, a.cons_out, B, a.E, e0, M,
                                        a.m_real, a.iters, fits, a.rust64);

@@ -33,11 +33,14 @@ MMA_LAUNCHES = COUNTERS["support_mma"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+#: `yuma_bisect`'s parameters (csrc/consensus.cu): wn, sn, kappa (by
+#: value), chi, nslab, V, M, iters, mma, stream.
+BISECT_ARGTYPES = [_P, _P, ctypes.c_float, _P, _I, _I, _I, _I, _I, _P]
 
 
 def _bisect_fn():
     fn = _build.load("consensus.cu").yuma_bisect
-    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    fn.argtypes = BISECT_ARGTYPES
     fn.restype = _I
     return fn
 
@@ -65,9 +68,10 @@ def stake_weighted_median_cuda(
 ) -> torch.Tensor:
     """Drop-in for :func:`..ops.consensus.stake_weighted_median`:
     row-normalized `W [..., V, M]`, normalized stake `S [..., V]`, scalar
-    `kappa`; returns the final `c_high [..., M]`. `mma=True` runs K4 (V <=
-    2^14). CPU tensors run the plain version; CUDA tensors launch the
-    kernel; other devices raise."""
+    `kappa` (a number, passed to the kernel by value); returns the final
+    `c_high [..., M]`. `mma=True` runs K4 (V <= 2^14). CPU tensors run the
+    plain version; CUDA tensors launch the kernel, one launch and one
+    allocation (the output) a call; other devices raise."""
     if W.device.type == "cpu":
         return stake_weighted_median(W, S, kappa, precision, mxu=mma)
     if W.ndim < 2:
@@ -80,14 +84,11 @@ def stake_weighted_median_cuda(
         check_mxu_support_covers(V)
     nslab = math.prod(lead)
     iters = int(math.ceil(math.log2(precision)))
-    kappa_t = torch.as_tensor(kappa, dtype=torch.float32).to(W.device).reshape(1)
-    sint = torch.empty((nslab, V), dtype=torch.int32, device=W.device)
     chi = torch.empty(lead + (M,), dtype=torch.float32, device=W.device)
     err = _bisect_fn()(
         W.data_ptr(),
         S.data_ptr(),
-        sint.data_ptr(),
-        kappa_t.data_ptr(),
+        float(kappa),  # rounded to float32 by ctypes, as the plain version rounds it
         chi.data_ptr(),
         nslab,
         V,
