@@ -41,13 +41,17 @@ process per source, on first use), then:
    (K6 16 times) and `simulate_constant` both ways over 64 epochs; and
    times K5's two spellings over 64 epochs in 16 pairs of alternating order;
 9. prints one `{"phases": {...}}` line, the device ms of each phase
-   kernel over one call of K2, K3 and K5 (both spellings) at 256 x 4096 x
-   64 epochs (torch.profiler), one `{"bisect": {...}}` line (K1's and
-   K4's event and device ms at 1 and 16 slabs), and one `{"kernels":
-   [...]}` line for K1-K6 (launches on the main paths, max |kernel -
-   plain|, kernel and plain times from CUDA events, the roofline bound,
-   and a library call's time where one exists), the card line, and last
-   `{"ok": true, "device": {...}}`.
+   kernel over one call of K2 (Yuma 1, and Yuma 1 with liquid alpha), K3
+   and K5 (both spellings) at 256 x 4096 x 64 epochs and over
+   `simulate_scaled(epoch_impl="fused")`'s 16 epochs (K6 16 times; all by
+   torch.profiler), one `{"host_ms": {...}}` line (the wrappers' host time
+   per call of K2 and K6: host clock around a call that is not
+   synchronized, on an idle stream, averaged over 20 calls), one
+   `{"bisect": {...}}` line (K1's and K4's event and device ms at 1 and 16
+   slabs), and one `{"kernels": [...]}` line for K1-K6 (launches on the
+   main paths, max |kernel - plain|, kernel and plain times from CUDA
+   events, the roofline bound, and a library call's time where one
+   exists), the card line, and last `{"ok": true, "device": {...}}`.
 
 Any failure raises and exits non-zero. Without CUDA it exits 2 and prints
 no result. The numbers and a per-kernel profile table are also written
@@ -150,6 +154,21 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def host_ms(torch, fn, calls: int = 20) -> float:
+    """Mean host milliseconds of one call of `fn` that is not
+    synchronized, each started on an idle stream (so a full launch queue
+    never blocks it): the wrapper's own time, the card's excluded."""
+    fn()
+    total = 0.0
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / calls * 1e3
+
+
 def kernel_device_ms(torch, fn, kernel: str, reps: int) -> float:
     """Mean device milliseconds of one launch of kernel `kernel` (its
     `k_*` name), from torch.profiler (CUPTI): the last `reps` of its
@@ -246,22 +265,23 @@ def check_equal(label, got, ref):
         raise AssertionError(f"{label}: {bad} of {got.numel()} values differ")
 
 
-def phase_profile(torch, smi, runs) -> dict:
+def phase_profile(torch, smi, runs, mode: str = "w") -> dict:
     """Device ms of each phase kernel over one call of each `(name, fn)`
     of `runs`, from torch.profiler (CUPTI): kernels by their `k_*` name,
-    device-to-device copies as `copies`, and `total`. The profiler's own
-    table goes to build/chip_smoke/chip_smoke_profile.txt."""
+    device-to-device copies and memsets as `copies`, and `total`. The
+    profiler's own table goes to build/chip_smoke/chip_smoke_profile.txt
+    (`mode` "a" appends to it)."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
 
     phases = {}
-    with open(os.path.join(OUT_DIR, "chip_smoke_profile.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, "chip_smoke_profile.txt"), mode) as f:
         for name, fn in runs:
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 fn()
                 torch.cuda.synchronize()
-            f.write(f"== {name} [{E}, {V}, {M}], one call, {smi}\n")
+            f.write(f"== {name} [{V}, {M}], one call, {smi}\n")
             f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20))
             f.write("\n")
             ms: dict = {}
@@ -451,6 +471,8 @@ def scaled_phases(torch, dev, measured, launches, report):
         library_ms=None,
     )
     k6["bound_ms"], k6["bound_by"] = bound_ms(4 * (3 * V * M + 2 * V + M), ops_epoch)
+    report["host_ms"]["ema_epoch"] = host_ms(
+        torch, lambda: fused_ema_epoch(W1, Sn1, B_old, first_epoch=False))
     measured["ema_scan"], measured["ema_epoch"] = k5, k6
     print(f"K5 timing {k5}\nK6 timing {k6}", flush=True)
 
@@ -497,7 +519,7 @@ def scaled_phases(torch, dev, measured, launches, report):
     assert counts["ema_scan"] == 1, counts
     check_equal("batch lane 0 vs the single run, totals", tot_b[0], tot)
     check_equal("batch lane 0 vs the single run, bonds", bonds_b[0], bonds)
-    (tot_f, bonds_f), _, counts = counted(
+    (tot_f, bonds_f), seconds_f, counts = counted(
         "simulate_scaled fused, 16 epochs",
         lambda: simulate_scaled(W1, S1, sc16, config, spec, epoch_impl="fused"),
     )
@@ -522,11 +544,18 @@ def scaled_phases(torch, dev, measured, launches, report):
     report["scaled_path"] = dict(
         rung=rung, epochs=E_main, seconds=seconds, epochs_per_s=E_main / seconds,
         batch=4, batch_seconds=seconds_b, scenario_epochs_per_s=4 * E_main / seconds_b,
+        fused_epochs_per_s=16 / seconds_f,
         constant_epochs_per_s={str(h): 64 / v[2] for h, v in const.items()},
     )
     print(f"scaled main path: simulate_scaled auto -> {rung}, {E_main / seconds:.1f} "
-          f"epochs/s; batch x4 {4 * E_main / seconds_b:.1f} scenario-epochs/s "
-          f"(host clock, synchronized)", flush=True)
+          f"epochs/s; batch x4 {4 * E_main / seconds_b:.1f} scenario-epochs/s; "
+          f"fused (K6 per epoch) {16 / seconds_f:.1f} epochs/s (host clock, "
+          f"synchronized)", flush=True)
+    # Where K6's time goes: the fused rung's 16 epochs by phase kernel.
+    report["phases"].update(phase_profile(torch, report["card"], (
+        ("ema_epoch_x16",
+         lambda: simulate_scaled(W1, S1, sc16, config, spec, epoch_impl="fused")),
+    ), mode="a"))
 
 
 def main() -> int:
@@ -635,12 +664,15 @@ def main() -> int:
         )
         scans[name] = rec
         print(f"{name} timing at [{E}, {V}, {M}]: {rec}", flush=True)
+    report["host_ms"] = {"case_scan": host_ms(torch, lambda: fused_case_scan(W, S, **time_kw))}
     # Where the scans' time goes, by phase kernel (torch.profiler / CUPTI).
     os.makedirs(OUT_DIR, exist_ok=True)
     W1, S1 = W[0].contiguous(), (S[0] / S[0].sum()).contiguous()
     sc = (1.0 + 1e-7 * torch.arange(E, dtype=torch.float32, device=dev)).contiguous()
+    liquid = dict(liquid_alpha=True, **time_kw)
     report["phases"] = phase_profile(torch, smi, (
         ("case_scan", lambda: fused_case_scan(W, S, **time_kw)),
+        ("case_scan_liquid", lambda: fused_case_scan(W, S, **liquid)),
         ("varying_scan", lambda: fused_varying_scan(W, S, epoch_tile=tile, **time_kw)),
         ("ema_scan", lambda: fused_ema_scan(W1, S1, sc)),
         ("ema_scan_mxu", lambda: fused_ema_scan(W1, S1, sc, mxu=True)),
@@ -763,6 +795,7 @@ def main() -> int:
         json.dump(report, f, indent=1)
 
     print(json.dumps({"phases": report["phases"]}))
+    print(json.dumps({"host_ms": report["host_ms"]}))
     print(json.dumps({"bisect": report["bisect"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -73,6 +73,13 @@ def test_bond_tile_matches_header():
     assert m and int(m.group(1)) == cuda_epoch.BOND_TILE
 
 
+def test_dividend_group_matches_header():
+    """The group sums of the dividend partials and the tickets are sized
+    with the kernel's group of tiles."""
+    m = re.search(r"constexpr int kDnormGroup = (\d+);", HEADER.read_text())
+    assert m and int(m.group(1)) == cuda_epoch.DIVIDEND_GROUP
+
+
 def test_bisect_argtypes_match_source():
     """`yuma_bisect`'s C parameters (csrc/consensus.cu) against the
     `ctypes` argtypes its wrapper sets: a float passed as an int, or a

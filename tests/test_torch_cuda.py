@@ -5,9 +5,11 @@ batched suites with firing resets, several epoch tiles, the carry /
 epoch_offset contract, the float-sum quantize fallback, K1 and K4 at
 every edge of their register layouts (V, M, batch, knife-edge weights on
 the 2^-17 grid, NaN / +-inf, zero and all-holding stakes), the
-tensor-core (K4) spellings of every scan, the scaled scan (K5) and the
-single fused epoch (K6) with their options, and the refusals on CUDA
-tensors.
+tensor-core (K4) spellings of every scan, the case scan at epoch tiles
+that do not divide E, phase 8 inside phase 7's launch and the rank phase
+at the edges of their layouts, the scaled scan (K5) and the single fused
+epoch (K6) with their options, K6 called back to back without a
+synchronization, and the refusals on CUDA tensors.
 
 Every test is marked `cuda` and takes the `cuda` fixture, which skips it
 where no CUDA device is present. The JAX package is not needed (the card's
@@ -37,6 +39,7 @@ from yuma_simulation_tpu_torch.models.variants import canonical_versions, varian
 from yuma_simulation_tpu_torch.ops.consensus import stake_weighted_median
 from yuma_simulation_tpu_torch.ops.cuda_consensus import stake_weighted_median_cuda
 from yuma_simulation_tpu_torch.models.epoch import BondsMode
+from yuma_simulation_tpu_torch.ops import cuda_epoch
 from yuma_simulation_tpu_torch.ops.cuda_epoch import (
     fused_case_scan,
     fused_ema_epoch,
@@ -209,6 +212,117 @@ def test_scans_match_plain(cuda, version, params, V, M, B):
             torch.testing.assert_close(k3[key], k2[key], rtol=0, atol=1e-6)
     assert launch_counts() == {"consensus_bisect": 0, "case_scan": 1, "varying_scan": 2,
                                "support_mma": 0, "ema_scan": 0, "ema_epoch": 0}
+
+
+def _case_scan_at(W, S, tile, **kw):
+    """K2 (CUDA tensors) or its plain version (CPU) over `tile`-epoch tiles."""
+    return cuda_epoch._scan(W, S, varying=False, plain=False, epoch_tile=tile,
+                            **cuda_epoch._scan_kwargs(**kw))
+
+
+@pytest.mark.parametrize("E,tile", [(17, 16), (7, 4), (7, 3)], ids=["17by16", "7by4", "7by3"])
+@pytest.mark.parametrize(
+    "version", ["Yuma 2 (Adrian-Fish)", "Yuma 3.2 (Rhef+conditional)",
+                "Yuma 1 (paper) - liquid alpha on",
+                "Yuma 4 (Rhef+relative bonds) - liquid alpha on"],
+)
+def test_case_scan_ragged_tiles_match_plain(cuda, version, E, tile):
+    """K2 over tiles that do not divide E (the last one shorter), on a
+    batch of 4 with resets firing at and inside tile boundaries, against
+    its plain version at the same tiles; bitwise K3 (at tile 1, which
+    divides every E) and K2 with its own tile choice on consensus and
+    incentives, within 1e-6 on dividends and bonds."""
+    params = dict(VERSIONS)[version]
+    W, S = _suite(40, 300, seed=8, B=4, E=E)
+    kw = _scan_kwargs(version, params, B=4, return_carry=True)
+    kw["reset_epoch"] = torch.tensor([4, tile, -1, 7], dtype=torch.int32)
+    reset_launch_counts()
+    got = _case_scan_at(W.to(cuda), S.to(cuda), tile, **kw)
+    assert launch_counts()["case_scan"] == 1
+    _assert_matches(got, _case_scan_at(W, S, tile, **kw), f"{version} K2 tile {tile} of {E}")
+    for other in (fused_varying_scan(W.to(cuda), S.to(cuda), epoch_tile=1, **kw),
+                  fused_case_scan(W.to(cuda), S.to(cuda), **kw)):
+        for key in ("consensus", "incentives", "final_consensus"):
+            torch.testing.assert_close(got[key], other[key], rtol=0, atol=0)
+        for key in ("dividends_normalized", "bonds", "final_bonds"):
+            torch.testing.assert_close(got[key], other[key], rtol=0, atol=1e-6)
+
+
+# (V, M, B): phase 8 inside k_bond with one group of 16 miner tiles, with
+# three groups, the last one ragged (34 tiles), and with validators strided
+# over the block's 1024 threads and more of them than its shared memory
+# holds (V > 8448: D[v] in device memory); the rank phase at V not a
+# multiple of its 32 validator slices and M % 32 != 0.
+FOLD_SHAPES = [(33, 47, 3), (260, 1057, 2), (8500, 33, 2)]
+
+
+@pytest.mark.parametrize("V,M,B", FOLD_SHAPES, ids=[f"{v}x{m}-b{b}" for v, m, b in FOLD_SHAPES])
+@pytest.mark.parametrize(
+    "version", ["Yuma 1 (paper)", "Yuma 0 (subtensor)", "Yuma 4 (Rhef+relative bonds)"],
+)
+def test_dividend_fold_and_rank_layout(cuda, version, V, M, B):
+    """K2, K3 and K5 (its dividends summed over epochs in the folded phase
+    8) against their plain versions at the edges of phase 8's grouping and
+    the rank phase's slices; K2 bitwise K3 on consensus and incentives;
+    two runs bitwise the same (the tickets are integers, no float
+    atomics)."""
+    params = dict(VERSIONS)[version]
+    W, S = _suite(V, M, seed=9, B=B, E=6)
+    kw = _scan_kwargs(version, params, B=B)
+    k2 = fused_case_scan(W.to(cuda), S.to(cuda), **kw)
+    _assert_matches(k2, fused_case_scan(W, S, **kw), f"{version} K2 {V}x{M}")
+    k3 = fused_varying_scan(W.to(cuda), S.to(cuda), epoch_tile=3, **kw)
+    _assert_matches(k3, fused_varying_scan(W, S, epoch_tile=3, **kw), f"{version} K3 {V}x{M}")
+    for key in ("consensus", "incentives"):
+        torch.testing.assert_close(k3[key], k2[key], rtol=0, atol=0)
+    again = fused_case_scan(W.to(cuda), S.to(cuda), **kw)
+    for key in k2:
+        torch.testing.assert_close(again[key], k2[key], rtol=0, atol=0)
+    mode = variant_for_version(version).bonds_mode
+    hp = _hp(params)
+    Ws, S_n, scales = _scaled_inputs(V, M, E=6, B=B, seed=9)
+    ekw = dict(mode=mode, x64=mode is BondsMode.EMA_RUST, **hp)
+    got = fused_ema_scan(Ws.to(cuda), S_n.to(cuda), scales.to(cuda), **ekw)
+    ref = fused_ema_scan(Ws, S_n, scales, **ekw)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.cpu(), r, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("mode,with_clip", [("EMA", False), ("EMA_PREV", True)],
+                         ids=["ema", "ema-prev-clip"])
+def test_ema_epoch_back_to_back_matches_synchronized(cuda, mode, with_clip):
+    """20 K6 calls in a row, each on the bonds of the one before, with a
+    float w_scale (by value) and a tensor one (read on the card), queued
+    without a synchronization: bitwise the same 20 calls with
+    torch.cuda.synchronize() after each."""
+    rng = np.random.default_rng(12)
+    V, M = 40, 300
+    W = torch.tensor(rng.random((V, M)).astype(np.float32), device=cuda)
+    S = torch.tensor(rng.random(V).astype(np.float32) + 0.01, device=cuda)
+    S_n = S / S.sum()
+    clip = torch.tensor(rng.random((V, M)).astype(np.float32), device=cuda) if with_clip else None
+    scales = torch.tensor((1.0 + 1e-4 * rng.random(20)).astype(np.float32), device=cuda)
+    floats = scales.tolist()
+
+    def chain(sync):
+        B, outs = torch.zeros((V, M), device=cuda), []
+        for e in range(20):
+            w_scale = floats[e] if e % 2 else scales[e]
+            B, D_n, inc = fused_ema_epoch(W, S_n, B, w_scale=w_scale, first_epoch=e == 0,
+                                          clip_base=clip, mode=getattr(BondsMode, mode))
+            outs.append((B, D_n, inc))
+            if sync:
+                torch.cuda.synchronize()
+        return outs
+
+    reset_launch_counts()
+    queued = chain(False)
+    torch.cuda.synchronize()
+    synced = chain(True)
+    assert launch_counts()["ema_epoch"] == 40
+    for a, b in zip(queued, synced):
+        for x, y in zip(a, b):
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("x64", [False, True], ids=["f32", "x64"])

@@ -18,19 +18,30 @@
 // SM's 227 KB of shared memory, but inside the 50 MB L2.
 //
 // What the design does about it: the epoch is split into phase kernels
-// (scan_phases.cuh), each sized to its own parallelism. The case scan runs
-// phases 2-6 for one epoch at a time; the varying scan runs them once per
-// T-epoch tile with the tile as a grid dimension, so a tile's row sums
-// pay their chain once and its bisections (128 blocks an epoch at 256 x
-// 4096, common.cuh) run side by side. The phase kernels are shared, so
-// the two scans agree bitwise.
+// (scan_phases.cuh), each sized to its own parallelism. Phases 2-6 do not
+// read the bond state, so both scans run them once per tile of epochs
+// with the tile as a grid dimension: a tile's row sums pay their chain
+// once and its bisections (128 blocks an epoch at 256 x 4096, common.cuh)
+// run side by side; one epoch alone reaches at most 32 of the 132 SMs in
+// most of those phases. Only the bond update and the dividends (phases 7
+// and 8, one launch) run epoch by epoch. The TPU kernel's case scan steps
+// one epoch at a time because one epoch is what fits its VMEM; here the
+// case scan takes the largest tile up to 16 whose scratch fits
+// (ops/cuda_epoch.py::case_scan_epoch_tile), the last tile taking what is
+// left, and the varying scan the tile it is given, which divides E as in
+// the JAX package. The phase kernels are shared and compute each epoch
+// alike at any tile, so the two scans agree bitwise on the consensus and
+// the incentives.
 #include "scan_phases.cuh"
 
-// K2: one epoch per step (phases 2-6 with a tile of 1).
-extern "C" int yuma_case_scan(const ScanArgs* a) { return run_scan(*a, 1); }
+// K2: phases 2-6 over tiles of up to T epochs; the last tile may be shorter.
+extern "C" int yuma_case_scan(const ScanArgs* a) {
+  if (a->T < 1 || !a->cprev) return (int)cudaErrorInvalidValue;
+  return run_scan(*a, a->T);
+}
 
 // K3: phases 2-6 batched over a T-epoch tile; T divides E.
 extern "C" int yuma_varying_scan(const ScanArgs* a) {
-  if (a->T < 1 || a->E % a->T != 0) return (int)cudaErrorInvalidValue;
+  if (a->T < 1 || a->E % a->T != 0 || !a->cprev) return (int)cudaErrorInvalidValue;
   return run_scan(*a, a->T);
 }

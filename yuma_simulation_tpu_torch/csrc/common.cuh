@@ -45,6 +45,36 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return a > b ? a : b;
 }
 
+// Programmatic dependent launch (Hopper): a kernel launched by
+// launch_kernel may be scheduled while the kernel before it on the stream
+// is still finishing, so every such kernel first waits here until that
+// kernel has completed and its writes are visible; it reads and writes
+// nothing before. (Launched without the attribute, this is a no-op.)
+__device__ __forceinline__ void wait_for_prior_grid() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// Whether launch_kernel asks for programmatic dependent launch
+// (scripts/torch_phase_variants.py times the scans without it).
+constexpr bool kProgrammaticLaunch = true;
+
+// Launch `kernel` on `st`; returns the launch status.
+template <typename... P, typename... A>
+inline cudaError_t launch_kernel(void (*kernel)(P...), dim3 grid, dim3 block,
+                                 cudaStream_t st, A... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = kProgrammaticLaunch ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 // Sum of one value per thread over the whole block, returned to every
 // thread. blockDim.x must be a multiple of 32 (at most 1024) and every
 // thread must call it. The order is fixed: a shuffle tree inside each
@@ -195,6 +225,7 @@ __device__ __forceinline__ void add_above(int (&acc)[4], float4 w, int st,
 template <bool VEC>
 __global__ void __launch_bounds__(32 * kBisectWarps)
     k_bisect(const BisectArgs a, int rw) {
+  wait_for_prior_grid();
   __shared__ __align__(16) int part[2][kBisectWarps][kBisectTM];
   const int tiles = (a.M + kBisectTM - 1) / kBisectTM;
   const int s = blockIdx.x / tiles;
@@ -380,6 +411,7 @@ constexpr int kMmaTile = 8 * kMmaWarps;  // miners a block
 
 __global__ void __launch_bounds__(32 * kMmaWarps, kMmaMinBlocks)
     k_bisect_mma(const BisectArgs a) {
+  wait_for_prior_grid();
   const int groups = (a.M + 7) / 8;
   const int per_slab = (groups + kMmaWarps - 1) / kMmaWarps;
   const int s = blockIdx.x / per_slab;
@@ -467,21 +499,14 @@ inline cudaError_t launch_bisect(const BisectArgs& a, cudaStream_t st, int mma =
   const int tm = mma ? kMmaTile : kBisectTM;
   const long long blocks = (long long)a.nslab * ((a.M + tm - 1) / tm);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  if (mma) {
-    k_bisect_mma<<<(unsigned)blocks, 32 * kMmaWarps, 0, st>>>(a);
-    return cudaGetLastError();
-  }
+  if (mma) return launch_kernel(k_bisect_mma, (unsigned)blocks, 32 * kMmaWarps, st, a);
   const bool vec = kBisectVecLoads && a.M % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(a.wn) % 16 == 0;
   const int per_warp = kBisectSub * kBisectRows;
   const int nw = std::min(kBisectWarps, (a.V + per_warp - 1) / per_warp);
   const int rw = (a.V + nw * kBisectSub - 1) / (nw * kBisectSub);
-  if (vec) {
-    k_bisect<true><<<(unsigned)blocks, 32 * nw, 0, st>>>(a, rw);
-  } else {
-    k_bisect<false><<<(unsigned)blocks, 32 * nw, 0, st>>>(a, rw);
-  }
-  return cudaGetLastError();
+  return launch_kernel(vec ? k_bisect<true> : k_bisect<false>, (unsigned)blocks, 32 * nw,
+                       st, a, rw);
 }
 
 }  // namespace yuma

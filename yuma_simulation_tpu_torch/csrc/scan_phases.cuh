@@ -4,7 +4,9 @@
 //
 // The epoch is split into phase kernels, each sized to its own
 // parallelism, launched on one stream by a host loop with no Python per
-// epoch:
+// epoch, each with programmatic dependent launch (common.cuh::
+// launch_kernel: it is scheduled while the kernel before it finishes, and
+// waits for it before touching memory):
 //   1 reset injection           one block per scenario
 //   2 stake normalization       one block per (epoch, scenario)
 //   3 row normalization         sums: one block per (epoch, scenario, 8
@@ -13,26 +15,42 @@
 //     K4's with mxu)            32 miners), W_n held in registers
 //                               (common.cuh)
 //   5 quantize denominator      one block per (epoch, scenario), int32 sum
-//   6 clip / rank, incentive,   one thread per miner column; one block
-//     liquid counting bisection per (epoch, scenario)
+//   6 clip / rank               one block per (epoch, scenario, 32
+//                               miners), 32 validator slices over its warps
+//     incentive, liquid         one block per (epoch, scenario)
+//     counting bisection
 //   7 bond update and the       one block of 32 warps per (scenario, 32
 //     dividend partials         miners), a validator slice per warp
-//   8 dividend normalization    one block per scenario
-// Phases 2-6 run once per T-epoch tile with the tile as a grid dimension
-// (T = 1 is one epoch per step), then phases 1, 7 and 8 T times in order.
+//   8 dividend normalization    in the next epoch's phase-7 launch, one
+//                               extra block per scenario; a tile's last
+//                               epoch: its own launch's last blocks
+// Phases 2-6 run once per tile of up to T epochs with the tile as a grid
+// dimension, then phases 1, 7 and 8 epoch by epoch in order. Phases 2-6 do
+// not read the bond state, so any tiling gives the same results; the last
+// tile may be shorter than T (K2 takes the largest T that fits, K3 and K5
+// a T that divides E).
 //
-// What bounds phases 3 and 7, and what their design does about it:
+// What bounds phases 3, 6 and 7, and what their design does about it:
 // - Phase 3's row sum feeds the consensus, so each row is one chain of M
 //   dependent float32 adds (~8-9 us at M = 4096): no tree, no split. The
 //   floor is that chain, run for every row of the launch at once, so
 //   k_rowsum gives each row its own adding lane, only 8 rows per block
-//   (K2's and K6's 256 rows per epoch spread over 32 blocks), and keeps
-//   the adder off device memory: the block's producer warp fills a
-//   4-stage ring of 256-column chunks in shared memory with 16-byte
-//   cp.async copies, and the adder reads one float4 per four in-order
-//   adds. K3 and K5 run 16 epochs' rows per launch and pay the chain once
-//   per tile; K2 and K6 pay it every epoch, at about twice the chain
+//   (a slab's 256 rows spread over 32 blocks), and keeps the adder off
+//   device memory: the block's producer warp fills a 4-stage ring of
+//   256-column chunks in shared memory with 16-byte cp.async copies, and
+//   the adder reads one float4 per four in-order adds. A tile of 16
+//   epochs pays the chain once; K6, one epoch a call, pays it every epoch
 //   (PERF.md).
+// - Phase 6's rank reads the clip base once (4 MiB a slab at 256 x 4096,
+//   ~1.25 us at 3.35 TB/s): bytes bound it, and only if enough loads are in
+//   flight. k_rank is laid out as k_bond: a block per (slab, 32-miner
+//   tile), lane = miner, the validators cut into 32 contiguous slices
+//   whose sums are added in slice order, kRankCache rows loaded at once.
+//   One slab (K6) takes 32 warps a block, a slice each, so its 128 blocks
+//   hold the whole slab's loads in flight (one thread per miner column
+//   over all V filled 32 blocks); a tile of many slabs takes 8 warps a
+//   block, four slices each, so several blocks share an SM. The slices fix
+//   the order, so both layouts give the same bits.
 // - Phase 7 must read W_n (or EMA_PREV's clip base) and the bonds once and
 //   write the bonds once: ~12 MB per epoch at 256 x 4096, ~3.6 us at
 //   3.35 TB/s. Bytes bound it, and only if enough loads are in flight.
@@ -50,27 +68,43 @@
 //   kernel re-reads them. A slice longer than the register cache
 //   (V > 256) re-reads its tail from device memory.
 // - Phase 8 reads only the dividend partials (V x M / 32 floats, 128 KB at
-//   256 x 4096) and normalizes V values: its time is about one small
-//   launch. k_dnorm sums each validator's partials in contiguous tile
-//   groups, one thread per group, so its loads are not one serial chain.
+//   256 x 4096) and normalizes V values: less work than a launch costs,
+//   but work that must wait for every block of phase 7. So no launch of
+//   its own: epoch e's phase 8 runs in one extra block of epoch e+1's
+//   k_bond launch, beside its bond blocks, from partials double-buffered
+//   by the epoch's parity, and costs no time of its own. A tile's last
+//   epoch cannot wait (the next tile's phases overwrite its stakes), so
+//   its own k_bond launch runs it, in two levels so that no block reads
+//   all the partials: a block publishes its partials (a barrier, then a
+//   device-scope fence) and takes a ticket (an integer atomicAdd) of its
+//   group of 16 tiles before it stores its bonds; the group's last block
+//   sums the group's partials and takes a ticket of the scenario; the last
+//   group adds the group sums, normalizes, and resets the tickets. Both
+//   add the partials in the same order (PERF.md has what each piece
+//   costs).
 //
 // What the scans take: W [B, EW, V, M] and S [B, ES, V] with EW, ES the
 // epochs stored (E, or 1 for epoch-constant inputs); an optional per-epoch
-// weight scale (epoch e reads W * scales[e], before the row sum); stakes
-// raw (normalized in phase 2) or already normalized; per-epoch outputs
-// each optional, and an optional in-kernel f32 sum of D_n over epochs.
+// weight scale (epoch e reads W * scales[e], before the row sum) or one
+// scale by value; stakes raw (normalized in phase 2) or already
+// normalized; the hyperparameters per scenario, or one row by value
+// shared by all; per-epoch outputs each optional, and an optional
+// in-kernel f32 sum of D_n over epochs.
 //
 // Numerics: the row and stake sums add strictly left to right, as the
 // plain PyTorch version does (and XLA's CPU backend for short rows), so the
 // consensus, which depends only on W_n and the fixed-point stakes, is
 // bitwise the plain version's on any device. Every other float reduction
-// runs in a fixed order with no float atomics, so a run is reproducible
-// bit for bit. Built with --fmad=false: no multiply-add is contracted,
-// each operation rounds as the plain version's does.
+// runs in a fixed order with no float atomics (the tickets are integers),
+// so a run is reproducible bit for bit, and every launch of a phase
+// computes each slab alike whatever the tile: K2 and K3 agree bitwise on
+// consensus and incentives. Built with --fmad=false: no multiply-add is
+// contracted, each operation rounds as the plain version's does.
 //
 // The bond state lives in one device buffer [B, V, M] that the bond phase
 // updates in place (each thread owns one column of one validator slice);
-// the carry buffers
+// the first epoch may read its old bonds from another buffer (bonds_in,
+// so the wrapper need not copy the carried bonds). The carry buffers
 // (bonds, previous consensus, previous W_n) are seeded by the wrapper, so
 // the carry / epoch_offset contract of pallas_epoch.py:1566-1575 holds.
 #pragma once
@@ -105,6 +139,19 @@ constexpr int kBondWarps = 32;
 constexpr int kBondThreads = 32 * kBondWarps;
 constexpr int kBondCache = 8;
 static_assert(kBondTM == 32 && kBondCache <= 32, "lane = miner; one partial per lane");
+// Phase 8: k_bond's blocks in groups of kDnormGroup miner tiles; the last
+// block of a group sums the group's dividend partials, the last group of a
+// scenario the group sums.
+constexpr int kDnormGroup = 16;
+// Phase 6a (k_rank): the validator slices whose partial sums make R (they
+// fix its order), validators a thread loads at once, and the warps per
+// block (a slice or more each, lane = miner): kRankWarpsFew while the
+// launch has fewer than kRankBlocksPerSM blocks an SM, else kRankWarpsMany.
+constexpr int kRankSlices = 32;
+constexpr int kRankCache = 8;
+constexpr int kRankWarpsFew = 32;
+constexpr int kRankWarpsMany = 8;
+constexpr int kRankBlocksPerSM = 2;
 
 }  // namespace
 
@@ -125,11 +172,12 @@ struct LiquidSpec {
 struct ScanArgs {
   const float* W;        // [B, w_epochs, V, M] raw weights
   const float* S;        // [B, s_epochs, V] stakes (raw or normalized)
-  const float* hp;       // [B, NHP] hyperparameters
-  const int* reset_index;  // [B]
-  const int* reset_epoch;  // [B]
+  const float* hp;       // [B, NHP] hyperparameters, or null: hpv for all
+  const int* reset_index;  // [B], or null: reset_index0 for all
+  const int* reset_epoch;  // [B], or null: reset_epoch0 for all
   float* bonds;          // [B, V, M] bond state, in/out (carry)
-  float* cprev;          // [B, M] previous consensus, in/out (carry)
+  const float* bonds_in; // [B, V, M] the bonds before epoch 0, or null: bonds
+  float* cprev;          // [B, M] previous consensus, in/out (carry), or null
   float* wprev;          // [B, V, M] previous W_n, in/out (EMA_PREV carry)
   float* dn;             // [B, E, V] normalized dividends or null
   float* bonds_out;      // [B, E, V, M] or null
@@ -143,10 +191,13 @@ struct ScanArgs {
   float* inc;            // [T, B, M] scratch
   float* rate;           // [T, B, M] scratch
   float* dsum;           // [B, V] scratch
-  float* dpart;          // [B, ceil(M / kBondTM), V] scratch: dividend partials
+  float* dpart;          // [2, B, ceil(M / kBondTM), V] scratch: dividend partials
+                         // (by the parity of the epoch's slot in its tile)
+  float* dgroup;         // [B, groups, V] scratch: their sums by kDnormGroup tiles
   float* rden;           // [T, B, V] scratch: row denominators
   float* pden;           // [B, V] scratch: recomputed previous row denominators
-  const float* scales;   // [E] per-epoch weight scale or null
+  int* ticket;           // [B, groups + 1] scratch: phase 8's tickets (run_scan zeroes)
+  const float* scales;   // [E] per-epoch weight scale, or null: scale0
   float* dacc;           // [B, V] sum over epochs of D_n (seeded 0) or null
   void* stream;
   int B, E, V, M, T;
@@ -157,8 +208,12 @@ struct ScanArgs {
   int clip_src;            // ClipSrc
   int recompute_prev;      // EMA_PREV: re-derive the previous W_n per tile
   int mxu;                 // phase 4 on the tensor cores (K4)
+  int reset_index0, reset_epoch0;
+  float scale0;
+  float hpv[9];            // [NHP]
   LiquidSpec liq;
 };
+static_assert(NHP == 9, "ScanArgs::hpv holds one hyperparameter row");
 
 namespace {
 
@@ -169,8 +224,13 @@ __host__ __device__ __forceinline__ size_t epoch_slice(int b, int stored, int e,
   return ((size_t)b * stored + (stored == 1 ? 0 : e)) * rows;
 }
 
-__device__ __forceinline__ float epoch_scale(const float* scales, int e) {
-  return scales ? scales[e] : 1.0f;
+__device__ __forceinline__ float epoch_scale(const float* scales, float scale0, int e) {
+  return scales ? scales[e] : scale0;
+}
+
+// Hyperparameter k of scenario b.
+__device__ __forceinline__ float hparam(const ScanArgs& a, int b, int k) {
+  return a.hp ? a.hp[(size_t)b * NHP + k] : a.hpv[k];
 }
 
 // Phase 2: S_n = S / sum(S) (or S as given) and the fixed-point stakes.
@@ -180,6 +240,7 @@ __device__ __forceinline__ float epoch_scale(const float* scales, int e) {
 __global__ void k_stake(const float* __restrict__ S, float* __restrict__ sn,
                         int* __restrict__ sint, int B, int SE, int e0, int V,
                         int normalized) {
+  yuma::wait_for_prior_grid();
   __shared__ float tot;
   const int s = blockIdx.x, t = s / B, b = s % B;
   const float* row = S + epoch_slice(b, SE, e0 + t, V);
@@ -225,14 +286,15 @@ __device__ __forceinline__ void cp_async_wait() {
 template <bool VEC>
 __global__ void __launch_bounds__(64) k_rowsum(const float* __restrict__ W,
                                                const float* __restrict__ scales,
-                                               float* __restrict__ den, int B,
-                                               int WE, int e0, int V, int M) {
+                                               float scale0, float* __restrict__ den,
+                                               int B, int WE, int e0, int V, int M) {
+  yuma::wait_for_prior_grid();
   __shared__ __align__(16) float ring[kSumStages][kSumRows][kSumStride];
   const int v0 = blockIdx.x * kSumRows, s = blockIdx.y, t = s / B, b = s % B;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int rows = min(kSumRows, V - v0);
   const int nchunks = (M + kSumCols - 1) / kSumCols;
-  const float sc = epoch_scale(scales, e0 + t);
+  const float sc = epoch_scale(scales, scale0, e0 + t);
   const float* Wb = W + epoch_slice(b, WE, e0 + t, (size_t)V * M) + (size_t)v0 * M;
   // Producer: chunk k into stage k % kSumStages, one commit group per
   // chunk (an empty one past the end keeps the group count uniform).
@@ -284,11 +346,12 @@ __global__ void __launch_bounds__(64) k_rowsum(const float* __restrict__ W,
 
 // Phase 3b: W_n = (W * scale) / den, one block per (slab, validator) row.
 __global__ void k_rowdiv(const float* __restrict__ W, const float* __restrict__ scales,
-                         const float* __restrict__ den, float* __restrict__ wn,
-                         int B, int WE, int e0, int V, int M) {
+                         float scale0, const float* __restrict__ den,
+                         float* __restrict__ wn, int B, int WE, int e0, int V, int M) {
+  yuma::wait_for_prior_grid();
   const size_t row = blockIdx.x;  // s * V + v
   const int s = (int)(row / V), v = (int)(row % V), t = s / B, b = s % B;
-  const float sc = epoch_scale(scales, e0 + t);
+  const float sc = epoch_scale(scales, scale0, e0 + t);
   const float* src = W + epoch_slice(b, WE, e0 + t, (size_t)V * M) + (size_t)v * M;
   float* dst = wn + row * M;
   const float d = den[row];
@@ -303,6 +366,7 @@ __global__ void k_rowdiv(const float* __restrict__ W, const float* __restrict__ 
 __global__ void k_quantize(const float* __restrict__ chi, float* __restrict__ C,
                            float* __restrict__ cons_out, int B, int E, int e0,
                            int M, int m_real, int iters, int fits, int rust64) {
+  yuma::wait_for_prior_grid();
   const int s = blockIdx.x, t = s / B, b = s % B;
   const float* ch = chi + (size_t)s * M;
   float* out = C + (size_t)s * M;
@@ -360,21 +424,50 @@ __device__ __forceinline__ const float* clip_base(const ScanArgs& a, int t,
   return a.wn + ((size_t)(t - 1) * a.B + b) * vm;
 }
 
-// Phase 6a: R[m] = sum_v S_n[v] * min(clip_base[v, m], C[m]), one thread
-// per miner column, validators in order. R goes to the incentive buffer.
-__global__ void k_rank(ScanArgs a, int e0) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+// Phase 6a: R[m] = sum_v S_n[v] * min(clip_base[v, m], C[m]) into the
+// incentive buffer. One block of NW warps per (slab, 32-miner tile), lane
+// = miner. The validators are cut into kRankSlices contiguous slices; warp
+// w adds slices w, w + NW, ... each in validator order, kRankCache rows
+// loaded at once, and warp 0 adds the slice sums in slice order. The order
+// depends only on V, never on NW or the tile, so every scan ranks alike
+// whichever layout its launch takes.
+template <int NW>
+__global__ void __launch_bounds__(32 * NW) k_rank(ScanArgs a, int e0) {
+  yuma::wait_for_prior_grid();
+  static_assert(kRankSlices % NW == 0, "whole slices per warp");
+  __shared__ float part[kRankSlices][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int s = blockIdx.y, t = s / a.B, b = s % a.B;
-  if (m >= a.M) return;
+  const int m = blockIdx.x * 32 + lane;
+  const int mc = m < a.M ? m : a.M - 1;  // a lane past M reads column M - 1
+  const int per = (a.V + kRankSlices - 1) / kRankSlices;
   const int eg = e0 + t + a.epoch_offset;
-  const float* base = clip_base(a, t, b, eg);
+  const float* base = clip_base(a, t, b, eg) + mc;
   const float* sn = a.sn + (size_t)s * a.V;
-  const float c = a.C[(size_t)s * a.M + m];
-  float r = 0.0f;
-#pragma unroll 8
-  for (int v = 0; v < a.V; ++v)
-    r += yuma::min_nan(base[(size_t)v * a.M + m], c) * sn[v];
-  a.inc[(size_t)s * a.M + m] = r;
+  const float c = a.C[(size_t)s * a.M + mc];
+  for (int q = warp; q < kRankSlices; q += NW) {
+    const int v0 = min(a.V, q * per), n = min(a.V, v0 + per) - v0;
+    float r = 0.0f;
+    for (int i0 = 0; i0 < n; i0 += kRankCache) {
+      float x[kRankCache];
+#pragma unroll
+      for (int j = 0; j < kRankCache; ++j) {
+        if (i0 + j < n) x[j] = base[(size_t)(v0 + i0 + j) * a.M];
+      }
+#pragma unroll
+      for (int j = 0; j < kRankCache; ++j) {
+        if (i0 + j < n) r += yuma::min_nan(x[j], c) * sn[v0 + i0 + j];
+      }
+    }
+    part[q][lane] = r;
+  }
+  __syncthreads();
+  if (warp == 0 && m < a.M) {
+    float tot = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kRankSlices; ++q) tot += part[q][lane];
+    a.inc[(size_t)s * a.M + m] = tot;
+  }
 }
 
 __device__ __forceinline__ float stat(const int* sel, int i) {
@@ -393,6 +486,7 @@ __device__ float quant(const LiquidSpec& q, const int* sel, int i) {
 // bisection over C_int = round(C * 65535), all ranks jointly
 // (pallas_epoch.py::_liquid_rate_on_grid). One block per slab.
 __global__ void k_incentive(ScanArgs a, int e0) {
+  yuma::wait_for_prior_grid();
   const int s = blockIdx.x, t = s / a.B, b = s % a.B;
   const int M = a.M;
   float* inc = a.inc + (size_t)s * M;
@@ -438,10 +532,9 @@ __global__ void k_incentive(ScanArgs a, int e0) {
                                           : c_high0 == c_low;
     c_high = degenerate ? quant(q, sel, 2) : c_high0;
   }
-  const float* hp = a.hp + (size_t)b * NHP;
-  const float al = hp[ALO], ah = hp[AHI];
-  const float aa = hp[LOGIT_NUM] / (c_low - c_high);
-  const float bb = hp[LOGIT_LOW] + aa * c_low;
+  const float al = hparam(a, b, ALO), ah = hparam(a, b, AHI);
+  const float aa = hparam(a, b, LOGIT_NUM) / (c_low - c_high);
+  const float bb = hparam(a, b, LOGIT_LOW) + aa * c_low;
   const float e = 2.71828182845904523536f;
   float* rate = a.rate + (size_t)s * M;
   for (int m = threadIdx.x; m < M; m += blockDim.x) {
@@ -455,9 +548,11 @@ __global__ void k_incentive(ScanArgs a, int e0) {
 // on, and for CONDITIONAL only if that miner's previous consensus was
 // exactly 0. `cp` is the previous epoch's consensus [B, M].
 __global__ void k_reset(ScanArgs a, const float* __restrict__ cp, int eg) {
+  yuma::wait_for_prior_grid();
   const int b = blockIdx.x;
-  const int ri = a.reset_index[b];
-  bool fire = eg == a.reset_epoch[b] && eg > 0 && ri >= 0;
+  const int ri = a.reset_index ? a.reset_index[b] : a.reset_index0;
+  const int re = a.reset_epoch ? a.reset_epoch[b] : a.reset_epoch0;
+  bool fire = eg == re && eg > 0 && ri >= 0;
   if (a.reset_mode == RESET_CONDITIONAL) {
     const int idx = ri < 0 ? 0 : (ri > a.M - 1 ? a.M - 1 : ri);
     fire = fire && cp[(size_t)b * a.M + idx] == 0.0f;
@@ -467,9 +562,14 @@ __global__ void k_reset(ScanArgs a, const float* __restrict__ cp, int eg) {
     a.bonds[((size_t)b * a.V + v) * a.M + ri] = 0.0f;
 }
 
+constexpr int kBondProd = kBondWarps * kBondCache * (kBondTM + 1);
 struct BondShared {
-  float col[kBondWarps][kBondTM];               // per-warp column partials
-  float prod[kBondWarps][kBondCache][kBondTM + 1];  // B_next * incentive
+  float col[kBondWarps][kBondTM];  // per-warp column partials
+  union {
+    float prod[kBondWarps][kBondCache][kBondTM + 1];  // B_next * incentive
+    float dv[kBondProd];                              // phase 8: D[v], V <= kBondProd
+  };
+  int last;                        // this block took its group's / scenario's last ticket
 };
 
 // Sum over the block's warps of one partial per (warp, column), added in
@@ -485,21 +585,42 @@ __device__ __forceinline__ float column_sum(BondShared& sh, int warp, int lane,
   return tot;
 }
 
-// Phase 7 for bond model MODE: the bond update of epoch t of the tile, in
-// place, for the block's (scenario b, kBondTM-miner tile), and the tile's
-// dividend partials dpart[b, tile, v] = sum over the tile's miners, in
-// order, of B_next[v, m] * incentive[m]. Warp w owns validators [w * per,
-// (w + 1) * per), lane the miner; column sums add each warp's slice in
-// validator order, then the warp partials in warp order.
+// Whether this block is the last of its group of kDnormGroup tiles to
+// publish its dividend partials. Every thread must call it: the barrier
+// orders the block's writes before thread 0's fence and ticket (the
+// pattern of a grid sync), and the acquire fence of the group's last block
+// orders the other blocks' writes before its reads.
+__device__ __forceinline__ bool take_ticket(int* ticket, int members, BondShared& sh) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    sh.last = atomicAdd(ticket, 1) == members - 1;
+    if (sh.last) __threadfence();
+  }
+  __syncthreads();
+  return sh.last;
+}
+
+// Phase 7 for bond model MODE: the bond update of slot t / epoch e of the
+// tile for the block's (scenario b, kBondTM-miner tile), old bonds from
+// `bin` (a.bonds but at a call's first epoch), new ones to a.bonds; and the
+// tile's dividend partials dpart[t & 1, b, tile, v] = sum over the tile's
+// miners, in order, of B_next[v, m] * incentive[m]. Warp w owns validators
+// [w * per, (w + 1) * per), lane the miner; column sums add each warp's
+// slice in validator order, then the warp partials in warp order. With
+// `now`, the block takes its group's ticket once its partials are out and
+// before it stores its register-cached bonds; returns whether it took the
+// group's last one.
 template <int MODE>
-__device__ __forceinline__ void bond_tile(const ScanArgs& a, int t, int e, int eg,
+__device__ __forceinline__ bool bond_tile(const ScanArgs& a, const float* bin, int t,
+                                          int e, int eg, int ntiles, bool now,
                                           BondShared& sh) {
   using yuma::max_nan;
   using yuma::min_nan;
   using yuma::nan_to_num;
   constexpr bool kEma = MODE == EMA_RUST || MODE == EMA || MODE == EMA_PREV;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int tile = blockIdx.x, ntiles = gridDim.x, b = blockIdx.y;
+  const int tile = blockIdx.x, b = blockIdx.y;
   const int V = a.V, M = a.M, s = t * a.B + b;
   const int m = tile * kBondTM + lane;
   const bool live = m < M;
@@ -512,16 +633,16 @@ __device__ __forceinline__ void bond_tile(const ScanArgs& a, int t, int e, int e
   const float* X = clip_base(a, t, b, eg) + mc;
   const float* sn = a.sn + (size_t)s * V;
   float* bc = a.bonds + (size_t)b * vm + mc;
+  const float* bo = bin + (size_t)b * vm + mc;
   float* bout = a.bonds_out ? a.bonds_out + ((size_t)b * a.E + e) * vm + mc : nullptr;
-  const float* hp = a.hp + (size_t)b * NHP;
   const float c = a.C[(size_t)s * M + mc];
   const float inc = a.inc[(size_t)s * M + mc];
   const float rate =
-      (a.liquid && MODE != CAPACITY) ? a.rate[(size_t)s * M + mc] : hp[ALPHA];
+      (a.liquid && MODE != CAPACITY) ? a.rate[(size_t)s * M + mc] : hparam(a, b, ALPHA);
   const float keep = 1.0f - rate;
   const bool first = eg == 0;
-  const float beta = hp[BETA], omb = 1.0f - beta;
-  const float omd = 1.0f - hp[DECAY], cap_alpha = hp[CAP_ALPHA];
+  const float beta = hparam(a, b, BETA), omb = 1.0f - beta;
+  const float omd = 1.0f - hparam(a, b, DECAY), cap_alpha = hparam(a, b, CAP_ALPHA);
 
   // EMA families: B_t = nan_to_num(S * W_x / colsum), W_x the clipped
   // weights (Yuma 0) or the beta-blend of the bond base and them.
@@ -550,7 +671,7 @@ __device__ __forceinline__ void bond_tile(const ScanArgs& a, int t, int e, int e
     if (i < n) {
       const size_t o = (size_t)(v0 + i) * M;
       xr[i] = X[o];
-      ob[i] = bc[o];
+      ob[i] = bo[o];
     }
   }
   float den = 0.0f, den2 = 0.0f;
@@ -582,7 +703,7 @@ __device__ __forceinline__ void bond_tile(const ScanArgs& a, int t, int e, int e
     if (MODE == EMA_RUST) {
       for (int i = kBondCache; i < n; ++i) {
         const size_t o = (size_t)(v0 + i) * M;
-        col2 += next(target(v0 + i, X[o]), bc[o]);
+        col2 += next(target(v0 + i, X[o]), bo[o]);
       }
       den2 = column_sum(sh, warp, lane, col2) + 1e-6f;
     }
@@ -598,22 +719,23 @@ __device__ __forceinline__ void bond_tile(const ScanArgs& a, int t, int e, int e
   auto tail = [&](int i) {
     const int v = v0 + i;
     const size_t o = (size_t)v * M;
-    const float x = X[o], old = bc[o];
+    const float x = X[o], old = bo[o];
     return kEma ? finish(next(target(v, x), old)) : direct(v, x, old);
   };
 
-  // Write each bond once (and its saved copy), and the dividend partials,
-  // kBondCache validators at a time: lane j of the warp adds validator
-  // j's kBondTM products in miner order.
+  // The dividend partials, kBondCache validators at a time: lane j of the
+  // warp adds validator j's kBondTM products in miner order. Then each bond
+  // is written once (and its saved copy): the register-cached ones after
+  // the block has published its partials and taken its ticket, so the
+  // ticket waits for the partials alone, not for the bond stores.
   float(*prod)[kBondTM + 1] = sh.prod[warp];
-  float* dp = a.dpart + ((size_t)b * ntiles + tile) * V + v0;
-  auto put = [&](int j, int i, float bn) {
+  float* dp = a.dpart + (((size_t)(t & 1) * a.B + b) * ntiles + tile) * V + v0;
+  auto store = [&](int i, float bn) {
     if (live) {
       const size_t o = (size_t)(v0 + i) * M;
       bc[o] = bn;
       if (bout) bout[o] = bn;
     }
-    prod[j][lane] = live ? bn * inc : 0.0f;
   };
   auto flush = [&](int i0, int cnt) {
     __syncwarp();
@@ -627,78 +749,167 @@ __device__ __forceinline__ void bond_tile(const ScanArgs& a, int t, int e, int e
   };
 #pragma unroll
   for (int i = 0; i < kBondCache; ++i) {
-    if (i < n) put(i, i, finish(xr[i]));
+    if (i < n) {
+      xr[i] = finish(xr[i]);
+      prod[i][lane] = live ? xr[i] * inc : 0.0f;
+    }
   }
   flush(0, min(n, kBondCache));
   for (int i0 = kBondCache; i0 < n; i0 += kBondCache) {
     const int cnt = min(kBondCache, n - i0);
-    for (int j = 0; j < cnt; ++j) put(j, i0 + j, tail(i0 + j));
+    for (int j = 0; j < cnt; ++j) {
+      const float bn = tail(i0 + j);
+      store(i0 + j, bn);
+      prod[j][lane] = live ? bn * inc : 0.0f;
+    }
     flush(i0, cnt);
   }
+  const int group = tile / kDnormGroup, groups = (ntiles + kDnormGroup - 1) / kDnormGroup;
+  const bool last = now && take_ticket(a.ticket + (size_t)b * (groups + 1) + group,
+                                        min(kDnormGroup, ntiles - group * kDnormGroup), sh);
+#pragma unroll
+  for (int i = 0; i < kBondCache; ++i) {
+    if (i < n) store(i, xr[i]);
+  }
+  return last;
 }
 
-__global__ void __launch_bounds__(kBondThreads) k_bond(ScanArgs a, int t, int e, int eg) {
-  __shared__ BondShared sh;
-  switch (a.mode) {
-    case EMA_RUST: bond_tile<EMA_RUST>(a, t, e, eg, sh); break;
-    case EMA: bond_tile<EMA>(a, t, e, eg, sh); break;
-    case EMA_PREV: bond_tile<EMA_PREV>(a, t, e, eg, sh); break;
-    case CAPACITY: bond_tile<CAPACITY>(a, t, e, eg, sh); break;
-    default: bond_tile<RELATIVE>(a, t, e, eg, sh); break;
+// Phase 8. D[v] = the sum of validator v's dividend partials (times
+// S_n[v] for RELATIVE), then D_n = D / (sum(D) + 1e-6), stored per epoch
+// and/or added to the running epoch sum (epoch order, float32). The
+// partials are added in groups of kDnormGroup tiles, each in tile order,
+// then the group sums in group order, whichever block adds them. Partials
+// written by other blocks of the same launch are read through L2
+// (ld.global.cg), never from this SM's L1.
+
+// n values at stride `stride` from p, added in order, loaded all at once.
+__device__ __forceinline__ float sum_in_order(const float* p, size_t stride, int n) {
+  float y[kDnormGroup];
+#pragma unroll
+  for (int j = 0; j < kDnormGroup; ++j) {
+    if (j < n) y[j] = __ldcg(p + (size_t)j * stride);
   }
+  float x = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kDnormGroup; ++j) {
+    if (j < n) x += y[j];
+  }
+  return x;
 }
 
-// Phase 8: D[v] = the sum of validator v's `ntiles` dividend partials
-// (times S_n[v] for RELATIVE), then D_n = D / (sum(D) + 1e-6), one block
-// of kDnormThreads per scenario; stored per epoch and/or added to the
-// running epoch sum (epoch order, float32). While V <= kDnormThreads / 2,
-// each validator's tiles are cut into G contiguous groups, one thread each
-// (neighbouring threads on neighbouring validators), each group summed in
-// tile order and the G group sums added in group order.
-constexpr int kDnormThreads = 1024;
-__global__ void __launch_bounds__(kDnormThreads) k_dnorm(ScanArgs a, int t, int e,
-                                                         int ntiles) {
-  __shared__ float part[kDnormThreads];
-  const int b = blockIdx.x, s = t * a.B + b, V = a.V;
-  const float* dp = a.dpart + (size_t)b * ntiles * V;
-  float* d = a.dsum + (size_t)b * V;
-  const int G = max(1, min(ntiles, kDnormThreads / V));
-  const int per = (ntiles + G - 1) / G;
-  auto tiles = [&](int v, int k0, int k1) {
-    float x = 0.0f;
-#pragma unroll 8
-    for (int k = k0; k < k1; ++k) x += dp[(size_t)k * V + v];
-    return x;
-  };
-  if (G > 1) {
-    const int g = threadIdx.x / V, v = threadIdx.x - g * V;
-    if (g < G) part[threadIdx.x] = tiles(v, min(ntiles, g * per), min(ntiles, (g + 1) * per));
-    __syncthreads();
-  }
+// The dividend partials of slot t of the tile, scenario b.
+__device__ __forceinline__ const float* partials(const ScanArgs& a, int t, int b,
+                                                 int ntiles) {
+  return a.dpart + ((size_t)(t & 1) * a.B + b) * ntiles * a.V;
+}
+
+// Group g's sum of validator v's partials.
+__device__ __forceinline__ float group_sum(const float* dp, int V, int v, int g,
+                                           int ntiles) {
+  const int k0 = g * kDnormGroup;
+  return sum_in_order(dp + (size_t)k0 * V + v, V, min(kDnormGroup, ntiles - k0));
+}
+
+// D_n of scenario b = blockIdx.y at slot t / epoch e from each validator's
+// D before the stake factor, dof(v). Every thread of the block calls it.
+template <class DOf>
+__device__ __forceinline__ void normalize_dividends(const ScanArgs& a, int t, int e,
+                                                    BondShared& sh, DOf dof) {
+  const int b = blockIdx.y, s = t * a.B + b, V = a.V;
+  float* d = V <= kBondProd ? sh.dv : a.dsum + (size_t)b * V;
   float acc = 0.0f;
   for (int v = threadIdx.x; v < V; v += blockDim.x) {
-    float x = 0.0f;
-    if (G > 1) {
-      for (int g = 0; g < G; ++g) x += part[g * V + v];
-    } else {
-      x = tiles(v, 0, ntiles);
-    }
+    float x = dof(v);
     if (a.mode == RELATIVE) x = a.sn[(size_t)s * V + v] * x;
     d[v] = x;
     acc += x;
   }
   const float den = yuma::block_sum(acc) + 1e-6f;
-  for (int v = threadIdx.x; v < a.V; v += blockDim.x) {
+  for (int v = threadIdx.x; v < V; v += blockDim.x) {
     const float x = d[v] / den;
-    if (a.dn) a.dn[((size_t)b * a.E + e) * a.V + v] = x;
-    if (a.dacc) a.dacc[(size_t)b * a.V + v] += x;
+    if (a.dn) a.dn[((size_t)b * a.E + e) * V + v] = x;
+    if (a.dacc) a.dacc[(size_t)b * V + v] += x;
   }
 }
 
-#define CHECK_LAUNCH()                              \
-  do {                                              \
-    cudaError_t err_ = cudaGetLastError();          \
-    if (err_ != cudaSuccess) return (int)err_;      \
+// Phase 8 of slot t / epoch e in one block, from the partials alone: the
+// group sums one after another.
+__device__ __forceinline__ void dividends_alone(const ScanArgs& a, int t, int e,
+                                                int ntiles, BondShared& sh) {
+  const int groups = (ntiles + kDnormGroup - 1) / kDnormGroup;
+  const float* dp = partials(a, t, blockIdx.y, ntiles);
+  normalize_dividends(a, t, e, sh, [&](int v) {
+    float x = 0.0f;
+    for (int g0 = 0; g0 < groups; g0 += kDnormGroup) {
+      float z = 0.0f;
+      for (int g = g0; g < min(groups, g0 + kDnormGroup); ++g) {
+        z += group_sum(dp, a.V, v, g, ntiles);
+      }
+      x += z;
+    }
+    return x;
+  });
+}
+
+// Phase 8 of slot t / epoch e by the blocks that finish last, the same
+// sums split in two levels: the last block of its group of tiles sums the
+// group's partials and takes a ticket of the scenario; the last group
+// adds the group sums, after phase 8 of the slot before (`prev`: its
+// dividends go first into the running sum), and resets the tickets.
+__device__ __forceinline__ void dividends_last(const ScanArgs& a, int t, int e,
+                                               int ntiles, bool prev, BondShared& sh) {
+  const int b = blockIdx.y, V = a.V;
+  const int groups = (ntiles + kDnormGroup - 1) / kDnormGroup, g = blockIdx.x / kDnormGroup;
+  const float* dp = partials(a, t, b, ntiles);
+  float* dg = a.dgroup + (size_t)b * groups * V;
+  int* ticket = a.ticket + (size_t)b * (groups + 1);
+  for (int v = threadIdx.x; v < V; v += blockDim.x) dg[(size_t)g * V + v] = group_sum(dp, V, v, g, ntiles);
+  if (!take_ticket(ticket + groups, groups, sh)) return;
+  if (prev) dividends_alone(a, t - 1, e - 1, ntiles, sh);
+  normalize_dividends(a, t, e, sh, [&](int v) {
+    float x = 0.0f;
+    for (int g0 = 0; g0 < groups; g0 += kDnormGroup) {
+      x += sum_in_order(dg + (size_t)g0 * V + v, V, min(kDnormGroup, groups - g0));
+    }
+    return x;
+  });
+  for (int i = threadIdx.x; i <= groups; i += blockDim.x) ticket[i] = 0;
+}
+
+// Phases 7 and 8 of epoch e, slot t of its tile. Grid (ntiles [+ 1], B).
+// Where phase 8 runs (`phase8`): kPhase8Now, this epoch's in the blocks
+// that finish last (a tile's last epoch: the next launch may overwrite its
+// stakes and partials); kPhase8PrevExtra, the previous slot's in one extra
+// block (blockIdx.x == ntiles) beside the bond blocks, where it costs no
+// time of its own; kPhase8PrevLast, the previous slot's in the blocks that
+// finish last, first (so that the running sum adds the epochs in order).
+constexpr int kPhase8Now = 1, kPhase8PrevExtra = 2, kPhase8PrevLast = 4;
+__global__ void __launch_bounds__(kBondThreads) k_bond(ScanArgs a, const float* bin,
+                                                       int t, int e, int eg, int ntiles,
+                                                       int phase8) {
+  yuma::wait_for_prior_grid();
+  __shared__ BondShared sh;
+  const bool now = phase8 & kPhase8Now, prev = phase8 & kPhase8PrevLast;
+  if (blockIdx.x == ntiles) {
+    dividends_alone(a, t - 1, e - 1, ntiles, sh);
+    return;
+  }
+  bool last;
+  switch (a.mode) {
+    case EMA_RUST: last = bond_tile<EMA_RUST>(a, bin, t, e, eg, ntiles, now, sh); break;
+    case EMA: last = bond_tile<EMA>(a, bin, t, e, eg, ntiles, now, sh); break;
+    case EMA_PREV: last = bond_tile<EMA_PREV>(a, bin, t, e, eg, ntiles, now, sh); break;
+    case CAPACITY: last = bond_tile<CAPACITY>(a, bin, t, e, eg, ntiles, now, sh); break;
+    default: last = bond_tile<RELATIVE>(a, bin, t, e, eg, ntiles, now, sh); break;
+  }
+  if (last) dividends_last(a, t, e, ntiles, prev, sh);
+}
+
+// Launch a phase kernel (yuma::launch_kernel); return its error.
+#define LAUNCH(...)                                     \
+  do {                                                  \
+    cudaError_t err_ = yuma::launch_kernel(__VA_ARGS__); \
+    if (err_ != cudaSuccess) return (int)err_;          \
   } while (0)
 
 // Row-normalize the `nslab` slabs of epochs e0 .. e0 + nslab/B - 1 into
@@ -707,43 +918,69 @@ int normalize_rows(const ScanArgs& a, int e0, int nslab, float* den, float* out,
                    cudaStream_t st) {
   const dim3 grid((a.V + kSumRows - 1) / kSumRows, nslab);
   const bool vec = a.M % 4 == 0 && reinterpret_cast<uintptr_t>(a.W) % 16 == 0;
-  if (vec) {
-    k_rowsum<true><<<grid, 64, 0, st>>>(a.W, a.scales, den, a.B, a.w_epochs, e0, a.V, a.M);
-  } else {
-    k_rowsum<false><<<grid, 64, 0, st>>>(a.W, a.scales, den, a.B, a.w_epochs, e0, a.V, a.M);
-  }
-  CHECK_LAUNCH();
-  k_rowdiv<<<nslab * a.V, 256, 0, st>>>(a.W, a.scales, den, out, a.B, a.w_epochs,
-                                        e0, a.V, a.M);
-  CHECK_LAUNCH();
+  LAUNCH(vec ? k_rowsum<true> : k_rowsum<false>, grid, 64, st, a.W, a.scales, a.scale0,
+         den, a.B, a.w_epochs, e0, a.V, a.M);
+  LAUNCH(k_rowdiv, nslab * a.V, 256, st, a.W, a.scales, a.scale0, den, out, a.B,
+         a.w_epochs, e0, a.V, a.M);
   return 0;
 }
 
-int run_scan(const ScanArgs& a, int T) {
+// The whole scan: phases 2-6 once per tile of up to T epochs (the last
+// tile takes what is left), then phases 1, 7 and 8 epoch by epoch.
+int run_scan(const ScanArgs& args, int T) {
+  ScanArgs a = args;
   cudaStream_t st = static_cast<cudaStream_t>(a.stream);
   const int B = a.B, V = a.V, M = a.M;
+  if (T < 1 || a.E < 1 || B < 1 || !a.ticket) return (int)cudaErrorInvalidValue;
   const int fits = ((long long)a.m_real << a.iters) < (1LL << 31);
   const size_t bm = (size_t)B * M, bvm = (size_t)B * V * M;
-  const int col_blocks = (M + 127) / 128;
+  const int rank_tiles = (M + 31) / 32;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err != cudaSuccess) return (int)err;
   const int bond_tiles = (M + kBondTM - 1) / kBondTM;
   const bool scan_prev = a.mode == EMA_PREV && a.clip_src == CLIP_SCAN;
+  const int dgroups = (bond_tiles + kDnormGroup - 1) / kDnormGroup;
+  err = cudaMemsetAsync(a.ticket, 0, (size_t)B * (dgroups + 1) * sizeof(int), st);
+  if (err != cudaSuccess) return (int)err;
+  // A reset may zero a column of the bonds before epoch 0's update: start
+  // from a copy of bonds_in then.
+  if (a.bonds_in && a.reset_mode != RESET_NONE) {
+    err = cudaMemcpyAsync(a.bonds, a.bonds_in, bvm * sizeof(float),
+                          cudaMemcpyDeviceToDevice, st);
+    if (err != cudaSuccess) return (int)err;
+    a.bonds_in = nullptr;
+  }
   for (int e0 = 0; e0 < a.E; e0 += T) {
-    const int nslab = T * B;
+    const int tt = std::min(T, a.E - e0), nslab = tt * B;
     int rc;
     // EMA_PREV, recompute spelling: the previous epoch's W_n re-derived
     // from its weights (the same ops as its own phase 3), not carried.
     if (scan_prev && a.recompute_prev && e0 > 0) {
       if ((rc = normalize_rows(a, e0 - 1, B, a.pden, a.wprev, st))) return rc;
     }
-    // Phases 2-6, once for the whole tile.
-    k_stake<<<nslab, 256, 0, st>>>(a.S, a.sn, a.sint, B, a.s_epochs, e0, V,
-                                   a.s_normalized);
-    CHECK_LAUNCH();
+    // Phases 2-6, once for the whole tile. Stakes that come normalized and
+    // constant need no phase 2 in a one-epoch tile: the later phases read
+    // them where they lie, and the bisection rounds them to fixed point on
+    // load, as k_stake would.
+    ScanArgs ta = a;
+    if (a.s_normalized && a.s_epochs == 1 && tt == 1) {
+      ta.sn = const_cast<float*>(a.S);
+      ta.sint = nullptr;
+    } else {
+      LAUNCH(k_stake, nslab, 256, st, a.S, a.sn, a.sint, B, a.s_epochs, e0, V,
+             a.s_normalized);
+    }
     if ((rc = normalize_rows(a, e0, nslab, a.rden, a.wn, st))) return rc;
     yuma::BisectArgs ba{};
     ba.wn = a.wn;
-    ba.sint = a.sint;
-    ba.kappa = a.hp + KAPPA;
+    ba.sint = ta.sint;
+    ba.sn = ta.sn;
+    ba.kappa = a.hp ? a.hp + KAPPA : nullptr;
+    ba.kappa0 = a.hpv[KAPPA];
     ba.kappa_stride = NHP;
     ba.B = B;
     ba.chi = a.chi;
@@ -751,34 +988,42 @@ int run_scan(const ScanArgs& a, int T) {
     ba.V = V;
     ba.M = M;
     ba.iters = a.iters;
-    cudaError_t err = yuma::launch_bisect(ba, st, a.mxu);
+    err = yuma::launch_bisect(ba, st, a.mxu);
     if (err != cudaSuccess) return (int)err;
-    k_quantize<<<nslab, 1024, 0, st>>>(a.chi, a.C, a.cons_out, B, a.E, e0, M,
-                                       a.m_real, a.iters, fits, a.rust64);
-    CHECK_LAUNCH();
-    k_rank<<<dim3(col_blocks, nslab), 128, 0, st>>>(a, e0);
-    CHECK_LAUNCH();
-    k_incentive<<<nslab, 1024, 0, st>>>(a, e0);
-    CHECK_LAUNCH();
+    LAUNCH(k_quantize, nslab, 1024, st, a.chi, a.C, a.cons_out, B, a.E, e0, M, a.m_real,
+           a.iters, fits, a.rust64);
+    const dim3 rank_grid(rank_tiles, nslab);
+    if ((long long)rank_tiles * nslab < (long long)kRankBlocksPerSM * sms) {
+      LAUNCH(k_rank<kRankWarpsFew>, rank_grid, 32 * kRankWarpsFew, st, ta, e0);
+    } else {
+      LAUNCH(k_rank<kRankWarpsMany>, rank_grid, 32 * kRankWarpsMany, st, ta, e0);
+    }
+    LAUNCH(k_incentive, nslab, 1024, st, ta, e0);
     // Phases 1, 7, 8, epoch by epoch.
-    for (int t = 0; t < T; ++t) {
+    for (int t = 0; t < tt; ++t) {
       const int e = e0 + t, eg = e + a.epoch_offset;
       if (a.reset_mode != RESET_NONE) {
         const float* cp = t == 0 ? a.cprev : a.C + (size_t)(t - 1) * bm;
-        k_reset<<<B, 256, 0, st>>>(a, cp, eg);
-        CHECK_LAUNCH();
+        LAUNCH(k_reset, B, 256, st, ta, cp, eg);
       }
-      k_bond<<<dim3(bond_tiles, B), kBondThreads, 0, st>>>(a, t, e, eg);
-      CHECK_LAUNCH();
-      k_dnorm<<<B, kDnormThreads, 0, st>>>(a, t, e, bond_tiles);
-      CHECK_LAUNCH();
+      const float* bin = e == 0 && a.bonds_in ? a.bonds_in : a.bonds;
+      // Phase 8 of slot t runs in the next launch's extra block, but that
+      // of the tile's last slot, which runs here; with a running sum (or D
+      // in dsum, V > kBondProd), after the slot before, in the same block.
+      int phase8 = t == tt - 1 ? kPhase8Now : 0;
+      const bool in_order = a.dacc || V > kBondProd;
+      if (t > 0) phase8 |= phase8 && in_order ? kPhase8PrevLast : kPhase8PrevExtra;
+      const dim3 grid(bond_tiles + (phase8 & kPhase8PrevExtra ? 1 : 0), B);
+      LAUNCH(k_bond, grid, kBondThreads, st, ta, bin, t, e, eg, bond_tiles, phase8);
     }
     // Carry the tile's last consensus (and W_n) into the next tile.
-    err = cudaMemcpyAsync(a.cprev, a.C + (size_t)(T - 1) * bm,
-                          bm * sizeof(float), cudaMemcpyDeviceToDevice, st);
-    if (err != cudaSuccess) return (int)err;
+    if (a.cprev) {
+      err = cudaMemcpyAsync(a.cprev, a.C + (size_t)(tt - 1) * bm, bm * sizeof(float),
+                            cudaMemcpyDeviceToDevice, st);
+      if (err != cudaSuccess) return (int)err;
+    }
     if (scan_prev && !a.recompute_prev) {
-      err = cudaMemcpyAsync(a.wprev, a.wn + (size_t)(T - 1) * bvm,
+      err = cudaMemcpyAsync(a.wprev, a.wn + (size_t)(tt - 1) * bvm,
                             bvm * sizeof(float), cudaMemcpyDeviceToDevice, st);
       if (err != cudaSuccess) return (int)err;
     }

@@ -8,11 +8,14 @@ JAX package's `ops/pallas_epoch.py` kernels:
   :func:`fused_ema_epoch`, one EMA-family epoch.
 
 All four are launch sequences of one set of phase kernels
-(`csrc/scan_phases.cuh`). :func:`fused_case_scan` advances one epoch per
-step; the others run the bond-independent phases (row normalization, the
-bisection, the quantize, clip / rank and the liquid rate) once per T-epoch
-tile and only the bond recurrence epoch by epoch. Each takes the JAX
-function's inputs and returns its outputs. `mxu=True` runs the bisection's
+(`csrc/scan_phases.cuh`): the bond-independent phases (row normalization,
+the bisection, the quantize, clip / rank and the liquid rate) run once per
+tile of epochs, and only the bond recurrence epoch by epoch.
+:func:`fused_case_scan` takes the largest tile up to 16 that fits, its last
+tile taking what is left (:func:`case_scan_epoch_tile`);
+:func:`fused_varying_scan` and :func:`fused_ema_scan` a tile that divides
+E; :func:`fused_ema_epoch` is one epoch. Each takes the JAX function's
+inputs and returns its outputs. `mxu=True` runs the bisection's
 support sum on the tensor cores (K4, `csrc/common.cuh`), bitwise the same.
 On CUDA tensors they launch the kernels; on CPU tensors they run the plain
 PyTorch versions below, which are written from the Pallas kernels' own
@@ -33,7 +36,9 @@ the TPU is float32-only.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+import numbers
 from typing import Optional
 
 import torch
@@ -67,6 +72,9 @@ VARYING_EPOCH_TILE_MAX = 16
 #: Miners per block of the bond phase (`kBondTM` in csrc/scan_phases.cuh):
 #: the kernel leaves one dividend partial per validator per tile.
 BOND_TILE = 32
+#: Bond-phase tiles whose dividend partials are summed together first
+#: (`kDnormGroup`): one sum and one ticket per group.
+DIVIDEND_GROUP = 16
 
 _MODE_CODE = {
     BondsMode.EMA_RUST: 0,
@@ -271,11 +279,13 @@ def _bond_phase(
 
 
 def _scan_plain(W, S, hp, reset_index, reset_epoch, state, *, T, p):
-    """The plain version of every scan kernel: phases 2-6 batched over
-    each T-epoch tile, then the bond recurrence epoch by epoch (T = 1 is
-    the case scan). `W [B, EW, V, M]` and `S [B, ES, V]` store E epochs
-    each, or one shared by all (EW / ES = 1); `p["scales"]` multiplies
-    epoch e's weights before the row sum."""
+    """The plain version of every scan kernel, in the kernels' phase
+    order: phases 2-6 batched over each tile of up to T epochs (the last
+    tile takes what is left), then the bond recurrence epoch by epoch.
+    `W [B, EW, V, M]` and `S [B, ES, V]` store E epochs each, or one shared
+    by all (EW / ES = 1); `p["scales"]` multiplies epoch e's weights before
+    the row sum. `state = (bonds, cprev, wprev)`: cprev may be None where no
+    CONDITIONAL reset reads it."""
     Bn, _, V, M = W.shape
     E, mode, scales = p["E"], p["mode"], p["scales"]
 
@@ -298,18 +308,19 @@ def _scan_plain(W, S, hp, reset_index, reset_epoch, state, *, T, p):
     dacc = torch.zeros((Bn, V), dtype=W.dtype, device=W.device) if p["accumulate"] else None
     dn, bond_rows, inc_rows, cons_rows = [], [], [], []
     for e0 in range(0, E, T):
+        n = min(T, E - e0)
         if prev_mode == "scan" and p["recompute_prev"] and e0 > 0:
             # The recompute spelling: the previous epoch's W_n re-derived
             # from its weights, the same ops as its own phase 3.
             wprev = _row_normalize(weights(e0 - 1, 1)[0])
-        St = S.expand(Bn, E, V)[:, e0 : e0 + T].transpose(0, 1).unsqueeze(-1)
+        St = S.expand(Bn, E, V)[:, e0 : e0 + n].transpose(0, 1).unsqueeze(-1)
         S_n = St if p["s_normalized"] else St / sequential_sum(St, -2, keepdim=True)
         W_n, C = _consensus_phase(
-            weights(e0, T), S_n, hp[:, 0], precision=p["precision"],
+            weights(e0, n), S_n, hp[:, 0], precision=p["precision"],
             rust64=p["rust64"], mxu=p["mxu"], m_real=p["m_real"],
         )
         if prev_mode == "scan":
-            tt = torch.arange(T, device=W.device).reshape(T, 1, 1, 1)
+            tt = torch.arange(n, device=W.device).reshape(n, 1, 1, 1)
             first_b = (e0 + tt + p["epoch_offset"]) == 0
             clip_prev = torch.cat([wprev.unsqueeze(0), W_n[:-1]], dim=0)
             clip_base = torch.where(first_b, W_n, clip_prev)
@@ -321,7 +332,7 @@ def _scan_plain(W, S, hp, reset_index, reset_epoch, state, *, T, p):
             S_n, C, clip_base, sc(2), mode=mode, liquid=p["liquid"],
             liquid_scal=liquid_scal, overrides=p["overrides"],
         )
-        for t in range(T):
+        for t in range(n):
             eg = e0 + t + p["epoch_offset"]
             if p["reset_mode"] is not ResetMode.NONE:
                 do = (r_epoch == eg) & (eg > 0) & (ri >= 0)
@@ -344,9 +355,9 @@ def _scan_plain(W, S, hp, reset_index, reset_epoch, state, *, T, p):
                 bond_rows.append(bonds)
             inc_rows.append(incentive[t, :, 0])
             cons_rows.append(C[t, :, 0])
-        cprev = C[T - 1]
+        cprev = C[n - 1]
         if prev_mode == "scan" and not p["recompute_prev"]:
-            wprev = W_n[T - 1]
+            wprev = W_n[n - 1]
     out = {"final_bonds": bonds}
     if dacc is not None:
         out["dividends_total"] = dacc
@@ -387,19 +398,20 @@ class _ScanArgs(ctypes.Structure):
     _fields_ = [
         (name, ctypes.c_void_p)
         for name in (
-            "W", "S", "hp", "reset_index", "reset_epoch", "bonds", "cprev",
-            "wprev", "dn", "bonds_out", "inc_out", "cons_out", "wn", "sn",
-            "sint", "chi", "C", "inc", "rate", "dsum", "dpart", "rden", "pden",
-            "scales", "dacc", "stream",
+            "W", "S", "hp", "reset_index", "reset_epoch", "bonds", "bonds_in",
+            "cprev", "wprev", "dn", "bonds_out", "inc_out", "cons_out", "wn", "sn",
+            "sint", "chi", "C", "inc", "rate", "dsum", "dpart", "dgroup", "rden",
+            "pden", "ticket", "scales", "dacc", "stream",
         )
     ] + [
         (name, ctypes.c_int)
         for name in (
             "B", "E", "V", "M", "T", "mode", "reset_mode", "iters", "rust64",
             "liquid", "epoch_offset", "w_epochs", "s_epochs", "s_normalized",
-            "m_real", "clip_src", "recompute_prev", "mxu",
+            "m_real", "clip_src", "recompute_prev", "mxu", "reset_index0",
+            "reset_epoch0",
         )
-    ] + [("liq", _LiquidSpec)]
+    ] + [("scale0", ctypes.c_float), ("hpv", ctypes.c_float * 9), ("liq", _LiquidSpec)]
 
 _CLIP_CODE = {"scan": 0, "given": 1, "own": 2}
 #: kernel name -> (source, C entry point, launch counter)
@@ -409,8 +421,11 @@ _ENTRIES = {
     "ema_scan": ("ema_scan.cu", "yuma_ema_scan", EMA_SCAN_LAUNCHES),
     "ema_epoch": ("ema_scan.cu", "yuma_ema_epoch", EMA_EPOCH_LAUNCHES),
 }
+#: (source, entry) -> (library, its entry with argtypes set)
+_ENTRY_FNS: dict = {}
 
 
+@functools.lru_cache(maxsize=64)
 def _liquid_struct(n: int, override_high, override_low) -> _LiquidSpec:
     ks, pos, both_static, static_degenerate = _liquid_spec(
         n, override_high, override_low
@@ -437,20 +452,74 @@ def _liquid_struct(n: int, override_high, override_low) -> _LiquidSpec:
     return spec
 
 
+def _entry(kernel: str):
+    """The C entry of `kernel` in its loaded library, with its argtypes."""
+    source, entry, _ = _ENTRIES[kernel]
+    lib = _build.load(source)
+    cached = _ENTRY_FNS.get((source, entry))
+    if cached is None or cached[0] is not lib:
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.POINTER(_ScanArgs)]
+        fn.restype = ctypes.c_int
+        cached = _ENTRY_FNS[source, entry] = (lib, fn)
+    return cached[1]
+
+
 def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else x.data_ptr()
 
 
+def _to_device(x: torch.Tensor, dev) -> torch.Tensor:
+    """`x` on `dev` without waiting for the card: a CPU tensor goes through
+    pinned memory with a non-blocking copy (a pageable one would
+    synchronize the stream)."""
+    if x.device == dev or dev.type != "cuda":
+        return x.to(dev).contiguous()
+    return x.contiguous().pin_memory().to(dev, non_blocking=True)
+
+
+#: Byte alignment of each region of the scans' one scratch allocation.
+_ALIGN = 256
+
+
+@functools.lru_cache(maxsize=64)
+def _scratch_layout(T: int, Bn: int, V: int, M: int) -> tuple:
+    """`(bytes, ((name, offset), ...))`: the scratch of a scan over tiles
+    of T epochs, one allocation carved into `_ALIGN`-aligned regions
+    (`ScanArgs` in csrc/scan_phases.cuh says what each holds)."""
+    f4, tiles = 4, -(-M // BOND_TILE)
+    groups = -(-tiles // DIVIDEND_GROUP)
+    regions = (
+        ("wn", f4 * T * Bn * V * M), ("sn", f4 * T * Bn * V), ("sint", f4 * T * Bn * V),
+        ("chi", f4 * T * Bn * M), ("C", f4 * T * Bn * M), ("inc", f4 * T * Bn * M),
+        ("rate", f4 * T * Bn * M), ("dsum", f4 * Bn * V), ("dpart", f4 * 2 * Bn * tiles * V),
+        ("dgroup", f4 * Bn * groups * V), ("rden", f4 * T * Bn * V), ("pden", f4 * Bn * V),
+        ("ticket", f4 * Bn * (groups + 1)),
+    )
+    offsets, total = [], 0
+    for name, nbytes in regions:
+        offsets.append((name, total))
+        total += -(-nbytes // _ALIGN) * _ALIGN
+    return total, tuple(offsets)
+
+
 def _scan_cuda(W, S, hp, reset_index, reset_epoch, state, *, T, p, kernel: str):
     """Launch one of K2, K3, K5, K6 (`kernel`, a key of `_ENTRIES`) on
-    contiguous CUDA tensors: `W [B, EW, V, M]`, `S [B, ES, V]`."""
+    contiguous CUDA tensors: `W [B, EW, V, M]`, `S [B, ES, V]`. `hp` is one
+    row of hyperparameters shared by every scenario (a tuple, passed by
+    value) or a CPU table `[B, 9]`; the reset index and epoch are ints
+    (by value) or `[B]` tensors; `p["scales"]` a float (by value), a
+    float32 CUDA tensor `[E]` or None. `state = (bonds, cprev, wprev)`: the
+    bonds before the first epoch (read, never written: the kernel writes
+    a new buffer), the previous consensus `[B, 1, M]` (in/out) or None,
+    EMA_PREV's previous W_n. Nothing here waits for the card."""
     Bn, EW, V, M = W.shape
     E = p["E"]
     check_cuda_float32("W", W)
     check_cuda_float32("S", S, (Bn, S.shape[1], V))
-    mode = p["mode"]
     dev = W.device
-    bonds, cprev, wprev = state
+    bonds_in, cprev, wprev = state
+    check_cuda_float32("bonds", bonds_in, (Bn, V, M))
 
     def empty(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -465,26 +534,21 @@ def _scan_cuda(W, S, hp, reset_index, reset_epoch, state, *, T, p, kernel: str):
         "incentives": empty(Bn, E, M) if p["save_incentives"] else None,
         "consensus": empty(Bn, E, M) if p["save_consensus"] else None,
     }
-    scratch = dict(
-        wn=empty(T, Bn, V, M), sn=empty(T, Bn, V),
-        sint=empty(T, Bn, V, dtype=torch.int32), chi=empty(T, Bn, M),
-        C=empty(T, Bn, M), inc=empty(T, Bn, M), rate=empty(T, Bn, M),
-        dsum=empty(Bn, V), dpart=empty(Bn, -(-M // BOND_TILE), V),
-        rden=empty(T, Bn, V), pden=empty(Bn, V),
-    )
-    scales = p["scales"]
-    if scales is not None:
-        check_cuda_float32("scales", scales, (E,))
+    bonds = empty(Bn, V, M)
+    # One allocation for all the scratch; the caching allocator hands it
+    # out again only in stream order, after the kernels that read it.
+    nbytes, offsets = _scratch_layout(T, Bn, V, M)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    base = scratch.data_ptr()
+    ptrs = {name: base + off for name, off in offsets}
     args = _ScanArgs(
-        W=W.data_ptr(), S=S.data_ptr(), hp=hp.data_ptr(),
-        reset_index=reset_index.data_ptr(), reset_epoch=reset_epoch.data_ptr(),
-        bonds=bonds.data_ptr(), cprev=cprev.data_ptr(), wprev=_ptr(wprev),
+        W=W.data_ptr(), S=S.data_ptr(), bonds=bonds.data_ptr(),
+        bonds_in=bonds_in.data_ptr(), cprev=_ptr(cprev), wprev=_ptr(wprev),
         dn=_ptr(out["dividends_normalized"]), bonds_out=_ptr(out["bonds"]),
         inc_out=_ptr(out["incentives"]), cons_out=_ptr(out["consensus"]),
-        **{k: v.data_ptr() for k, v in scratch.items()},
-        scales=_ptr(scales), dacc=_ptr(out["dividends_total"]),
+        dacc=_ptr(out["dividends_total"]), **ptrs,
         stream=torch.cuda.current_stream(dev).cuda_stream,
-        B=Bn, E=E, V=V, M=M, T=T, mode=_MODE_CODE[mode],
+        B=Bn, E=E, V=V, M=M, T=T, mode=_MODE_CODE[p["mode"]],
         reset_mode=_RESET_CODE[p["reset_mode"]],
         iters=bisection_iterations(p["precision"]),
         rust64=int(p["rust64"]), liquid=int(p["liquid"]),
@@ -493,19 +557,36 @@ def _scan_cuda(W, S, hp, reset_index, reset_epoch, state, *, T, p, kernel: str):
         clip_src=_CLIP_CODE[p["clip_src"]], recompute_prev=int(p["recompute_prev"]),
         mxu=int(p["mxu"]), liq=_liquid_struct(M, *p["overrides"]),
     )
-    source, entry, counter = _ENTRIES[kernel]
-    fn = getattr(_build.load(source), entry)
-    fn.argtypes = [ctypes.POINTER(_ScanArgs)]
-    fn.restype = ctypes.c_int
-    err = fn(ctypes.byref(args))
+    keep = []  # tensors the launch reads, alive until it is queued
+    if isinstance(hp, tuple):
+        args.hpv[:] = hp
+    else:
+        keep.append(_to_device(hp, dev))
+        args.hp = keep[-1].data_ptr()
+    for name, x in (("reset_index", reset_index), ("reset_epoch", reset_epoch)):
+        if isinstance(x, int):
+            setattr(args, name + "0", x)
+        else:
+            keep.append(_to_device(x.to(torch.int32).reshape(Bn), dev))
+            setattr(args, name, keep[-1].data_ptr())
+    scales = p["scales"]
+    if isinstance(scales, float):
+        args.scale0 = scales
+    else:
+        args.scale0 = 1.0
+        if scales is not None:
+            check_cuda_float32("scales", scales, (E,))
+            args.scales = scales.data_ptr()
+    err = _entry(kernel)(ctypes.byref(args))
     if err:
         raise RuntimeError(f"{kernel} kernel failed: CUDA error {err}")
-    counter.add()
+    _ENTRIES[kernel][2].add()
     if p["mxu"]:
-        MMA_LAUNCHES.add(E // T)  # run_scan launches k_bisect_mma once per tile
+        MMA_LAUNCHES.add(-(-E // T))  # run_scan launches k_bisect_mma once per tile
     out = {k: v for k, v in out.items() if v is not None}
     out["final_bonds"] = bonds
-    out["final_consensus"] = cprev[:, 0]
+    if cprev is not None:
+        out["final_consensus"] = cprev[:, 0]
     out["final_w_prev"] = wprev
     return out
 
@@ -513,9 +594,12 @@ def _scan_cuda(W, S, hp, reset_index, reset_epoch, state, *, T, p, kernel: str):
 # ---------------------------------------------------------------------------
 # the public wrappers
 
+_HP_KEYS = ("kappa", "bond_penalty", "bond_alpha", "capacity_alpha", "decay_rate",
+            "liquid_alpha", "alpha_low", "alpha_high")
 
-def _hp_rows(Bn, device, *, kappa, bond_penalty, bond_alpha, capacity_alpha,
-             decay_rate, liquid_alpha, alpha_low, alpha_high):
+
+def _hp_table(Bn, kappa, bond_penalty, bond_alpha, capacity_alpha, decay_rate,
+              liquid_alpha, alpha_low, alpha_high) -> torch.Tensor:
     """The per-scenario hyperparameter rows `[B, 9]` (column order of
     pallas_epoch.py:1667-1677), computed on the host in float32 so the
     kernel and the plain version read identical values."""
@@ -532,38 +616,114 @@ def _hp_rows(Bn, device, *, kappa, bond_penalty, bond_alpha, capacity_alpha,
         al = ah = logit_low = logit_num = torch.zeros(())
     vals = [kappa, bond_penalty, bond_alpha, capacity_alpha, decay_rate,
             logit_low, logit_num, al, ah]
-    rows = torch.stack([f32(v).broadcast_to((Bn,)) for v in vals], dim=1)
-    return rows.contiguous().to(device)
+    return torch.stack([f32(v).broadcast_to((Bn,)) for v in vals], dim=1).contiguous()
 
 
-def varying_scan_epoch_tile(shape, device=None) -> int:
-    """Largest epoch tile (<= :data:`VARYING_EPOCH_TILE_MAX`) that divides
-    the epoch count of `shape` (`[E, V, M]` or `[B, E, V, M]`) and whose
-    tile scratch fits half the free device memory (no check on the CPU).
-    Returns 0 when not even a one-epoch tile fits."""
+@functools.lru_cache(maxsize=256)
+def _hp_row(*vals) -> tuple:
+    return tuple(_hp_table(1, *vals)[0].tolist())
+
+
+def _hyperparams(Bn: int, **hp):
+    """The hyperparameters as the kernels take them: one row shared by
+    every scenario (a tuple of 9 float32 values) when each is a Python
+    number, else the CPU float32 table `[B, 9]`."""
+    vals = tuple(hp[k] for k in _HP_KEYS)
+    if all(type(v) in (float, int, bool) for v in vals):  # the common case, cached
+        return _hp_row(*vals)
+    if all(isinstance(v, numbers.Real) for v in vals):
+        return _hp_row(*(float(v) for v in vals))
+    return _hp_table(Bn, *vals)
+
+
+def _reset_arg(x, Bn: int):
+    """A reset index or epoch: an int shared by every scenario, or a `[B]`
+    int32 tensor."""
+    if isinstance(x, numbers.Integral):
+        return int(x)
+    return torch.as_tensor(x, dtype=torch.int32).broadcast_to((Bn,))
+
+
+def _plain_inputs(hp, ri, re_, p, Bn, dev):
+    """`_scan_plain`'s tensors on `dev` from the kernels' arguments."""
+    hp = torch.tensor(hp, dtype=torch.float32).expand(Bn, 9) if isinstance(hp, tuple) else hp
+
+    def vec(x):
+        return torch.as_tensor(x, dtype=torch.int32).broadcast_to((Bn,)).to(dev)
+
+    if isinstance(p["scales"], float):
+        p = dict(p, scales=torch.tensor([p["scales"]], dtype=torch.float32, device=dev))
+    return hp.to(dev), vec(ri), vec(re_), p
+
+
+def _largest_tile(E: int, per_epoch: int, free: Optional[int], divides: bool) -> int:
+    """Largest epoch tile (<= :data:`VARYING_EPOCH_TILE_MAX`, dividing E if
+    `divides`) whose scratch of `per_epoch` bytes an epoch fits half of
+    `free` bytes (None: no bound). 0 when not even one epoch fits."""
+    for et in range(min(VARYING_EPOCH_TILE_MAX, max(1, E)), 0, -1):
+        if (not divides or E % et == 0) and (free is None or et * per_epoch <= free // 2):
+            return et
+    return 0
+
+
+#: A tile scratch at most this share of the card's memory is taken to fit
+#: without asking the CUDA runtime for its free memory, a host cost on every
+#: call of the scans that choose their own tile.
+_SMALL_SCRATCH = 1 / 64
+
+
+@functools.lru_cache(maxsize=None)
+def _total_memory(index: int) -> int:
+    return torch.cuda.get_device_properties(index).total_memory
+
+
+def _tile_bound(shape, device):
+    """(E, scratch bytes per epoch, free device bytes or None: no bound,
+    on the CPU or where the largest tile's scratch is small)."""
     E, V, M = shape[-3:]
     Bn = shape[0] if len(shape) == 4 else 1
     per_epoch = 4 * Bn * (V * M + 3 * V + 4 * M)
     free = None
     if device is not None and torch.device(device).type == "cuda":
-        free = torch.cuda.mem_get_info(torch.device(device))[0]
-    for et in range(min(VARYING_EPOCH_TILE_MAX, max(1, E)), 0, -1):
-        if E % et == 0 and (free is None or et * per_epoch <= free // 2):
-            return et
-    return 0
+        dev = torch.device(device)
+        index = torch.cuda.current_device() if dev.index is None else dev.index
+        largest = min(VARYING_EPOCH_TILE_MAX, max(1, E)) * per_epoch
+        if largest > _total_memory(index) * _SMALL_SCRATCH:
+            free = torch.cuda.mem_get_info(dev)[0]
+    return E, per_epoch, free
 
 
-def _epoch_tile(epoch_tile, shape, device, label: str) -> int:
-    """`epoch_tile`, checked to divide E, or the largest that fits
-    (:func:`varying_scan_epoch_tile`) when None."""
+def varying_scan_epoch_tile(shape, device=None) -> int:
+    """Largest epoch tile (<= :data:`VARYING_EPOCH_TILE_MAX`) that divides
+    the epoch count of `shape` (`[E, V, M]` or `[B, E, V, M]`) and whose
+    tile scratch fits half the free device memory (no check on the CPU, nor
+    when a 16-epoch tile's scratch is under 1/64 of the card's memory).
+    Returns 0 when not even a one-epoch tile fits."""
+    E, per_epoch, free = _tile_bound(shape, device)
+    return _largest_tile(E, per_epoch, free, divides=True)
+
+
+def case_scan_epoch_tile(shape, device=None) -> int:
+    """The case scan's epoch tile: the largest up to
+    :data:`VARYING_EPOCH_TILE_MAX` whose scratch fits half the free device
+    memory, whether or not it divides E (the last tile takes what is
+    left); 0 when not even one epoch fits."""
+    E, per_epoch, free = _tile_bound(shape, device)
+    return _largest_tile(E, per_epoch, free, divides=False)
+
+
+def _epoch_tile(epoch_tile, shape, device, label: str, divides: bool = True) -> int:
+    """`epoch_tile`, checked (to divide E when `divides`), or the largest
+    that fits when None."""
     E = shape[-3]
     if epoch_tile is None:
-        T = varying_scan_epoch_tile(shape, device)
+        E, per_epoch, free = _tile_bound(shape, device)
+        T = _largest_tile(E, per_epoch, free, divides)
         if T < 1:
             raise ValueError(f"{list(shape)} too large for the {label} at any tile")
         return T
     T = int(epoch_tile)
-    if T < 1 or E % T:
+    if T < 1 or (divides and E % T):
         raise ValueError(f"epoch_tile={T} must be >= 1 and divide the epoch count (E={E})")
     return T
 
@@ -584,19 +744,17 @@ def _params(*, mode, precision, rust64, E, m_real, mxu, **overrides) -> dict:
 
 
 def _run(kernel: str, plain: bool, W4, S3, hp, ri, re_, state, *, T, p) -> dict:
-    """The kernel on CUDA tensors (unless `plain`), else its plain version."""
+    """The kernel on CUDA tensors (unless `plain`), else its plain version.
+    `hp` from :func:`_hyperparams`, `ri` / `re_` from :func:`_reset_arg`."""
     if W4.device.type == "cuda" and not plain:
         return _scan_cuda(W4, S3, hp, ri, re_, state, T=T, p=p, kernel=kernel)
+    hp, ri, re_, p = _plain_inputs(hp, ri, re_, p, W4.shape[0], W4.device)
     return _scan_plain(W4, S3, hp, ri, re_, state, T=T, p=p)
 
 
 def _check_mxu(mxu: bool, V: int) -> None:
     if mxu:
         check_mxu_support_covers(V)
-
-
-def _reset_vec(x, Bn: int, dev) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.int32).cpu().broadcast_to((Bn,)).contiguous().to(dev)
 
 
 def _scan(
@@ -627,7 +785,8 @@ def _scan(
     dev = W.device
     W4 = W.reshape(Bn, E, V, M).contiguous()
     S3 = S.reshape(Bn, E, V).contiguous()
-    T = _epoch_tile(epoch_tile, W4.shape, dev, "varying scan") if varying else 1
+    T = _epoch_tile(epoch_tile, W4.shape, dev, "varying scan" if varying else "case scan",
+                    divides=varying)
 
     need = {"bonds", "consensus"} | ({"w_prev"} if mode is BondsMode.EMA_PREV else set())
     if carry is not None:
@@ -637,13 +796,19 @@ def _scan(
                 f"got {sorted(carry)}"
             )
 
-        def carried(key, shape):
-            x = torch.as_tensor(carry[key], dtype=torch.float32).to(dev)
+        def carried(key, shape, copy=True):
+            x = carry[key]
+            if not isinstance(x, torch.Tensor) or x.device != dev:
+                x = _to_device(torch.as_tensor(x, dtype=torch.float32), dev)
+            x = x.to(torch.float32)
             if tuple(x.shape) != lead + shape:
                 raise ValueError(f"carry {key} must be {lead + shape}, got {tuple(x.shape)}")
-            return x.reshape((Bn,) + shape).clone().contiguous()
+            x = x.reshape((Bn,) + shape)
+            return x.clone(memory_format=torch.contiguous_format) if copy else x.contiguous()
 
-        bonds = carried("bonds", (V, M))
+        # The scans read the carried bonds and write new ones; the carried
+        # consensus and weights are updated in place, so they are copied.
+        bonds = carried("bonds", (V, M), copy=False)
         cprev = carried("consensus", (M,)).reshape(Bn, 1, M)
         wprev = carried("w_prev", (V, M)) if "w_prev" in need else None
     else:
@@ -651,8 +816,8 @@ def _scan(
         cprev = torch.zeros((Bn, 1, M), dtype=torch.float32, device=dev)
         wprev = torch.zeros_like(bonds) if mode is BondsMode.EMA_PREV else None
 
-    hp = _hp_rows(
-        Bn, dev, kappa=kappa, bond_penalty=bond_penalty, bond_alpha=bond_alpha,
+    hp = _hyperparams(
+        Bn, kappa=kappa, bond_penalty=bond_penalty, bond_alpha=bond_alpha,
         capacity_alpha=capacity_alpha, decay_rate=decay_rate,
         liquid_alpha=liquid_alpha, alpha_low=alpha_low, alpha_high=alpha_high,
     )
@@ -663,7 +828,7 @@ def _scan(
         epoch_offset=int(epoch_offset), save_bonds=save_bonds,
         save_incentives=save_incentives, save_consensus=save_consensus,
     )
-    ri, re_ = _reset_vec(reset_index, Bn, dev), _reset_vec(reset_epoch, Bn, dev)
+    ri, re_ = _reset_arg(reset_index, Bn), _reset_arg(reset_epoch, Bn)
     res = _run(
         "varying_scan" if varying else "case_scan", plain, W4, S3, hp, ri, re_,
         (bonds, cprev, wprev), T=T, p=p,
@@ -702,8 +867,11 @@ def _scan_kwargs(
 
 
 def fused_case_scan(W: torch.Tensor, S: torch.Tensor, **kwargs) -> dict:
-    """The whole epoch loop, one epoch per step (K2). `W [(B,) E, V, M]`
-    and `S [(B,) E, V]` are per-epoch raw weights and stakes; keyword
+    """The whole epoch loop (K2). `W [(B,) E, V, M]` and `S [(B,) E, V]`
+    are per-epoch raw weights and stakes. The bond-independent phases run
+    over tiles of :func:`case_scan_epoch_tile` epochs (any E: the last tile
+    takes what is left), the bond recurrence epoch by epoch; the results
+    are those of JAX's one-epoch-per-step kernel. Keyword
     arguments as JAX's `fused_case_scan` (`reset_index`, `reset_epoch`,
     `reset_mode`, the hyperparameters, `mode`, `precision`, the `save_*`
     flags, `carry`, `epoch_offset`, `return_carry`, `mxu`: the support sum
@@ -778,7 +946,7 @@ def _ema_scan(
         raise ValueError(f"weights must be [(Bb,) V, M], got {tuple(W.shape)}")
     _check_mxu(mxu, V)
     dev = W.device
-    scales = torch.as_tensor(scales, dtype=torch.float32, device=dev).reshape(-1)
+    scales = _to_device(torch.as_tensor(scales, dtype=torch.float32), dev).reshape(-1)
     E = scales.shape[0]
     if E < 1:
         raise ValueError("fused scan requires at least one epoch")
@@ -792,8 +960,8 @@ def _ema_scan(
     W4 = W.reshape(Bn, 1, V, M).contiguous()
     S3 = S_n.reshape(Bn, 1, V).contiguous()
     T = _epoch_tile(None, (Bn, E, V, M), dev, "scaled scan")
-    hp = _hp_rows(
-        Bn, dev, kappa=kappa, bond_penalty=bond_penalty, bond_alpha=bond_alpha,
+    hp = _hyperparams(
+        Bn, kappa=kappa, bond_penalty=bond_penalty, bond_alpha=bond_alpha,
         capacity_alpha=capacity_alpha, decay_rate=decay_rate,
         liquid_alpha=liquid_alpha, alpha_low=alpha_low, alpha_high=alpha_high,
     )
@@ -805,10 +973,9 @@ def _ema_scan(
         recompute_prev=bool(recompute_prev) and mode is BondsMode.EMA_PREV,
     )
     bonds = torch.zeros((Bn, V, M), dtype=torch.float32, device=dev)
-    cprev = torch.zeros((Bn, 1, M), dtype=torch.float32, device=dev)
     wprev = torch.zeros_like(bonds) if mode is BondsMode.EMA_PREV else None
-    none = _reset_vec(-1, Bn, dev)
-    res = _run("ema_scan", plain, W4, S3, hp, none, none, (bonds, cprev, wprev), T=T, p=p)
+    # No reset and no consensus carry: the scan keeps no previous consensus.
+    res = _run("ema_scan", plain, W4, S3, hp, -1, -1, (bonds, None, wprev), T=T, p=p)
     B_final, D_tot = res["final_bonds"], res["dividends_total"]
     return (B_final, D_tot) if lead else (B_final[0], D_tot[0])
 
@@ -867,29 +1034,32 @@ def _ema_epoch(
     if W.dtype != torch.float32:
         raise ValueError("the fused epoch takes float32 weights")
     dev = W.device
-    hp = _hp_rows(
-        1, dev, kappa=kappa, bond_penalty=bond_penalty, bond_alpha=bond_alpha,
+    hp = _hyperparams(
+        1, kappa=kappa, bond_penalty=bond_penalty, bond_alpha=bond_alpha,
         capacity_alpha=0.0, decay_rate=0.0, liquid_alpha=False, alpha_low=0.0,
         alpha_high=0.0,
     )
+    # A float scale goes by value; a tensor one is read where it lies.
+    if isinstance(w_scale, torch.Tensor):
+        scale = w_scale.reshape(1)
+        if scale.device != dev or scale.dtype != torch.float32:
+            scale = _to_device(scale.to(torch.float32), dev)
+    else:
+        scale = float(w_scale)
     # The first-epoch select reads "global epoch 0"; the clip base is the
     # one given (the caller resolves EMA_PREV's first-epoch fallback, as
     # JAX's caller does), else this epoch's W_n.
     p = _params(
         mode=mode, precision=precision, rust64=rust64, E=1, m_real=m_real, mxu=mxu,
         epoch_offset=0 if bool(first_epoch) else 1, save_incentives=True,
-        scales=torch.as_tensor(w_scale, dtype=torch.float32, device=dev).reshape(1),
-        s_normalized=True,
+        scales=scale, s_normalized=True,
         clip_src="given" if clip_base is not None else "own",
     )
-    bonds = B_old.reshape(1, V, M).clone().contiguous()
-    cprev = torch.zeros((1, 1, M), dtype=torch.float32, device=dev)
     wprev = None if clip_base is None else clip_base.reshape(1, V, M).contiguous()
-    none = _reset_vec(-1, 1, dev)
     res = _run(
         "ema_epoch", plain, W.reshape(1, 1, V, M).contiguous(),
-        S_n.reshape(1, 1, V).contiguous(), hp, none, none, (bonds, cprev, wprev),
-        T=1, p=p,
+        S_n.reshape(1, 1, V).contiguous(), hp, -1, -1,
+        (B_old.reshape(1, V, M).contiguous(), None, wprev), T=1, p=p,
     )
     return res["final_bonds"][0], res["dividends_normalized"][0, 0], res["incentives"][0, 0]
 

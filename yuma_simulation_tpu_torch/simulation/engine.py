@@ -5,7 +5,8 @@ a Python `for` over epochs carrying `(B_state, W_prev, consensus)`. Here
 the loop runs on one of these rungs:
 
 - "fused_varying": the epoch-tiled varying scan (CUDA kernel K3);
-- "fused_scan": the case scan, one epoch per step (CUDA kernel K2);
+- "fused_scan": the case scan (CUDA kernel K2; JAX steps it one epoch at a
+  time, the port over tiles of up to 16 epochs, with the same results);
 - "fused_varying_mxu" / "fused_scan_mxu": the same kernels with the
   consensus support sum on the tensor cores (K4), bitwise the same;
 - "eager": a Python loop over :func:`..models.epoch.yuma_epoch` (the
