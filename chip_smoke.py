@@ -45,8 +45,9 @@ process per source, on first use), then:
    and K5 (both spellings) at 256 x 4096 x 64 epochs and over
    `simulate_scaled(epoch_impl="fused")`'s 16 epochs (K6 16 times; all by
    torch.profiler), one `{"host_ms": {...}}` line (the wrappers' host time
-   per call of K2 and K6: host clock around a call that is not
-   synchronized, on an idle stream, averaged over 20 calls), one
+   per call of K2 and K6, K6 with a tensor w_scale on the card as the
+   fused rung passes it and with a float: host clock around a call that
+   is not synchronized, on an idle stream, averaged over 20 calls), one
    `{"bisect": {...}}` line (K1's and K4's event and device ms at 1 and 16
    slabs), and one `{"kernels": [...]}` line for K1-K6 (launches on the
    main paths, max |kernel - plain|, kernel and plain times from CUDA
@@ -464,15 +465,20 @@ def scaled_phases(torch, dev, measured, launches, report):
         library_ms=None,
     )
     k5["bound_ms"], k5["bound_by"] = bound_ms(4 * (2 * V * M + 2 * V + 64), 64 * ops_epoch)
+    # K6 as the fused rung calls it: w_scale a 0-d tensor on the card.
+    w_scale = sc64[1]
     k6 = dict(
         max_abs_err=err6,
-        ms=cuda_ms(torch, lambda: fused_ema_epoch(W1, Sn1, B_old, first_epoch=False), 20),
-        plain_ms=cuda_ms(torch, lambda: fused_ema_epoch_plain(W1, Sn1, B_old), 3),
+        ms=cuda_ms(torch, lambda: fused_ema_epoch(W1, Sn1, B_old, w_scale=w_scale), 20),
+        plain_ms=cuda_ms(
+            torch, lambda: fused_ema_epoch_plain(W1, Sn1, B_old, w_scale=w_scale), 3),
         library_ms=None,
     )
     k6["bound_ms"], k6["bound_by"] = bound_ms(4 * (3 * V * M + 2 * V + M), ops_epoch)
     report["host_ms"]["ema_epoch"] = host_ms(
-        torch, lambda: fused_ema_epoch(W1, Sn1, B_old, first_epoch=False))
+        torch, lambda: fused_ema_epoch(W1, Sn1, B_old, w_scale=w_scale))
+    report["host_ms"]["ema_epoch_float_scale"] = host_ms(
+        torch, lambda: fused_ema_epoch(W1, Sn1, B_old, w_scale=1.0000001))
     measured["ema_scan"], measured["ema_epoch"] = k5, k6
     print(f"K5 timing {k5}\nK6 timing {k6}", flush=True)
 
@@ -656,7 +662,7 @@ def main() -> int:
     ):
         rec = dict(
             max_abs_err=errs[name],
-            ms=cuda_ms(torch, lambda: kernel(W, S, **extra, **time_kw), 5),
+            ms=cuda_ms(torch, lambda: kernel(W, S, **extra, **time_kw), 20),
             plain_ms=cuda_ms(torch, lambda: plain(W, S, **extra, **time_kw), 1),
         )
         rec["bound_ms"], rec["bound_by"] = bound_ms(

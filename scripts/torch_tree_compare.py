@@ -14,9 +14,13 @@ all at chip_smoke.py's 256 x 4096 (Yuma 1, save flags off, 64 epochs):
 
 - `ms`: CUDA-event ms of one call of K2 (`fused_case_scan`), K3
   (`fused_varying_scan`, tile 16), K5 (`fused_ema_scan`, VPU support) and
-  K6 (`fused_ema_epoch` with a float `w_scale`, 20 calls back to back);
-- `host_ms`: the wrappers' host time per call of K2 and K6 (host clock
-  around a call that is not synchronized, on an idle stream, 20 calls);
+  K6 (`fused_ema_epoch`, 20 calls back to back; `ema_epoch` with a 0-d
+  `w_scale` on the card, as the fused rung passes it, `ema_epoch_float`
+  with a float one);
+- `host_ms`: the wrappers' host time per call of K2 and both K6 spellings
+  (host clock around a call that is not synchronized, on an idle stream,
+  20 calls), and of one `torch.cuda.mem_get_info` (the free-memory query
+  of the tile choice);
 - `fused_epochs_per_s`: `simulate_scaled(epoch_impl="fused")` over 16
   epochs (K6 once an epoch), host clock, synchronized, best of 5;
 - `phases`: device ms per phase kernel (torch.profiler) over one call of
@@ -76,12 +80,13 @@ def one(root: str) -> dict:
         "case_scan": lambda: fused_case_scan(W, S, **quiet),
         "varying_scan": lambda: fused_varying_scan(W, S, epoch_tile=16, **quiet),
         "ema_scan": lambda: fused_ema_scan(W1, Sn1, sc),
-        "ema_epoch": lambda: fused_ema_epoch(W1, Sn1, B_old, w_scale=1.0000001),
+        "ema_epoch": lambda: fused_ema_epoch(W1, Sn1, B_old, w_scale=sc[1]),
+        "ema_epoch_float": lambda: fused_ema_epoch(W1, Sn1, B_old, w_scale=1.0000001),
     }
-    ms = {name: cs.cuda_ms(torch, fn, 20 if name == "ema_epoch" else 5)
+    ms = {name: cs.cuda_ms(torch, fn, 20 if name.startswith("ema_epoch") else 5)
           for name, fn in runs.items()}
     host = {}
-    for name in ("case_scan", "ema_epoch"):
+    for name in ("case_scan", "ema_epoch", "ema_epoch_float"):
         fn, total = runs[name], 0.0
         fn()
         for _ in range(20):
@@ -91,6 +96,10 @@ def one(root: str) -> dict:
             total += time.perf_counter() - t0
         torch.cuda.synchronize()
         host[name] = total / 20 * 1e3
+    t0 = time.perf_counter()
+    for _ in range(20):
+        torch.cuda.mem_get_info(dev)
+    host["mem_get_info"] = (time.perf_counter() - t0) / 20 * 1e3
 
     def fused():
         out = simulate_scaled(W1, S1, sc[:16], config, spec, epoch_impl="fused")

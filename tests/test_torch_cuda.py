@@ -292,7 +292,7 @@ def test_dividend_fold_and_rank_layout(cuda, version, V, M, B):
                          ids=["ema", "ema-prev-clip"])
 def test_ema_epoch_back_to_back_matches_synchronized(cuda, mode, with_clip):
     """20 K6 calls in a row, each on the bonds of the one before, with a
-    float w_scale (by value) and a tensor one (read on the card), queued
+    float w_scale (copied from pinned memory) and a tensor one, queued
     without a synchronization: bitwise the same 20 calls with
     torch.cuda.synchronize() after each."""
     rng = np.random.default_rng(12)
@@ -405,6 +405,46 @@ def test_quantize_fallback_beyond_int32_grid(cuda):
     kw = _scan_kwargs("Yuma 1 (paper)", YumaParams(), precision=2**26)
     _assert_matches(fused_case_scan(W.to(cuda), S.to(cuda), **kw),
                     fused_case_scan(W, S, **kw), "quantize fallback")
+
+
+def test_auto_tile_falls_back_when_its_scratch_does_not_fit(cuda):
+    """With too little free memory for a 16-epoch tile's scratch, the case
+    scan and the scaled scan, tiled automatically, ask the card for its
+    free memory and run at a smaller tile (K4 counts one launch a tile, so
+    more than one): the results of the scans at full memory."""
+    rng = np.random.default_rng(21)
+    E, V, M = 16, 256, 4096  # a tile's scratch ~4.2 MB an epoch
+    W = torch.tensor(rng.random((E, V, M), dtype=np.float32), device=cuda)
+    S = torch.tensor(rng.random((E, V), dtype=np.float32) + 0.01, device=cuda)
+    S_n = S[0] / S[0].sum()
+    scales = 1.0 + 1e-4 * torch.arange(E, dtype=torch.float32, device=cuda)
+    kw = dict(save_bonds=False, mxu=True)
+    want_case = fused_case_scan(W, S, **kw)
+    want_ema = fused_ema_scan(W[0], S_n, scales, mxu=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    hog = torch.empty(torch.cuda.mem_get_info(cuda)[0] - (40 << 20), dtype=torch.uint8,
+                      device=cuda)
+    try:
+        reset_launch_counts()
+        got_case = fused_case_scan(W, S, **kw)
+        tiles_case = launch_counts()["support_mma"]
+        reset_launch_counts()
+        got_ema = fused_ema_scan(W[0], S_n, scales, mxu=True)
+        counts = launch_counts()
+        torch.cuda.synchronize()
+    finally:
+        del hog
+        torch.cuda.empty_cache()
+    assert tiles_case > 1 and counts["support_mma"] > 1, (tiles_case, counts)
+    assert counts["ema_scan"] == 1, counts
+    for key in ("consensus", "incentives"):
+        if key in got_case:
+            torch.testing.assert_close(got_case[key], want_case[key], rtol=0, atol=0)
+    for key in ("dividends_normalized", "final_bonds"):
+        torch.testing.assert_close(got_case[key], want_case[key], rtol=0, atol=1e-6)
+    for g, w in zip(got_ema, want_ema):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
 
 
 def test_scans_are_reproducible(cuda):

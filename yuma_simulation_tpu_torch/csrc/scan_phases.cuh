@@ -85,11 +85,10 @@
 //
 // What the scans take: W [B, EW, V, M] and S [B, ES, V] with EW, ES the
 // epochs stored (E, or 1 for epoch-constant inputs); an optional per-epoch
-// weight scale (epoch e reads W * scales[e], before the row sum) or one
-// scale by value; stakes raw (normalized in phase 2) or already
-// normalized; the hyperparameters per scenario, or one row by value
-// shared by all; per-epoch outputs each optional, and an optional
-// in-kernel f32 sum of D_n over epochs.
+// weight scale (epoch e reads W * scales[e], before the row sum); stakes
+// raw (normalized in phase 2) or already normalized; the hyperparameters
+// per scenario, or one row by value shared by all; per-epoch outputs each
+// optional, and an optional in-kernel f32 sum of D_n over epochs.
 //
 // Numerics: the row and stake sums add strictly left to right, as the
 // plain PyTorch version does (and XLA's CPU backend for short rows), so the
@@ -197,7 +196,7 @@ struct ScanArgs {
   float* rden;           // [T, B, V] scratch: row denominators
   float* pden;           // [B, V] scratch: recomputed previous row denominators
   int* ticket;           // [B, groups + 1] scratch: phase 8's tickets (run_scan zeroes)
-  const float* scales;   // [E] per-epoch weight scale, or null: scale0
+  const float* scales;   // [E] per-epoch weight scale or null
   float* dacc;           // [B, V] sum over epochs of D_n (seeded 0) or null
   void* stream;
   int B, E, V, M, T;
@@ -209,7 +208,6 @@ struct ScanArgs {
   int recompute_prev;      // EMA_PREV: re-derive the previous W_n per tile
   int mxu;                 // phase 4 on the tensor cores (K4)
   int reset_index0, reset_epoch0;
-  float scale0;
   float hpv[9];            // [NHP]
   LiquidSpec liq;
 };
@@ -224,8 +222,8 @@ __host__ __device__ __forceinline__ size_t epoch_slice(int b, int stored, int e,
   return ((size_t)b * stored + (stored == 1 ? 0 : e)) * rows;
 }
 
-__device__ __forceinline__ float epoch_scale(const float* scales, float scale0, int e) {
-  return scales ? scales[e] : scale0;
+__device__ __forceinline__ float epoch_scale(const float* scales, int e) {
+  return scales ? scales[e] : 1.0f;
 }
 
 // Hyperparameter k of scenario b.
@@ -286,7 +284,7 @@ __device__ __forceinline__ void cp_async_wait() {
 template <bool VEC>
 __global__ void __launch_bounds__(64) k_rowsum(const float* __restrict__ W,
                                                const float* __restrict__ scales,
-                                               float scale0, float* __restrict__ den,
+                                               float* __restrict__ den,
                                                int B, int WE, int e0, int V, int M) {
   yuma::wait_for_prior_grid();
   __shared__ __align__(16) float ring[kSumStages][kSumRows][kSumStride];
@@ -294,7 +292,7 @@ __global__ void __launch_bounds__(64) k_rowsum(const float* __restrict__ W,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int rows = min(kSumRows, V - v0);
   const int nchunks = (M + kSumCols - 1) / kSumCols;
-  const float sc = epoch_scale(scales, scale0, e0 + t);
+  const float sc = epoch_scale(scales, e0 + t);
   const float* Wb = W + epoch_slice(b, WE, e0 + t, (size_t)V * M) + (size_t)v0 * M;
   // Producer: chunk k into stage k % kSumStages, one commit group per
   // chunk (an empty one past the end keeps the group count uniform).
@@ -346,12 +344,12 @@ __global__ void __launch_bounds__(64) k_rowsum(const float* __restrict__ W,
 
 // Phase 3b: W_n = (W * scale) / den, one block per (slab, validator) row.
 __global__ void k_rowdiv(const float* __restrict__ W, const float* __restrict__ scales,
-                         float scale0, const float* __restrict__ den,
+                         const float* __restrict__ den,
                          float* __restrict__ wn, int B, int WE, int e0, int V, int M) {
   yuma::wait_for_prior_grid();
   const size_t row = blockIdx.x;  // s * V + v
   const int s = (int)(row / V), v = (int)(row % V), t = s / B, b = s % B;
-  const float sc = epoch_scale(scales, scale0, e0 + t);
+  const float sc = epoch_scale(scales, e0 + t);
   const float* src = W + epoch_slice(b, WE, e0 + t, (size_t)V * M) + (size_t)v * M;
   float* dst = wn + row * M;
   const float d = den[row];
@@ -918,9 +916,9 @@ int normalize_rows(const ScanArgs& a, int e0, int nslab, float* den, float* out,
                    cudaStream_t st) {
   const dim3 grid((a.V + kSumRows - 1) / kSumRows, nslab);
   const bool vec = a.M % 4 == 0 && reinterpret_cast<uintptr_t>(a.W) % 16 == 0;
-  LAUNCH(vec ? k_rowsum<true> : k_rowsum<false>, grid, 64, st, a.W, a.scales, a.scale0,
-         den, a.B, a.w_epochs, e0, a.V, a.M);
-  LAUNCH(k_rowdiv, nslab * a.V, 256, st, a.W, a.scales, a.scale0, den, out, a.B,
+  LAUNCH(vec ? k_rowsum<true> : k_rowsum<false>, grid, 64, st, a.W, a.scales, den,
+         a.B, a.w_epochs, e0, a.V, a.M);
+  LAUNCH(k_rowdiv, nslab * a.V, 256, st, a.W, a.scales, den, out, a.B,
          a.w_epochs, e0, a.V, a.M);
   return 0;
 }
@@ -962,23 +960,14 @@ int run_scan(const ScanArgs& args, int T) {
     if (scan_prev && a.recompute_prev && e0 > 0) {
       if ((rc = normalize_rows(a, e0 - 1, B, a.pden, a.wprev, st))) return rc;
     }
-    // Phases 2-6, once for the whole tile. Stakes that come normalized and
-    // constant need no phase 2 in a one-epoch tile: the later phases read
-    // them where they lie, and the bisection rounds them to fixed point on
-    // load, as k_stake would.
-    ScanArgs ta = a;
-    if (a.s_normalized && a.s_epochs == 1 && tt == 1) {
-      ta.sn = const_cast<float*>(a.S);
-      ta.sint = nullptr;
-    } else {
-      LAUNCH(k_stake, nslab, 256, st, a.S, a.sn, a.sint, B, a.s_epochs, e0, V,
-             a.s_normalized);
-    }
+    // Phases 2-6, once for the whole tile.
+    LAUNCH(k_stake, nslab, 256, st, a.S, a.sn, a.sint, B, a.s_epochs, e0, V,
+           a.s_normalized);
     if ((rc = normalize_rows(a, e0, nslab, a.rden, a.wn, st))) return rc;
     yuma::BisectArgs ba{};
     ba.wn = a.wn;
-    ba.sint = ta.sint;
-    ba.sn = ta.sn;
+    ba.sint = a.sint;
+    ba.sn = a.sn;
     ba.kappa = a.hp ? a.hp + KAPPA : nullptr;
     ba.kappa0 = a.hpv[KAPPA];
     ba.kappa_stride = NHP;
@@ -994,17 +983,17 @@ int run_scan(const ScanArgs& args, int T) {
            a.iters, fits, a.rust64);
     const dim3 rank_grid(rank_tiles, nslab);
     if ((long long)rank_tiles * nslab < (long long)kRankBlocksPerSM * sms) {
-      LAUNCH(k_rank<kRankWarpsFew>, rank_grid, 32 * kRankWarpsFew, st, ta, e0);
+      LAUNCH(k_rank<kRankWarpsFew>, rank_grid, 32 * kRankWarpsFew, st, a, e0);
     } else {
-      LAUNCH(k_rank<kRankWarpsMany>, rank_grid, 32 * kRankWarpsMany, st, ta, e0);
+      LAUNCH(k_rank<kRankWarpsMany>, rank_grid, 32 * kRankWarpsMany, st, a, e0);
     }
-    LAUNCH(k_incentive, nslab, 1024, st, ta, e0);
+    LAUNCH(k_incentive, nslab, 1024, st, a, e0);
     // Phases 1, 7, 8, epoch by epoch.
     for (int t = 0; t < tt; ++t) {
       const int e = e0 + t, eg = e + a.epoch_offset;
       if (a.reset_mode != RESET_NONE) {
         const float* cp = t == 0 ? a.cprev : a.C + (size_t)(t - 1) * bm;
-        LAUNCH(k_reset, B, 256, st, ta, cp, eg);
+        LAUNCH(k_reset, B, 256, st, a, cp, eg);
       }
       const float* bin = e == 0 && a.bonds_in ? a.bonds_in : a.bonds;
       // Phase 8 of slot t runs in the next launch's extra block, but that
@@ -1014,7 +1003,7 @@ int run_scan(const ScanArgs& args, int T) {
       const bool in_order = a.dacc || V > kBondProd;
       if (t > 0) phase8 |= phase8 && in_order ? kPhase8PrevLast : kPhase8PrevExtra;
       const dim3 grid(bond_tiles + (phase8 & kPhase8PrevExtra ? 1 : 0), B);
-      LAUNCH(k_bond, grid, kBondThreads, st, ta, bin, t, e, eg, bond_tiles, phase8);
+      LAUNCH(k_bond, grid, kBondThreads, st, a, bin, t, e, eg, bond_tiles, phase8);
     }
     // Carry the tile's last consensus (and W_n) into the next tile.
     if (a.cprev) {

@@ -11,12 +11,14 @@ All four are launch sequences of one set of phase kernels
 (`csrc/scan_phases.cuh`): the bond-independent phases (row normalization,
 the bisection, the quantize, clip / rank and the liquid rate) run once per
 tile of epochs, and only the bond recurrence epoch by epoch.
-:func:`fused_case_scan` takes the largest tile up to 16 that fits, its last
-tile taking what is left (:func:`case_scan_epoch_tile`);
-:func:`fused_varying_scan` and :func:`fused_ema_scan` a tile that divides
-E; :func:`fused_ema_epoch` is one epoch. Each takes the JAX function's
-inputs and returns its outputs. `mxu=True` runs the bisection's
-support sum on the tensor cores (K4, `csrc/common.cuh`), bitwise the same.
+:func:`fused_case_scan` takes the largest tile up to 16, its last tile
+taking what is left; :func:`fused_varying_scan` and :func:`fused_ema_scan`
+the largest that divides E; each a smaller one only when that tile's
+scratch does not fit on the card (:func:`case_scan_epoch_tile`,
+:func:`varying_scan_epoch_tile`); :func:`fused_ema_epoch` is one epoch.
+Each takes the JAX function's inputs and returns its outputs. `mxu=True`
+runs the bisection's support sum on the tensor cores (K4,
+`csrc/common.cuh`), bitwise the same.
 On CUDA tensors they launch the kernels; on CPU tensors they run the plain
 PyTorch versions below, which are written from the Pallas kernels' own
 phases (`_consensus_phase`, `_clip_rank_rate`, `_bond_phase`,
@@ -411,7 +413,7 @@ class _ScanArgs(ctypes.Structure):
             "m_real", "clip_src", "recompute_prev", "mxu", "reset_index0",
             "reset_epoch0",
         )
-    ] + [("scale0", ctypes.c_float), ("hpv", ctypes.c_float * 9), ("liq", _LiquidSpec)]
+    ] + [("hpv", ctypes.c_float * 9), ("liq", _LiquidSpec)]
 
 _CLIP_CODE = {"scan": 0, "given": 1, "own": 2}
 #: kernel name -> (source, C entry point, launch counter)
@@ -473,7 +475,7 @@ def _to_device(x: torch.Tensor, dev) -> torch.Tensor:
     """`x` on `dev` without waiting for the card: a CPU tensor goes through
     pinned memory with a non-blocking copy (a pageable one would
     synchronize the stream)."""
-    if x.device == dev or dev.type != "cuda":
+    if x.device.type != "cpu" or dev.type != "cuda":
         return x.to(dev).contiguous()
     return x.contiguous().pin_memory().to(dev, non_blocking=True)
 
@@ -508,8 +510,8 @@ def _scan_cuda(W, S, hp, reset_index, reset_epoch, state, *, T, p, kernel: str):
     contiguous CUDA tensors: `W [B, EW, V, M]`, `S [B, ES, V]`. `hp` is one
     row of hyperparameters shared by every scenario (a tuple, passed by
     value) or a CPU table `[B, 9]`; the reset index and epoch are ints
-    (by value) or `[B]` tensors; `p["scales"]` a float (by value), a
-    float32 CUDA tensor `[E]` or None. `state = (bonds, cprev, wprev)`: the
+    (by value) or `[B]` tensors; `p["scales"]` a float32 CUDA tensor `[E]`
+    or None. `state = (bonds, cprev, wprev)`: the
     bonds before the first epoch (read, never written: the kernel writes
     a new buffer), the previous consensus `[B, 1, M]` (in/out) or None,
     EMA_PREV's previous W_n. Nothing here waits for the card."""
@@ -569,14 +571,9 @@ def _scan_cuda(W, S, hp, reset_index, reset_epoch, state, *, T, p, kernel: str):
         else:
             keep.append(_to_device(x.to(torch.int32).reshape(Bn), dev))
             setattr(args, name, keep[-1].data_ptr())
-    scales = p["scales"]
-    if isinstance(scales, float):
-        args.scale0 = scales
-    else:
-        args.scale0 = 1.0
-        if scales is not None:
-            check_cuda_float32("scales", scales, (E,))
-            args.scales = scales.data_ptr()
+    if p["scales"] is not None:
+        check_cuda_float32("scales", p["scales"], (E,))
+        args.scales = p["scales"].data_ptr()
     err = _entry(kernel)(ctypes.byref(args))
     if err:
         raise RuntimeError(f"{kernel} kernel failed: CUDA error {err}")
@@ -644,16 +641,14 @@ def _reset_arg(x, Bn: int):
     return torch.as_tensor(x, dtype=torch.int32).broadcast_to((Bn,))
 
 
-def _plain_inputs(hp, ri, re_, p, Bn, dev):
+def _plain_inputs(hp, ri, re_, Bn, dev):
     """`_scan_plain`'s tensors on `dev` from the kernels' arguments."""
     hp = torch.tensor(hp, dtype=torch.float32).expand(Bn, 9) if isinstance(hp, tuple) else hp
 
     def vec(x):
         return torch.as_tensor(x, dtype=torch.int32).broadcast_to((Bn,)).to(dev)
 
-    if isinstance(p["scales"], float):
-        p = dict(p, scales=torch.tensor([p["scales"]], dtype=torch.float32, device=dev))
-    return hp.to(dev), vec(ri), vec(re_), p
+    return hp.to(dev), vec(ri), vec(re_)
 
 
 def _largest_tile(E: int, per_epoch: int, free: Optional[int], divides: bool) -> int:
@@ -666,38 +661,22 @@ def _largest_tile(E: int, per_epoch: int, free: Optional[int], divides: bool) ->
     return 0
 
 
-#: A tile scratch at most this share of the card's memory is taken to fit
-#: without asking the CUDA runtime for its free memory, a host cost on every
-#: call of the scans that choose their own tile.
-_SMALL_SCRATCH = 1 / 64
-
-
-@functools.lru_cache(maxsize=None)
-def _total_memory(index: int) -> int:
-    return torch.cuda.get_device_properties(index).total_memory
-
-
 def _tile_bound(shape, device):
     """(E, scratch bytes per epoch, free device bytes or None: no bound,
-    on the CPU or where the largest tile's scratch is small)."""
+    on the CPU)."""
     E, V, M = shape[-3:]
     Bn = shape[0] if len(shape) == 4 else 1
     per_epoch = 4 * Bn * (V * M + 3 * V + 4 * M)
     free = None
     if device is not None and torch.device(device).type == "cuda":
-        dev = torch.device(device)
-        index = torch.cuda.current_device() if dev.index is None else dev.index
-        largest = min(VARYING_EPOCH_TILE_MAX, max(1, E)) * per_epoch
-        if largest > _total_memory(index) * _SMALL_SCRATCH:
-            free = torch.cuda.mem_get_info(dev)[0]
+        free = torch.cuda.mem_get_info(torch.device(device))[0]
     return E, per_epoch, free
 
 
 def varying_scan_epoch_tile(shape, device=None) -> int:
     """Largest epoch tile (<= :data:`VARYING_EPOCH_TILE_MAX`) that divides
     the epoch count of `shape` (`[E, V, M]` or `[B, E, V, M]`) and whose
-    tile scratch fits half the free device memory (no check on the CPU, nor
-    when a 16-epoch tile's scratch is under 1/64 of the card's memory).
+    tile scratch fits half the free device memory (no check on the CPU).
     Returns 0 when not even a one-epoch tile fits."""
     E, per_epoch, free = _tile_bound(shape, device)
     return _largest_tile(E, per_epoch, free, divides=True)
@@ -748,8 +727,25 @@ def _run(kernel: str, plain: bool, W4, S3, hp, ri, re_, state, *, T, p) -> dict:
     `hp` from :func:`_hyperparams`, `ri` / `re_` from :func:`_reset_arg`."""
     if W4.device.type == "cuda" and not plain:
         return _scan_cuda(W4, S3, hp, ri, re_, state, T=T, p=p, kernel=kernel)
-    hp, ri, re_, p = _plain_inputs(hp, ri, re_, p, W4.shape[0], W4.device)
+    hp, ri, re_ = _plain_inputs(hp, ri, re_, W4.shape[0], W4.device)
     return _scan_plain(W4, S3, hp, ri, re_, state, T=T, p=p)
+
+
+def _run_tiled(kernel, plain, W4, S3, hp, ri, re_, state, *, T, auto, divides, label, p):
+    """:func:`_run` at tile T. An `auto` tile (the largest up to
+    :data:`VARYING_EPOCH_TILE_MAX`, dividing E if `divides`) is taken
+    without asking the card for its free memory, a query that costs about
+    a millisecond of host time a call (PERF.md §6). Only if the kernel's
+    scratch at that tile does not fit does the scan ask, and run at the
+    largest tile whose scratch fits half the free memory."""
+    try:
+        return _run(kernel, plain, W4, S3, hp, ri, re_, state, T=T, p=p)
+    except torch.cuda.OutOfMemoryError:
+        # _scan_cuda allocates everything before its launch: nothing ran.
+        if not auto or plain or W4.device.type != "cuda":
+            raise
+    T = _epoch_tile(None, W4.shape, W4.device, label, divides)
+    return _run(kernel, plain, W4, S3, hp, ri, re_, state, T=T, p=p)
 
 
 def _check_mxu(mxu: bool, V: int) -> None:
@@ -785,8 +781,8 @@ def _scan(
     dev = W.device
     W4 = W.reshape(Bn, E, V, M).contiguous()
     S3 = S.reshape(Bn, E, V).contiguous()
-    T = _epoch_tile(epoch_tile, W4.shape, dev, "varying scan" if varying else "case scan",
-                    divides=varying)
+    label = "varying scan" if varying else "case scan"
+    T = _epoch_tile(epoch_tile, W4.shape, None, label, divides=varying)
 
     need = {"bonds", "consensus"} | ({"w_prev"} if mode is BondsMode.EMA_PREV else set())
     if carry is not None:
@@ -829,9 +825,10 @@ def _scan(
         save_incentives=save_incentives, save_consensus=save_consensus,
     )
     ri, re_ = _reset_arg(reset_index, Bn), _reset_arg(reset_epoch, Bn)
-    res = _run(
+    res = _run_tiled(
         "varying_scan" if varying else "case_scan", plain, W4, S3, hp, ri, re_,
-        (bonds, cprev, wprev), T=T, p=p,
+        (bonds, cprev, wprev), T=T, auto=epoch_tile is None, divides=varying,
+        label=label, p=p,
     )
 
     def unlead(x):
@@ -869,8 +866,8 @@ def _scan_kwargs(
 def fused_case_scan(W: torch.Tensor, S: torch.Tensor, **kwargs) -> dict:
     """The whole epoch loop (K2). `W [(B,) E, V, M]` and `S [(B,) E, V]`
     are per-epoch raw weights and stakes. The bond-independent phases run
-    over tiles of :func:`case_scan_epoch_tile` epochs (any E: the last tile
-    takes what is left), the bond recurrence epoch by epoch; the results
+    over tiles of up to 16 epochs (any E: the last tile takes what is left;
+    :func:`case_scan_epoch_tile` when their scratch does not fit), the bond recurrence epoch by epoch; the results
     are those of JAX's one-epoch-per-step kernel. Keyword
     arguments as JAX's `fused_case_scan` (`reset_index`, `reset_epoch`,
     `reset_mode`, the hyperparameters, `mode`, `precision`, the `save_*`
@@ -887,8 +884,8 @@ def fused_varying_scan(
 ) -> dict:
     """:func:`fused_case_scan`'s epoch-tiled twin (K3): the same inputs,
     outputs and carry contract, with the bond-independent phases run once
-    per `epoch_tile` epochs (a divisor of E; None picks
-    :func:`varying_scan_epoch_tile`). Consensus and incentives are bitwise
+    per `epoch_tile` epochs (a divisor of E; None picks the largest up to
+    16, or :func:`varying_scan_epoch_tile` when its scratch does not fit). Consensus and incentives are bitwise
     the case scan's for every tile."""
     return _scan(
         W, S, varying=True, plain=False, epoch_tile=epoch_tile, **_scan_kwargs(**kwargs)
@@ -959,7 +956,7 @@ def _ema_scan(
         raise ValueError("the fused scans take float32 weights and stakes")
     W4 = W.reshape(Bn, 1, V, M).contiguous()
     S3 = S_n.reshape(Bn, 1, V).contiguous()
-    T = _epoch_tile(None, (Bn, E, V, M), dev, "scaled scan")
+    T = _epoch_tile(None, (Bn, E, V, M), None, "scaled scan")
     hp = _hyperparams(
         Bn, kappa=kappa, bond_penalty=bond_penalty, bond_alpha=bond_alpha,
         capacity_alpha=capacity_alpha, decay_rate=decay_rate,
@@ -975,7 +972,8 @@ def _ema_scan(
     bonds = torch.zeros((Bn, V, M), dtype=torch.float32, device=dev)
     wprev = torch.zeros_like(bonds) if mode is BondsMode.EMA_PREV else None
     # No reset and no consensus carry: the scan keeps no previous consensus.
-    res = _run("ema_scan", plain, W4, S3, hp, -1, -1, (bonds, None, wprev), T=T, p=p)
+    res = _run_tiled("ema_scan", plain, W4, S3, hp, -1, -1, (bonds, None, wprev), T=T,
+                     auto=True, divides=True, label="scaled scan", p=p)
     B_final, D_tot = res["final_bonds"], res["dividends_total"]
     return (B_final, D_tot) if lead else (B_final[0], D_tot[0])
 
@@ -992,7 +990,8 @@ def fused_ema_scan(
     `recompute_prev` (EMA_PREV: re-derive the previous epoch's weights
     instead of carrying them; bitwise the same) and `x64` (Yuma 0's float64
     quantize). The epochs run in tiles of the largest divisor of E up to
-    16 whose scratch fits (:func:`varying_scan_epoch_tile`). Returns
+    16 (:func:`varying_scan_epoch_tile` when its scratch does not fit).
+    Returns
     `(B_final [(Bb,) V, M], D_n_total [(Bb,) V])`, the sum over epochs of
     the normalized dividends."""
     return _ema_scan(W, S_n, scales, plain=False, **kwargs)
@@ -1039,13 +1038,11 @@ def _ema_epoch(
         capacity_alpha=0.0, decay_rate=0.0, liquid_alpha=False, alpha_low=0.0,
         alpha_high=0.0,
     )
-    # A float scale goes by value; a tensor one is read where it lies.
-    if isinstance(w_scale, torch.Tensor):
-        scale = w_scale.reshape(1)
-        if scale.device != dev or scale.dtype != torch.float32:
-            scale = _to_device(scale.to(torch.float32), dev)
-    else:
-        scale = float(w_scale)
+    # The scale as the fused rung passes it, a tensor on the card, is read
+    # where it lies; any other goes there without a synchronizing copy.
+    scale = torch.as_tensor(w_scale, dtype=torch.float32).reshape(1)
+    if scale.device != dev:
+        scale = _to_device(scale, dev)
     # The first-epoch select reads "global epoch 0"; the clip base is the
     # one given (the caller resolves EMA_PREV's first-epoch fallback, as
     # JAX's caller does), else this epoch's W_n.
