@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (yuma_simulation_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # one GPU, about 75 seconds
+    python3 chip_smoke.py            # one GPU, a few minutes
 
 Builds the CUDA kernels from `yuma_simulation_tpu_torch/csrc` (nvcc, one
 process per source, on first use), then:
 
-1. prints the card's name and power limit (nvidia-smi);
+1. prints the card's name and power limit (nvidia-smi), and holds the
+   plain versions' exact multiply-add (ops/fma.py) bitwise against the
+   card's `__fmaf_rn` on 2^21 float32 triples, half of them next to
+   float32 halfway points;
 2. holds K1 (consensus bisection) against its plain PyTorch version at
    256 validators x 4096 miners, one slab and a batch of 16: `c_high`
    bitwise equal; times a wrapper call (CUDA events) and the kernel alone
    (torch.profiler) at both;
 3. holds K2 (case scan) and K3 (varying scan) against their plain versions
-   at 256 x 4096 x 64 epochs of per-epoch weights, one run per bond model:
+   at 256 x 4096 x 32 epochs of per-epoch weights (two tiles of 16; the
+   plain versions' exact FMA chains make 64 slow), one run per bond model:
    quantized consensus bitwise, dividends and bonds within atol 2e-6 /
    rtol 1e-5; K3 against K2: consensus and incentives bitwise, dividends
    and bonds within 1e-6;
@@ -23,6 +27,16 @@ process per source, on first use), then:
 5. runs the reference surface: `simulate_batch` over the 14 built-in cases
    x 9 versions at beta=1.0 through `auto`, held to the golden CSV within
    1.5e-6;
+   Then runs the artifact CLI as a user does (`total_dividends_sheet_generator
+   main(["--out-dir", ...])`, auto -> K3, all four bond_penalty sheets),
+   gated on the golden CSVs' header and quoting, on every differing
+   rendered cell being pinned in tests/golden/csv_diff_cells.json, and on
+   the totals within 1.5e-6 of the `*_full.csv` goldens; and the grid
+   sweeps at full width: an 8-point `config_grid` (bond_alpha x kappa)
+   through `sweep_hyperparams` (K3; Yuma 1, and Yuma 3.1 with its reset)
+   over the 256 x 4096 x 64 workload and `sweep_scaled_fused` (K5) over its
+   first epoch x 64 scales, each lane bitwise its solo scalar run, with
+   wall seconds per sheet and scenario-epochs/s printed;
 6. holds K4 (the bisection's support on the tensor cores) against its
    plain version at 256 x 4096 bitwise, timed as K1 at one slab and 16,
    and K2, K3 and K5 with `mxu=True`
@@ -49,7 +63,7 @@ process per source, on first use), then:
    fused rung passes it and with a float: host clock around a call that
    is not synchronized, on an idle stream, averaged over 20 calls), one
    `{"bisect": {...}}` line (K1's and K4's event and device ms at 1 and 16
-   slabs), and one `{"kernels": [...]}` line for K1-K6 (launches on the
+   slabs), one `{"cli": ..., "sweeps": ..., "fma_helper": ...}` line, and one `{"kernels": [...]}` line for K1-K6 (launches on the
    main paths, max |kernel - plain|, kernel and plain times from CUDA
    events, the roofline bound, and a library call's time where one
    exists), the card line, and last `{"ok": true, "device": {...}}`.
@@ -153,6 +167,18 @@ def cuda_ms(torch, fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def timed_once(torch, fn):
+    """`(fn(), milliseconds)` of one call, from CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
 
 
 def host_ms(torch, fn, calls: int = 20) -> float:
@@ -363,6 +389,191 @@ def k4_phase(torch, dev, W, S, measured, errs):
                 check_equal(f"{name} mxu {version} {key}", b[key], a[key])
         print(f"K2/K3/K5 mxu ok: {version}, bitwise on every output", flush=True)
     errs["support_mma"] = rec["max_abs_err"]
+
+
+def fma_phase(torch, dev, report):
+    """The exact multiply-add of the plain versions (ops/fma.py::fma) on
+    the card against `__fmaf_rn` (csrc/consensus.cu, k_fmaf), bitwise, and
+    its CPU result against the card's: 2^20 random float32 triples over
+    wide exponents, and 2^20 built so that a*b + c lies next to a float32
+    halfway point, where a float64 sum rounded again to float32 goes wrong
+    (the count of such cases is printed)."""
+    from yuma_simulation_tpu_torch.ops.fma import fma, fmaf_cuda
+
+    rng = np.random.default_rng(11)
+    n = 1 << 20
+    sign = np.where(rng.random(n) < 0.5, 1.0, -1.0)
+    i = rng.integers(1, 1 << 12, n)
+    sets = {
+        "random": (
+            rng.standard_normal(n) * 2.0 ** rng.integers(-40, 40, n),
+            rng.standard_normal(n) * 2.0 ** rng.integers(-40, 40, n),
+            rng.standard_normal(n) * 2.0 ** rng.integers(-60, 60, n),
+        ),
+        "halfway": (
+            sign * (1.0 + i * 2.0**-23),
+            2.0**-24 * (1.0 - i * 2.0**-23),
+            sign * (1.0 + rng.integers(0, 1 << 23, n) * 2.0**-23),
+        ),
+    }
+    rec = {}
+    for name, arrays in sets.items():
+        a, b, c = (torch.tensor(x.astype(np.float32), device=dev) for x in arrays)
+        ref = fmaf_cuda(a, b, c)
+        got = fma(a, b, c)
+        cpu = fma(a.cpu(), b.cpu(), c.cpu())
+        torch.cuda.synchronize()
+        check_equal(f"fma helper vs __fmaf_rn, {name}", got, ref)
+        check_equal(f"fma helper on the CPU vs __fmaf_rn, {name}", cpu, ref.cpu())
+        twice = int(((a.double() * b.double() + c.double()).float() != ref).sum())
+        rec[name] = dict(n=n, two_roundings_differ=twice)
+    report["fma_helper"] = rec
+    print(f"fma helper ok: bitwise __fmaf_rn on the card and the CPU; {rec}", flush=True)
+
+
+def cli_phase(torch, launches, report):
+    """The total-dividends CLI on the card, as a user runs it: all four
+    bond_penalty sheets into build/chip_smoke/sheets. Gates: the header
+    and quoting bytes and the case names are the goldens'; a rendered cell
+    differs from tests/golden/total_dividends_b{beta}.csv only where
+    tests/golden/csv_diff_cells.json pins it (the pin_key of
+    tools/csv_byte_parity.py); the same table at full precision is within
+    1.5e-6 of the `*_full.csv` goldens and renders to the sheet's bytes."""
+    from yuma_simulation_tpu_torch.cli.total_dividends_sheet_generator import main as cli_main
+    from yuma_simulation_tpu_torch.models.config import SimulationHyperparameters
+    from yuma_simulation_tpu_torch.models.variants import canonical_versions
+    from yuma_simulation_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from yuma_simulation_tpu_torch.reporting.tables import generate_total_dividends_table
+    from yuma_simulation_tpu_torch.scenarios import get_cases
+
+    golden_dir = os.path.join("tests", "golden")
+    with open(os.path.join(golden_dir, "csv_diff_cells.json")) as f:
+        pins = json.load(f)
+    out = os.path.join(OUT_DIR, "sheets")
+    reset_launch_counts()
+    seconds = cli_main(["--out-dir", out])
+    counts = launch_counts()
+    assert counts["varying_scan"] == 9 * len(seconds), counts
+    launches["varying_scan"] += counts["varying_scan"]
+    rec = {}
+    for beta, sec in seconds.items():
+        with open(os.path.join(out, f"total_dividends_b{beta}.csv"), newline="") as f:
+            text = f.read()
+        with open(os.path.join(golden_dir, f"total_dividends_b{beta}.csv"), newline="") as f:
+            golden_text = f.read()
+        with open(os.path.join(golden_dir, f"total_dividends_b{beta}_full.csv")) as f:
+            full = list(csv.reader(f))
+        assert "\r" not in text and text.endswith("\n"), beta
+        mine, golden = list(csv.reader(text.splitlines())), list(csv.reader(golden_text.splitlines()))
+        assert text.splitlines()[0] == golden_text.splitlines()[0], beta
+        assert [r[0] for r in mine] == [r[0] for r in golden] == [r[0] for r in full], beta
+        header = mine[0]
+        differ, outside = 0, []
+        for r in range(1, len(mine)):
+            for c in range(1, len(header)):
+                if mine[r][c] != golden[r][c]:
+                    differ += 1
+                    key = f"{mine[r][0]}|{header[c]}|{mine[r][c]}|{golden[r][c]}"
+                    if key not in pins[beta]:
+                        outside.append(key)
+        assert not outside, f"beta={beta}: cells outside the pin: {outside}"
+        table = generate_total_dividends_table(
+            get_cases(), canonical_versions(),
+            SimulationHyperparameters(bond_penalty=float(beta)),
+        )
+        assert table.to_csv() == text, beta
+        worst = max(
+            abs(table.rows[r - 1][c] - float(full[r][c]))
+            for r in range(1, len(full)) for c in range(1, len(header))
+        )
+        assert worst < 1.5e-6, f"beta={beta}: |total - golden| {worst}"
+        rec[beta] = dict(seconds=sec, cells_differing=differ, pinned=len(pins[beta]),
+                         worst_abs=worst)
+    report["cli"] = rec
+    print(f"CLI ok: four sheets on the card, every differing cell pinned, full precision "
+          f"within 1.5e-6; per sheet {rec}; launches {counts}", flush=True)
+
+
+def sweep_phase(torch, dev, W_np, S_np, quiet_miner, launches, report):
+    """The grid sweeps at full width: an 8-point config_grid (bond_alpha x
+    kappa) over the 256 x 4096 x 64 workload through sweep_hyperparams
+    (K3: Yuma 1, and Yuma 3.1 with its reset) and over its first epoch's
+    weights x 64 scales through sweep_scaled_fused (K5). Each lane is held
+    bitwise against the same point run alone with a scalar config
+    (simulate_batch of one scenario, simulate_scaled)."""
+    from yuma_simulation_tpu_torch.models.config import (
+        SimulationHyperparameters,
+        YumaConfig,
+        YumaParams,
+    )
+    from yuma_simulation_tpu_torch.models.variants import variant_for_version
+    from yuma_simulation_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from yuma_simulation_tpu_torch.scenarios.base import Scenario
+    from yuma_simulation_tpu_torch.simulation.engine import simulate_scaled
+    from yuma_simulation_tpu_torch.simulation.sweep import (
+        config_grid,
+        simulate_batch,
+        stack_scenarios,
+        sweep_hyperparams,
+        sweep_scaled_fused,
+    )
+
+    cfgs, points = config_grid(bond_alpha=[0.025, 0.05, 0.1, 0.2], kappa=[0.5, 0.6])
+    G = len(points)
+
+    def point_config(p):
+        return YumaConfig(simulation=SimulationHyperparameters(kappa=p["kappa"]),
+                          yuma_params=YumaParams(bond_alpha=p["bond_alpha"]))
+
+    def timed(fn, counter):
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        assert counts[counter] == 1, counts
+        launches[counter] = launches.get(counter, 0) + counts[counter]
+        return out, seconds
+
+    scenario = Scenario(
+        name="synthetic 256x4096", validators=[f"v{i}" for i in range(V)],
+        base_validator="v0", weights=W_np, stakes=S_np, num_epochs=E,
+        reset_bonds_index=quiet_miner, reset_bonds_epoch=E // 2,
+    )
+    W1, S1, ri, re_ = stack_scenarios([scenario])
+    rec = {}
+    for version in ("Yuma 1 (paper)", "Yuma 3.1 (Rhef+reset)"):
+        spec = variant_for_version(version)
+        grid, seconds = timed(
+            lambda: sweep_hyperparams(scenario, version, cfgs, save_bonds=True), "varying_scan")
+        for i, p in enumerate(points):
+            solo = simulate_batch(W1, S1, ri, re_, point_config(p), spec, save_bonds=True)
+            for key in ("dividends", "bonds"):
+                check_equal(f"sweep_hyperparams {version} lane {i} {key} vs solo",
+                            grid[key][i], solo[key][0])
+        assert torch.isfinite(grid["dividends"]).all(), version
+        rec[version] = dict(lanes=G, epochs=E, seconds=seconds,
+                            scenario_epochs_per_s=G * E / seconds)
+        print(f"sweep_hyperparams ok: {version}, {G} lanes x [{E}, {V}, {M}] on K3, each "
+              f"lane bitwise its solo run; {G * E / seconds:.1f} scenario-epochs/s", flush=True)
+        del grid
+    W0, S0 = W1[0, 0].contiguous(), S1[0, 0].contiguous()
+    scales = (1.0 + 1e-7 * torch.arange(E, dtype=torch.float32, device=dev)).contiguous()
+    (tot, bonds), seconds = timed(
+        lambda: sweep_scaled_fused(W0, S0, scales, cfgs, "Yuma 1 (paper)"), "ema_scan")
+    spec = variant_for_version("Yuma 1 (paper)")
+    for i, p in enumerate(points):
+        t1, b1 = simulate_scaled(W0, S0, scales, point_config(p), spec)
+        check_equal(f"sweep_scaled_fused lane {i} totals vs solo", tot[i], t1)
+        check_equal(f"sweep_scaled_fused lane {i} bonds vs solo", bonds[i], b1)
+    rec["sweep_scaled_fused"] = dict(lanes=G, epochs=E, seconds=seconds,
+                                     scenario_epochs_per_s=G * E / seconds)
+    report["sweeps"] = rec
+    print(f"sweep_scaled_fused ok: {G} lanes x {E} epochs of [{V}, {M}] on K5, each lane "
+          f"bitwise its solo run; {G * E / seconds:.1f} scenario-epochs/s", flush=True)
 
 
 def scaled_phases(torch, dev, measured, launches, report):
@@ -610,6 +821,8 @@ def main() -> int:
     report["build_s"] = time.perf_counter() - t0
     print(f"built {_build.SOURCES} in {report['build_s']:.1f} s", flush=True)
 
+    fma_phase(torch, dev, report)
+
     t0 = time.perf_counter()
     W_np, S_np, quiet_miner = workload(seed=0, E=E)
     print(f"workload [{E}, {V}, {M}] made in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -620,9 +833,12 @@ def main() -> int:
     # slab and at 16; event and device times.
     k1 = bisect_phase(torch, W, S, mma=False)
 
-    # ---- K2 / K3 vs their plain versions, one run per bond model.
+    # ---- K2 / K3 vs their plain versions, one run per bond model over all
+    # E epochs with a reset at E // 2. Each plain call is timed once (CUDA
+    # events): its result is the one the kernels are held to.
     tile = 16
     errs = {"case_scan": 0.0, "varying_scan": 0.0}
+    plain_times = {"case_scan": [], "varying_scan": []}
     for version, params in VERSIONS:
         spec = variant_for_version(version)
         cfg = YumaConfig(yuma_params=YumaParams(**params))
@@ -636,10 +852,11 @@ def main() -> int:
             alpha_high=cfg.alpha_high,
         )
         k2 = fused_case_scan(W, S, **kw)
-        p2 = fused_case_scan_plain(W, S, **kw)
+        p2, ms2 = timed_once(torch, lambda: fused_case_scan_plain(W, S, **kw))
         k3 = fused_varying_scan(W, S, epoch_tile=tile, **kw)
-        p3 = fused_varying_scan_plain(W, S, epoch_tile=tile, **kw)
-        torch.cuda.synchronize()
+        p3, ms3 = timed_once(torch, lambda: fused_varying_scan_plain(W, S, epoch_tile=tile, **kw))
+        plain_times["case_scan"].append(ms2)
+        plain_times["varying_scan"].append(ms3)
         for name, got, ref in (("case_scan", k2, p2), ("varying_scan", k3, p3)):
             check_equal(f"{name} {version} consensus", got["consensus"], ref["consensus"])
             for key in ("dividends_normalized", "bonds", "final_bonds", "incentives"):
@@ -651,19 +868,21 @@ def main() -> int:
             check_equal(f"K3 vs K2 {version} {key}", k3[key], k2[key])
         for key in ("dividends_normalized", "bonds", "final_bonds"):
             check_close(f"K3 vs K2 {version} {key}", k3[key], k2[key], atol=1e-6, rtol=0)
-        print(f"K2/K3 ok: {version}; max |kernel - plain| {errs}", flush=True)
+        print(f"K2/K3 ok: {version}; max |kernel - plain| {errs}; plain ms "
+              f"{ms2:.1f} / {ms3:.1f}", flush=True)
         del k2, p2, k3, p3
 
     time_kw = dict(save_bonds=False, save_incentives=False)
     scans = {}
-    for name, kernel, plain, extra in (
-        ("case_scan", fused_case_scan, fused_case_scan_plain, {}),
-        ("varying_scan", fused_varying_scan, fused_varying_scan_plain, {"epoch_tile": tile}),
+    for name, kernel, extra in (
+        ("case_scan", fused_case_scan, {}),
+        ("varying_scan", fused_varying_scan, {"epoch_tile": tile}),
     ):
         rec = dict(
             max_abs_err=errs[name],
             ms=cuda_ms(torch, lambda: kernel(W, S, **extra, **time_kw), 20),
-            plain_ms=cuda_ms(torch, lambda: plain(W, S, **extra, **time_kw), 1),
+            # The mean of the checked plain calls (with their saves and reset).
+            plain_ms=sum(plain_times[name]) / len(plain_times[name]),
         )
         rec["bound_ms"], rec["bound_by"] = bound_ms(
             4 * (E * V * M + 2 * E * V + V * M), E * 17 * 2 * V * M
@@ -759,6 +978,10 @@ def main() -> int:
     print(f"golden surface ok: 14 cases x 9 versions, worst |total - golden| {worst:.3g}; "
           f"launches {counts}", flush=True)
 
+    # ---- The artifact CLI and the grid sweeps.
+    cli_phase(torch, launches, report)
+    sweep_phase(torch, dev, W_np, S_np, quiet_miner, launches, report)
+
     # ---- K4, K5, K6 and the scaled throughput path.
     measured = {"consensus_bisect": k1, **scans}
     k4_phase(torch, dev, W, S, measured, errs)
@@ -803,6 +1026,8 @@ def main() -> int:
     print(json.dumps({"phases": report["phases"]}))
     print(json.dumps({"host_ms": report["host_ms"]}))
     print(json.dumps({"bisect": report["bisect"]}))
+    print(json.dumps({"cli": report["cli"], "sweeps": report["sweeps"],
+                      "fma_helper": report["fma_helper"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,11 @@ all at chip_smoke.py's 256 x 4096 (Yuma 1, save flags off, 64 epochs):
   of the tile choice);
 - `fused_epochs_per_s`: `simulate_scaled(epoch_impl="fused")` over 16
   epochs (K6 once an epoch), host clock, synchronized, best of 5;
+- `constant_s`: seconds of `simulate_constant` (the eager rung, no
+  kernel) over 64 epochs of the first epoch's weights, in full and
+  hoisted, host clock, synchronized, best of 3;
+- `plain_ms`: CUDA-event ms of one call of the plain versions of K2 and
+  K3 (after one warm-up call);
 - `phases`: device ms per phase kernel (torch.profiler) over one call of
   K2, K2 with liquid alpha, K3, K5, and the fused rung's 16 epochs.
 
@@ -53,11 +58,13 @@ def one(root: str) -> dict:
     from yuma_simulation_tpu_torch.ops import _build
     from yuma_simulation_tpu_torch.ops.cuda_epoch import (
         fused_case_scan,
+        fused_case_scan_plain,
         fused_ema_epoch,
         fused_ema_scan,
         fused_varying_scan,
+        fused_varying_scan_plain,
     )
-    from yuma_simulation_tpu_torch.simulation.engine import simulate_scaled
+    from yuma_simulation_tpu_torch.simulation.engine import simulate_constant, simulate_scaled
 
     assert _build.CSRC.is_relative_to(root), (_build.CSRC, root)
     smi = subprocess.run(
@@ -101,17 +108,32 @@ def one(root: str) -> dict:
         torch.cuda.mem_get_info(dev)
     host["mem_get_info"] = (time.perf_counter() - t0) / 20 * 1e3
 
+    def best_s(fn, n):
+        """Best host seconds of `n` synchronized calls, after one more."""
+        fn()
+        best = float("inf")
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return best
+
     def fused():
         out = simulate_scaled(W1, S1, sc[:16], config, spec, epoch_impl="fused")
         torch.cuda.synchronize()
         return out
 
-    fused()
-    best = float("inf")
-    for _ in range(5):
-        t0 = time.perf_counter()
-        fused()
-        best = min(best, time.perf_counter() - t0)
+    best = best_s(fused, 5)
+    constant_s = {
+        name: best_s(lambda: simulate_constant(W1, S1, cs.E, config, spec,
+                                               hoist_invariant=hoist), 3)
+        for name, hoist in (("full", False), ("hoisted", True))
+    }
+    plain_ms = {name: cs.cuda_ms(torch, fn, 1) for name, fn in (
+        ("case_scan", lambda: fused_case_scan_plain(W, S, **quiet)),
+        ("varying_scan", lambda: fused_varying_scan_plain(W, S, epoch_tile=16, **quiet)),
+    )}
     os.makedirs(cs.OUT_DIR, exist_ok=True)
     phases = cs.phase_profile(torch, smi, (
         ("case_scan", runs["case_scan"]),
@@ -121,7 +143,7 @@ def one(root: str) -> dict:
         ("ema_epoch_x16", fused),
     ))
     return dict(tree=root, card=smi, ms=ms, host_ms=host, fused_epochs_per_s=16 / best,
-                phases=phases)
+                constant_s=constant_s, plain_ms=plain_ms, phases=phases)
 
 
 def main() -> int:

@@ -721,3 +721,138 @@ def test_scaled_kernels_refuse_what_they_do_not_take(cuda):
         fused_ema_epoch(W, S_n, B0, m_real=W.shape[1] + 1)
     with pytest.raises(ValueError, match="float32"):
         fused_ema_scan(W.double(), S_n.double(), scales)
+
+
+# ---------------------------------------------------------------------------
+# Per-scenario hyperparameter tables, the exact multiply-add, the CLI.
+
+GRID = dict(kappa=[0.5, 0.6], bond_alpha=[0.025, 0.1], bond_penalty=[0.5, 1.0])
+GRID_VERSIONS = [
+    ("Yuma 0 (subtensor)", {}),
+    ("Yuma 1 (paper) - liquid alpha on", dict(liquid_alpha=True)),
+    ("Yuma 2 (Adrian-Fish)", {}),
+    ("Yuma 3.1 (Rhef+reset)", {}),
+    ("Yuma 4 (Rhef+relative bonds)", {}),
+]
+
+
+def _grid_rows(params):
+    """The 8 points of GRID as per-scenario hyperparameter vectors (the
+    wrappers' `[B, 9]` table) and as one scalar set per point."""
+    import itertools
+
+    points = [dict(zip(GRID, combo)) for combo in itertools.product(*GRID.values())]
+    base = fused_hparams(YumaConfig(yuma_params=YumaParams(**params)))
+    table = dict(base, **{k: torch.tensor([p[k] for p in points], dtype=torch.float32)
+                          for k in GRID})
+    return table, [dict(base, **p) for p in points]
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K3", "K5"])
+@pytest.mark.parametrize("version,params", GRID_VERSIONS, ids=[v for v, _ in GRID_VERSIONS])
+def test_hp_table_lanes_bitwise_solo(cuda, kernel, version, params):
+    """A `[B, 9]` hyperparameter table through K2, K3 and K5: every lane
+    bitwise the same scenario run alone with scalar hyperparameters (the
+    row passed by value)."""
+    spec = variant_for_version(version)
+    table, points = _grid_rows(params)
+    G = len(points)
+    W, S = _suite(40, 300, seed=3, E=10)
+    W, S = W[:1], S[:1]
+    x64 = spec.bonds_mode is BondsMode.EMA_RUST
+    if kernel == "K5":
+        Wg, Sg = W[:, 0].to(cuda), (S[:, 0] / S[:, 0].sum(-1, keepdim=True)).to(cuda)
+        scales = (1.0 + 1e-4 * torch.arange(10, dtype=torch.float32)).to(cuda)
+
+        def run(Wx, Sx, hp):
+            return fused_ema_scan(Wx, Sx, scales, mode=spec.bonds_mode, x64=x64, **hp)
+
+        grid = run(Wg.expand(G, -1, -1).contiguous(), Sg.expand(G, -1).contiguous(), table)
+        for i, hp in enumerate(points):
+            solo = run(Wg[0], Sg[0], hp)
+            for g, s in zip(grid, solo):
+                torch.testing.assert_close(g[i], s, rtol=0, atol=0)
+        return
+    scan = fused_case_scan if kernel == "K2" else fused_varying_scan
+    kw = dict(reset_mode=spec.reset_mode, reset_index=3, reset_epoch=5, mode=spec.bonds_mode,
+              x64=x64, save_bonds=True, save_incentives=True, save_consensus=True)
+    Wc, Sc = W.to(cuda), S.to(cuda)
+    grid = scan(Wc.expand(G, -1, -1, -1).contiguous(), Sc.expand(G, -1, -1).contiguous(),
+                **kw, **table)
+    for i, hp in enumerate(points):
+        solo = scan(Wc, Sc, **kw, **hp)
+        for key, value in solo.items():
+            torch.testing.assert_close(grid[key][i], value[0], rtol=0, atol=0,
+                                       msg=lambda m: f"{kernel} lane {i} {key}: {m}")
+
+
+@pytest.mark.parametrize("mode", ["EMA", "EMA_RUST", "EMA_PREV"])
+def test_k6_hp_table_bitwise_by_value(cuda, mode):
+    """K6 with its hyperparameters as one-row tensors (the `[1, 9]` table
+    path) bitwise the same call with Python numbers (the row by value)."""
+    bonds_mode = BondsMode[mode]
+    W, S = _suite(40, 300, seed=4, E=2)
+    W1 = W[0, 0].to(cuda)
+    S_n = (S[0, 0] / S[0, 0].sum()).to(cuda)
+    B_old = (W[0, 1] * 1e-3).to(cuda)
+    clip = (W[0, 1] / W[0, 1].sum(-1, keepdim=True)).to(cuda) if mode == "EMA_PREV" else None
+    scalars = dict(kappa=0.6, bond_penalty=0.5, bond_alpha=0.05)
+    tensors = {k: torch.tensor([v], dtype=torch.float32) for k, v in scalars.items()}
+    for first in (True, False):
+        kw = dict(mode=bonds_mode, first_epoch=first, clip_base=clip,
+                  x64=bonds_mode is BondsMode.EMA_RUST)
+        a = fused_ema_epoch(W1, S_n, B_old, **kw, **scalars)
+        b = fused_ema_epoch(W1, S_n, B_old, **kw, **tensors)
+        for x, y in zip(a, b):
+            torch.testing.assert_close(y, x, rtol=0, atol=0)
+
+
+def test_fma_helper_matches_fmaf_rn(cuda):
+    """ops/fma.py::fma on CUDA and CPU tensors bitwise `__fmaf_rn` on the
+    card: random triples, and triples next to float32 halfway points
+    (where two roundings differ from one)."""
+    from yuma_simulation_tpu_torch.ops.fma import fma, fmaf_cuda
+
+    rng = np.random.default_rng(0)
+    n = 1 << 16
+    i = rng.integers(1, 1 << 12, n)
+    sign = np.where(rng.random(n) < 0.5, 1.0, -1.0)
+    for a, b, c in (
+        (rng.standard_normal(n) * 2.0 ** rng.integers(-40, 40, n),
+         rng.standard_normal(n), rng.standard_normal(n) * 2.0 ** rng.integers(-60, 60, n)),
+        (sign * (1 + i * 2.0**-23), 2.0**-24 * (1 - i * 2.0**-23),
+         sign * (1 + rng.integers(0, 1 << 23, n) * 2.0**-23)),
+    ):
+        a, b, c = (torch.tensor(x.astype(np.float32)) for x in (a, b, c))
+        ref = fmaf_cuda(a.to(cuda), b.to(cuda), c.to(cuda))
+        torch.testing.assert_close(fma(a.to(cuda), b.to(cuda), c.to(cuda)), ref, rtol=0, atol=0)
+        torch.testing.assert_close(fma(a, b, c), ref.cpu(), rtol=0, atol=0)
+
+
+def test_cli_sheets_on_card(cuda, tmp_path):
+    """The CLI's four sheets on the card (auto runs K3): header bytes and
+    case names the goldens', every differing rendered cell pinned in
+    tests/golden/csv_diff_cells.json."""
+    import csv
+    import json
+    import pathlib
+
+    from yuma_simulation_tpu_torch.cli.total_dividends_sheet_generator import main
+
+    golden = pathlib.Path(__file__).resolve().parent / "golden"
+    pins = json.loads((golden / "csv_diff_cells.json").read_text())
+    reset_launch_counts()
+    seconds = main(["--out-dir", str(tmp_path)])
+    assert launch_counts()["varying_scan"] == 36
+    for beta in seconds:
+        text = (tmp_path / f"total_dividends_b{beta}.csv").read_bytes().decode()
+        ref = (golden / f"total_dividends_b{beta}.csv").read_bytes().decode()
+        assert "\r" not in text and text.splitlines()[0] == ref.splitlines()[0]
+        mine, gold = list(csv.reader(text.splitlines())), list(csv.reader(ref.splitlines()))
+        outside = [
+            f"{mine[r][0]}|{mine[0][c]}|{mine[r][c]}|{gold[r][c]}"
+            for r in range(1, len(mine)) for c in range(1, len(mine[0]))
+            if mine[r][c] != gold[r][c]
+            and f"{mine[r][0]}|{mine[0][c]}|{mine[r][c]}|{gold[r][c]}" not in pins[beta]
+        ]
+        assert not outside, (beta, outside)

@@ -451,8 +451,13 @@ def test_scaled_path_refusals():
         simulate_scaled(W, S, scales, consensus_impl="atuo", epoch_impl="fused_scan")
     with pytest.raises(ValueError, match="unknown epoch_impl"):
         simulate_scaled_batch(W[None], S[None], scales, epoch_impl="fused")
-    grid = YumaConfig(yuma_params=YumaParams(bond_alpha=torch.tensor([0.1, 0.2])))
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    # A config_grid grid runs through the batched entry point, one value
+    # per scenario; a single scenario takes a scalar config.
+    lanes = W_NP.shape[0]
+    grid = YumaConfig(yuma_params=YumaParams(bond_alpha=torch.tensor([0.1] * (lanes + 1))))
+    with pytest.raises(ValueError, match="one value per scenario"):
         simulate_scaled_batch(torch.tensor(W_NP), torch.tensor(S_NP), scales, grid)
+    with pytest.raises(ValueError, match="scalar config"):
+        simulate_scaled(W, S, scales, grid)
     with pytest.raises(ValueError, match="num_epochs >= 1"):
         simulate_constant(W, S, 0, hoist_invariant=True)

@@ -234,3 +234,194 @@ def test_port_and_chip_smoke_import_no_jax_package():
             for name in names:
                 top = name.split(".")[0]
                 assert top not in ("jax", "jaxlib", "yuma_simulation_tpu"), (path, name)
+
+
+# ---------------------------------------------------------------------------
+# C1: the multiply-adds XLA's CPU backend fuses, and the port's exact FMA.
+
+
+def _exact_f32(value):
+    """A `fractions.Fraction` rounded once to the nearest float32 (ties to
+    even), from the float32 neighbours of its float64 rounding."""
+    from fractions import Fraction
+
+    f = np.float32(float(value))
+    cands = (np.nextafter(f, np.float32(-np.inf)), f, np.nextafter(f, np.float32(np.inf)))
+    return min(
+        cands,
+        key=lambda c: (abs(Fraction(float(c)) - value), int(np.float32(c).view(np.int32)) & 1),
+    )
+
+
+def test_fma_rounds_once():
+    """ops/fma.py::fma against exact rational arithmetic rounded once:
+    random float32 triples over wide exponents, triples whose a*b + c
+    lies next to a float32 halfway point (there a float64 sum rounded
+    again to float32 goes the wrong way, which the test also checks
+    happens), and triples whose a*b + c is a float32 subnormal.
+    fma_chain is a left-to-right chain of them."""
+    from fractions import Fraction
+
+    from yuma_simulation_tpu_torch.ops.fma import fma, fma_chain
+
+    rng = np.random.default_rng(0)
+    n = 3000
+    i = rng.integers(1, 1 << 10, n)
+    sign = np.where(rng.random(n) < 0.5, 1.0, -1.0)
+    cases = {
+        "random": (
+            rng.standard_normal(n) * 2.0 ** rng.integers(-30, 30, n),
+            rng.standard_normal(n),
+            rng.standard_normal(n) * 2.0 ** rng.integers(-40, 30, n),
+        ),
+        "halfway": (
+            sign * (1.0 + i * 2.0**-23),
+            2.0**-24 * (1.0 - i * 2.0**-23),
+            sign * (1.0 + rng.integers(0, 1 << 23, n) * 2.0**-23),
+        ),
+        "subnormal": (
+            rng.standard_normal(n) * 2.0**-70,
+            rng.standard_normal(n) * 2.0**-60,
+            rng.standard_normal(n) * 2.0**-131,
+        ),
+    }
+    for name, arrays in cases.items():
+        a, b, c = (x.astype(np.float32) for x in arrays)
+        got = fma(torch.tensor(a), torch.tensor(b), torch.tensor(c)).numpy()
+        want = np.array(
+            [_exact_f32(Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z)))
+             for x, y, z in zip(a, b, c)],
+            np.float32,
+        )
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32), err_msg=name)
+        if name == "halfway":
+            twice = (a.astype(np.float64) * b + c).astype(np.float32)
+            assert (twice.view(np.int32) != want.view(np.int32)).sum() > n // 10
+    x, y = (rng.random((4, 7)).astype(np.float32) for _ in range(2))
+    acc = torch.zeros(4)
+    for k in range(7):
+        acc = fma(torch.tensor(x[:, k]), torch.tensor(y[:, k]), acc)
+    np.testing.assert_array_equal(fma_chain(torch.tensor(x), torch.tensor(y)).numpy(), acc.numpy())
+
+
+@pytest.fixture(scope="module")
+def xla_epochs():
+    """JAX's XLA rung (what `simulate_batch(epoch_impl="auto")` runs on the
+    CPU, the program that rendered the pinned CSVs) over the 14 built-in
+    cases at bond_penalty 0.5: per-epoch dividends, bonds and incentives
+    of each of the 9 versions."""
+    from yuma_simulation_tpu.models.config import SimulationHyperparameters as JSim
+    from yuma_simulation_tpu.models.variants import canonical_versions as j_versions
+    from yuma_simulation_tpu.models.variants import variant_for_version as j_variant
+    from yuma_simulation_tpu.scenarios import get_cases as j_get_cases
+    from yuma_simulation_tpu.simulation.planner import plan_dispatch
+    from yuma_simulation_tpu.simulation.sweep import simulate_batch as j_simulate_batch
+    from yuma_simulation_tpu.simulation.sweep import stack_scenarios as j_stack
+
+    import jax.numpy as jnp
+
+    W, S, ri, re_ = j_stack(j_get_cases())
+    out = []
+    for version, params in j_versions():
+        cfg = JConfig(simulation=JSim(bond_penalty=0.5), yuma_params=params)
+        spec = j_variant(version)
+        plan = plan_dispatch("check", W.shape, spec, cfg, jnp.float32, epoch_impl="auto",
+                             check_memory=False)
+        assert plan.engine == "xla", plan.engine
+        ys = j_simulate_batch(W, S, ri, re_, cfg, spec, save_bonds=True,
+                              save_incentives=True, epoch_impl="auto")
+        out.append({k: np.asarray(ys[k]) for k in ("dividends", "bonds", "incentives")})
+    return out
+
+
+@pytest.mark.parametrize("epoch_impl", ["auto", "fused_varying"])
+@pytest.mark.parametrize("index", range(9), ids=[v for v, _ in canonical_versions()])
+def test_epochs_bitwise_jax_xla_rung(xla_epochs, index, epoch_impl):
+    """Fault C1 closed: on the 14 built-in cases, per-epoch dividends,
+    bonds and incentives of the eager rung (auto on the CPU) and of the
+    varying scan's plain version are bitwise JAX's XLA rung, every
+    version, with the multiply-adds XLA fuses spelled as exact FMAs."""
+    version, params = canonical_versions()[index]
+    cfg = YumaConfig(simulation=SimulationHyperparameters(bond_penalty=0.5),
+                     yuma_params=params)
+    W, S, ri, re_ = stack_scenarios(get_cases(), device="cpu")
+    ys = simulate_batch(W, S, ri, re_, cfg, variant_for_version(version), save_bonds=True,
+                        save_incentives=True, epoch_impl=epoch_impl, x64=True)
+    for key, ref in xla_epochs[index].items():
+        np.testing.assert_array_equal(ys[key].numpy(), ref, err_msg=f"{version} {key}")
+
+
+def _random_batch(B=3, E=6, V=5, M=8, seed=5008):
+    """A random `[B, E, V, M]` suite with resets, as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    W = rng.random((B, E, V, M)).astype(np.float32)
+    W[W < 0.3] = 0.0
+    S = (rng.random((B, E, V)) + 0.01).astype(np.float32)
+    return W, S, np.array([0, 1, 2], np.int32), np.array([3, 5, 100], np.int32)
+
+
+@pytest.fixture(scope="module")
+def xla_random_epochs():
+    """JAX's XLA rung on `_random_batch()` (odd V = 5, M = 8: inside
+    ops/normalize.py::xla_chains) at bond_penalty 0.5: per-epoch
+    dividends, bonds and incentives of each of the 9 versions."""
+    from yuma_simulation_tpu.models.config import SimulationHyperparameters as JSim
+    from yuma_simulation_tpu.models.variants import canonical_versions as j_versions
+    from yuma_simulation_tpu.models.variants import variant_for_version as j_variant
+    from yuma_simulation_tpu.simulation.sweep import simulate_batch as j_simulate_batch
+
+    import jax.numpy as jnp
+
+    arrays = [jnp.asarray(x) for x in _random_batch()]
+    out = []
+    for version, params in j_versions():
+        ys = j_simulate_batch(
+            *arrays, JConfig(simulation=JSim(bond_penalty=0.5), yuma_params=params),
+            j_variant(version), save_bonds=True, save_incentives=True, epoch_impl="auto",
+        )
+        out.append({k: np.asarray(ys[k]) for k in ("dividends", "bonds", "incentives")})
+    return out
+
+
+@pytest.mark.parametrize("index", range(9), ids=[v for v, _ in canonical_versions()])
+def test_dividend_chains_bitwise_jax_xla_rung(xla_random_epochs, index):
+    """The dividend chains past the built-in cases: from the bonds and
+    incentives JAX's XLA rung saves on a random [5, 8] suite, the port's
+    `dividends` (each product fused into its miner chain, the total one
+    chain over every (validator, miner) product, Yuma 4's a chain of
+    S_n * D) gives that rung's per-epoch dividends bitwise."""
+    from yuma_simulation_tpu_torch.models.epoch import dividends
+    from yuma_simulation_tpu_torch.ops.normalize import normalize_stake
+    from yuma_simulation_tpu_torch.simulation.engine import _dividends_per_1k
+
+    ref = xla_random_epochs[index]
+    version = canonical_versions()[index][0]
+    St = torch.tensor(_random_batch()[1])
+    rel = variant_for_version(version).bonds_mode.value == "relative"
+    D, D_tot = dividends(torch.tensor(ref["bonds"]), torch.tensor(ref["incentives"]),
+                         normalize_stake(St) if rel else None)
+    cfg = YumaConfig(simulation=SimulationHyperparameters(bond_penalty=0.5))
+    got = _dividends_per_1k(D / (D_tot + 1e-6), St, cfg)
+    np.testing.assert_array_equal(got.numpy(), ref["dividends"], err_msg=version)
+
+
+#: The versions whose eager runs of `_random_batch()` are bitwise JAX's XLA
+#: rung; the two with liquid alpha are not yet (ROADMAP §C, C2).
+RANDOM_BITWISE = [0, 1, 3, 4, 5, 6, 7]
+
+
+@pytest.mark.parametrize("index", RANDOM_BITWISE,
+                         ids=[canonical_versions()[i][0] for i in RANDOM_BITWISE])
+def test_random_epochs_bitwise_jax_xla_rung(xla_random_epochs, index):
+    """Inside ops/normalize.py::xla_chains on random data: the eager
+    rung's per-epoch dividends, bonds and incentives of a random [5, 8]
+    suite with resets are bitwise JAX's XLA rung (its reduces of products
+    spelled as XLA's FMA chains, the rank's column sum among them)."""
+    version, params = canonical_versions()[index]
+    cfg = YumaConfig(simulation=SimulationHyperparameters(bond_penalty=0.5),
+                     yuma_params=params)
+    ys = simulate_batch(*(torch.tensor(x) for x in _random_batch()), cfg,
+                        variant_for_version(version), save_bonds=True, save_incentives=True,
+                        epoch_impl="eager", x64=True)
+    for key, ref in xla_random_epochs[index].items():
+        np.testing.assert_array_equal(ys[key].numpy(), ref, err_msg=f"{version} {key}")

@@ -1,0 +1,65 @@
+"""Generate the per-beta total-dividends CSV sheets.
+
+The port's counterpart of the JAX package's
+`cli/total_dividends_sheet_generator.py` (reference
+scripts/total_dividends_sheet_generator.py:12-66): the same file names
+(`total_dividends_b{beta}.csv`), the same `%.6f` rendering and the same NaN
+check, each version's 14-case suite simulated as one batched call, on the
+card unless `--device cpu` is given:
+
+    python -m yuma_simulation_tpu_torch.cli.total_dividends_sheet_generator \
+        [--bond-penalty 0 0.5 0.99 1.0] [--out-dir DIR] [--device cuda|cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import pathlib
+import time
+
+from yuma_simulation_tpu_torch.models.config import SimulationHyperparameters
+from yuma_simulation_tpu_torch.models.variants import canonical_versions
+from yuma_simulation_tpu_torch.reporting.tables import generate_total_dividends_table
+from yuma_simulation_tpu_torch.scenarios import get_cases
+from yuma_simulation_tpu_torch.simulation.engine import resolve_device
+
+
+def main(argv: list[str] | None = None) -> dict[str, float]:
+    """Write one sheet per `--bond-penalty` value, each as it completes.
+    Returns the wall seconds each sheet took, by value."""
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--bond-penalty",
+        nargs="+",
+        default=["0", "0.5", "0.99", "1.0"],
+        help="bond_penalty sweep values; kept as strings so output file "
+        "names match the reference's (b0, b0.5, b0.99, b1.0)",
+    )
+    parser.add_argument("--out-dir", type=pathlib.Path, default=pathlib.Path("."))
+    parser.add_argument(
+        "--device",
+        default="cuda",
+        help="the device to simulate on (default: the card; without CUDA "
+        "this raises: pass --device cpu to run on the CPU)",
+    )
+    args = parser.parse_args(argv)
+    device = resolve_device(args.device)
+    cases = get_cases()
+    args.out_dir.mkdir(parents=True, exist_ok=True)
+    seconds = {}
+    for bond_penalty in args.bond_penalty:
+        print(f"Generating total dividends sheet for bond_penalty={bond_penalty}")
+        t0 = time.perf_counter()
+        hp = SimulationHyperparameters(bond_penalty=float(bond_penalty))
+        table = generate_total_dividends_table(cases, canonical_versions(), hp, device=device)
+        if table.has_nan():
+            print("Warning: NaN values detected in the dividends table.")
+        file_name = args.out_dir / f"total_dividends_b{bond_penalty}.csv"
+        file_name.write_bytes(table.to_csv(float_format="%.6f").encode())
+        seconds[bond_penalty] = time.perf_counter() - t0
+        print(f"CSV saved to {file_name} ({seconds[bond_penalty]:.3f} s)")
+    return seconds
+
+
+if __name__ == "__main__":
+    main()

@@ -40,3 +40,20 @@ extern "C" int yuma_bisect(const float* wn, const float* sn, float kappa,
   a.iters = iters;
   return (int)yuma::launch_bisect(a, static_cast<cudaStream_t>(stream), mma);
 }
+
+// out[i] = fmaf(a[i], b[i], c[i]), rounded once (__fmaf_rn): the card's
+// multiply-add that ops/fma.py::fma reproduces on any device, and the
+// yardstick it is held to.
+__global__ void k_fmaf(const float* a, const float* b, const float* c, float* out,
+                       long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = __fmaf_rn(a[i], b[i], c[i]);
+}
+
+extern "C" int yuma_fmaf(const float* a, const float* b, const float* c, float* out,
+                         long long n, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  k_fmaf<<<(unsigned)((n + 255) / 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, b, c, out, n);
+  return (int)cudaGetLastError();
+}

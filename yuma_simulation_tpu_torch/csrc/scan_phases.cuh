@@ -196,6 +196,7 @@ struct ScanArgs {
   float* rden;           // [T, B, V] scratch: row denominators
   float* pden;           // [B, V] scratch: recomputed previous row denominators
   int* ticket;           // [B, groups + 1] scratch: phase 8's tickets (run_scan zeroes)
+  float* dtot;           // [2, B] scratch: one bond tile's fused dividend total (by parity)
   const float* scales;   // [E] per-epoch weight scale or null
   float* dacc;           // [B, V] sum over epochs of D_n (seeded 0) or null
   void* stream;
@@ -564,11 +565,22 @@ constexpr int kBondProd = kBondWarps * kBondCache * (kBondTM + 1);
 struct BondShared {
   float col[kBondWarps][kBondTM];  // per-warp column partials
   union {
-    float prod[kBondWarps][kBondCache][kBondTM + 1];  // B_next * incentive
+    float prod[kBondWarps][kBondCache][kBondTM + 1];  // B_next, for the partials
     float dv[kBondProd];                              // phase 8: D[v], V <= kBondProd
   };
   int last;                        // this block took its group's / scenario's last ticket
+  float den;                       // phase 8: the dividend total, summed by one thread
 };
+
+// Whether the epoch's dividend total is one chain of FMAs, as the XLA rung
+// compiles it where the port follows its chains (ops/normalize.py::
+// xla_chains: at most 16 validators, fewer than 16 miners, so one bond
+// tile): Yuma 4's of S_n[v] * D[v] over validators, the others' over every
+// (validator, miner) product, which phase 7 chains into `a.dtot`. Wider
+// epochs take a block sum, and the serial chains stay at most 240 FMAs.
+__device__ __forceinline__ bool xla_chains(const ScanArgs& a) {
+  return a.V <= 16 && a.M < 16;
+}
 
 // Sum over the block's warps of one partial per (warp, column), added in
 // warp order; every thread must call it.
@@ -647,14 +659,14 @@ __device__ __forceinline__ bool bond_tile(const ScanArgs& a, const float* bin, i
   auto target = [&](int v, float x) {
     const float wc = min_nan(x, c);
     if (MODE == EMA_RUST) return sn[v] * wc;
-    return sn[v] * (omb * x + beta * wc);
+    return sn[v] * __fmaf_rn(omb, x, beta * wc);  // XLA contracts omb * x
   };
   auto direct = [&](int v, float x, float old) {  // CAPACITY, RELATIVE
     if (MODE == CAPACITY) {
       const float cap = sn[v] * kMaxInt;
       const float remaining = max_nan(cap - old, 0.0f);
       const float purchase = min_nan(cap_alpha * cap, remaining) * x;
-      return min_nan(omd * old + purchase, cap);
+      return min_nan(__fmaf_rn(omd, old, purchase), cap);  // as XLA contracts it
     }
     const float dec = old * keep;
     const float remaining = max_nan(1.0f - dec, 0.0f);
@@ -675,7 +687,8 @@ __device__ __forceinline__ bool bond_tile(const ScanArgs& a, const float* bin, i
   float den = 0.0f, den2 = 0.0f;
   auto next = [&](float tg, float old) {
     const float bt = nan_to_num(tg / den);
-    const float ema = rate * bt + keep * old;
+    // XLA's CPU backend contracts keep * old into the add (ops/fma.py).
+    const float ema = __fmaf_rn(keep, old, rate * bt);
     return first ? bt : ema;  // a select, never a blend
   };
   if (kEma) {
@@ -722,7 +735,8 @@ __device__ __forceinline__ bool bond_tile(const ScanArgs& a, const float* bin, i
   };
 
   // The dividend partials, kBondCache validators at a time: lane j of the
-  // warp adds validator j's kBondTM products in miner order. Then each bond
+  // warp adds validator j's kBondTM products in miner order, each fused
+  // into the sum (fmaf, as XLA's reduce of B * incentive). Then each bond
   // is written once (and its saved copy): the register-cached ones after
   // the block has published its partials and taken its ticket, so the
   // ticket waits for the partials alone, not for the bond stores.
@@ -735,21 +749,23 @@ __device__ __forceinline__ bool bond_tile(const ScanArgs& a, const float* bin, i
       if (bout) bout[o] = bn;
     }
   };
+  const float incl = live ? inc : 0.0f;
   auto flush = [&](int i0, int cnt) {
     __syncwarp();
-    if (lane < cnt) {
-      float d = 0.0f;
+    const float* row = prod[lane < cnt ? lane : 0];  // every lane shuffles
+    float d = 0.0f;
 #pragma unroll
-      for (int k = 0; k < kBondTM; ++k) d += prod[lane][k];
-      dp[i0 + lane] = d;
+    for (int k = 0; k < kBondTM; ++k) {
+      d = __fmaf_rn(row[k], __shfl_sync(0xffffffffu, incl, k), d);
     }
+    if (lane < cnt) dp[i0 + lane] = d;
     __syncwarp();
   };
 #pragma unroll
   for (int i = 0; i < kBondCache; ++i) {
     if (i < n) {
       xr[i] = finish(xr[i]);
-      prod[i][lane] = live ? xr[i] * inc : 0.0f;
+      prod[i][lane] = live ? xr[i] : 0.0f;
     }
   }
   flush(0, min(n, kBondCache));
@@ -758,7 +774,7 @@ __device__ __forceinline__ bool bond_tile(const ScanArgs& a, const float* bin, i
     for (int j = 0; j < cnt; ++j) {
       const float bn = tail(i0 + j);
       store(i0 + j, bn);
-      prod[j][lane] = live ? bn * inc : 0.0f;
+      prod[j][lane] = live ? bn : 0.0f;
     }
     flush(i0, cnt);
   }
@@ -768,6 +784,20 @@ __device__ __forceinline__ bool bond_tile(const ScanArgs& a, const float* bin, i
 #pragma unroll
   for (int i = 0; i < kBondCache; ++i) {
     if (i < n) store(i, xr[i]);
+  }
+  // The dividend total as one chain of FMAs over (validator, miner), from
+  // the bonds this block just stored (xla_chains).
+  if (xla_chains(a) && a.mode != RELATIVE) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const float* bb = a.bonds + (size_t)b * vm;
+      const float* ii = a.inc + (size_t)s * M;
+      float acc = 0.0f;
+      for (int v = 0; v < V; ++v) {
+        for (int k = 0; k < M; ++k) acc = __fmaf_rn(bb[(size_t)v * M + k], ii[k], acc);
+      }
+      a.dtot[(size_t)(t & 1) * a.B + b] = acc;
+    }
   }
   return last;
 }
@@ -810,21 +840,38 @@ __device__ __forceinline__ float group_sum(const float* dp, int V, int v, int g,
 
 // D_n of scenario b = blockIdx.y at slot t / epoch e from each validator's
 // D before the stake factor, dof(v). Every thread of the block calls it.
+// The total: where xla_chains, Yuma 4's is a chain of FMAs of S_n[v] * D[v]
+// in validator order and the others' is phase 7's; else a block sum.
 template <class DOf>
 __device__ __forceinline__ void normalize_dividends(const ScanArgs& a, int t, int e,
                                                     BondShared& sh, DOf dof) {
   const int b = blockIdx.y, s = t * a.B + b, V = a.V;
+  const bool rel = a.mode == RELATIVE;
+  const float* sn = a.sn + (size_t)s * V;
   float* d = V <= kBondProd ? sh.dv : a.dsum + (size_t)b * V;
   float acc = 0.0f;
   for (int v = threadIdx.x; v < V; v += blockDim.x) {
-    float x = dof(v);
-    if (a.mode == RELATIVE) x = a.sn[(size_t)s * V + v] * x;
+    const float x = dof(v);
     d[v] = x;
-    acc += x;
+    acc += rel ? sn[v] * x : x;
   }
-  const float den = yuma::block_sum(acc) + 1e-6f;
+  float den;
+  if (!xla_chains(a)) {
+    den = yuma::block_sum(acc) + 1e-6f;
+  } else if (rel) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float tot = 0.0f;
+      for (int v = 0; v < V; ++v) tot = __fmaf_rn(sn[v], d[v], tot);
+      sh.den = tot;
+    }
+    __syncthreads();
+    den = sh.den + 1e-6f;
+  } else {
+    den = __ldcg(a.dtot + (size_t)(t & 1) * a.B + b) + 1e-6f;
+  }
   for (int v = threadIdx.x; v < V; v += blockDim.x) {
-    const float x = d[v] / den;
+    const float x = (rel ? sn[v] * d[v] : d[v]) / den;
     if (a.dn) a.dn[((size_t)b * a.E + e) * V + v] = x;
     if (a.dacc) a.dacc[(size_t)b * V + v] += x;
   }

@@ -32,11 +32,15 @@ from yuma_simulation_tpu_torch.ops.consensus import (
     stake_weighted_median,
     stake_weighted_median_sorted,
 )
+from yuma_simulation_tpu_torch.ops.fma import fma, fma_chain
 from yuma_simulation_tpu_torch.ops.liquid import liquid_alpha_rate
 from yuma_simulation_tpu_torch.ops.normalize import (
     miner_sum,
     normalize_stake,
     normalize_weight_rows,
+    sequential_sum,
+    validator_dot,
+    xla_chains,
 )
 
 MAXINT = float(2**64 - 1)
@@ -55,10 +59,12 @@ class BondsMode(enum.Enum):
 EMA_MODES = (BondsMode.EMA_RUST, BondsMode.EMA, BondsMode.EMA_PREV)
 
 
-def _scalar(x, like: torch.Tensor) -> torch.Tensor:
-    """A config value (Python float or 0-d tensor) as a 0-d tensor of
-    `like`'s dtype and device."""
-    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+def config_value(x, like: torch.Tensor) -> torch.Tensor:
+    """A config value as a tensor of `like`'s dtype and device that
+    broadcasts against it: 0-d, or a `[B]` field of a config grid (one
+    value per scenario of the leading batch axis) as `[B, 1, ...]`."""
+    t = torch.as_tensor(x, dtype=like.dtype, device=like.device)
+    return t.reshape(t.shape + (1,) * (like.ndim - 1)) if t.ndim else t
 
 
 def _per_lane(x, like: torch.Tensor) -> torch.Tensor:
@@ -70,34 +76,62 @@ def _per_lane(x, like: torch.Tensor) -> torch.Tensor:
 def ema_bonds_target(S_n, W_n, clip_base, W_clipped, config, bonds_mode):
     """The EMA families' purchase target: column-normalized stake-weighted
     (blended) bonds (reference yumas.py:113-116, 227-229, 341-343).
-    Returns `(B_target, weight_for_bond_or_None)`."""
+    Returns `(B_target, weight_for_bond_or_None)`. XLA contracts the
+    blend's `(1 - beta) * bond_base` into its add."""
     S_col = S_n.unsqueeze(-1)
     if bonds_mode is BondsMode.EMA_RUST:
         B = S_col * W_clipped
-        B = B / (B.sum(dim=-2, keepdim=True) + 1e-6)
+        B = B / (validator_dot(S_col, W_clipped) + 1e-6)
         return torch.nan_to_num(B), None
-    beta = _scalar(config.bond_penalty, W_n)
+    beta = config_value(config.bond_penalty, W_n)
     bond_base = W_n if bonds_mode is BondsMode.EMA else clip_base
-    W_b = (1.0 - beta) * bond_base + beta * W_clipped
+    W_b = fma(1.0 - beta, bond_base, beta * W_clipped)
     B = S_col * W_b
-    B = B / B.sum(dim=-2, keepdim=True)  # no epsilon here (yumas.py:228,342)
+    B = B / validator_dot(S_col, W_b)  # no epsilon here (yumas.py:228,342)
     return torch.nan_to_num(B), W_b
+
+
+def ema_column_sum(B_ema, B_target, B_old, rate, first=None):
+    """Yuma 0's re-normalization sum of `B_ema` over validators (kept).
+    Where :func:`..ops.normalize.xla_chains`, as XLA compiles it: the
+    adopted target adds left to right, and the reduce of the EMA
+    `fma(1 - rate, B_old, rate * B_target)` folds the running sum into the
+    inner product, `acc = fma(1 - rate, B_old[v], fma(rate, B_target[v],
+    acc))`. Else the plain sum."""
+    if not xla_chains(*B_ema.shape[-2:]):
+        return B_ema.sum(dim=-2, keepdim=True)
+    adopted = sequential_sum(B_target, -2, keepdim=True)
+    if B_old is None:
+        return adopted
+    rate = torch.as_tensor(rate, dtype=B_target.dtype, device=B_target.device)
+    Bt, Bo, r = torch.broadcast_tensors(B_target, B_old, rate)
+    keep = 1.0 - r
+    acc = torch.zeros_like(Bt[..., 0, :])
+    for v in range(Bt.shape[-2]):
+        acc = fma(keep[..., v, :], Bo[..., v, :], fma(r[..., v, :], Bt[..., v, :], acc))
+    acc = acc.unsqueeze(-2)
+    return acc if first is None else torch.where(first, adopted, acc)
 
 
 def ema_bonds_update(B_target, B_old, rate, first_epoch, renormalize: bool):
     """EMA toward the target; the first epoch adopts the target outright
-    (yumas.py:145), as a select; Yuma 0 re-normalizes (yumas.py:147-149)."""
+    (yumas.py:145), as a select; Yuma 0 re-normalizes (yumas.py:147-149).
+
+    The EMA is `fma(1 - rate, B_old, rate * B_target)`: XLA's CPU backend
+    contracts the `(1 - rate) * B_old` product of JAX's
+    `rate * B_target + (1 - rate) * B_old` into the add, and the port
+    rounds as it does."""
+    first = None
     if B_old is None:
         B_ema = B_target
     else:
-        ema = rate * B_target + (1.0 - rate) * B_old
-        if first_epoch is None:
-            B_ema = ema
-        else:
-            first = torch.as_tensor(first_epoch, device=ema.device)
-            B_ema = torch.where(first, B_target, ema)
+        B_ema = fma(1.0 - rate, B_old, rate * B_target)
+        if first_epoch is not None:
+            first = torch.as_tensor(first_epoch, device=B_ema.device)
+            B_ema = torch.where(first, B_target, B_ema)
     if renormalize:
-        B_ema = torch.nan_to_num(B_ema / (B_ema.sum(dim=-2, keepdim=True) + 1e-6))
+        colsum = ema_column_sum(B_ema, B_target, B_old, rate, first)
+        B_ema = torch.nan_to_num(B_ema / (colsum + 1e-6))
     return B_ema
 
 
@@ -107,9 +141,10 @@ def capacity_bonds_update(B_prev, W_n, S_n, config):
     capacity = S_n * maxint
     capacity_per_bond = S_n.unsqueeze(-1) * maxint
     remaining = torch.clamp(capacity_per_bond - B_prev, min=0.0)
-    cap_alpha = (_scalar(config.capacity_alpha, W_n) * capacity).unsqueeze(-1)
+    cap_alpha = (config_value(config.capacity_alpha, capacity) * capacity).unsqueeze(-1)
     purchase = torch.minimum(cap_alpha, remaining) * W_n
-    B = (1.0 - _scalar(config.decay_rate, W_n)) * B_prev + purchase
+    # XLA contracts the decay product into the add (see ema_bonds_update).
+    B = fma(1.0 - config_value(config.decay_rate, W_n), B_prev, purchase)
     return torch.minimum(B, capacity_per_bond)
 
 
@@ -119,6 +154,25 @@ def relative_bonds_update(B_prev, W_n, rate):
     remaining = torch.clamp(1.0 - B_decayed, min=0.0)
     purchase = torch.minimum(rate * W_n, remaining)
     return torch.clamp(B_decayed + purchase, max=1.0)
+
+
+def dividends(B, incentive, S_n=None, msum=miner_sum):
+    """`(D [..., V], sum(D) [..., 1])`: each validator's bond-weighted
+    incentive `D = msum(B * incentive)` (times `S_n` for Yuma 4's relative
+    bonds) and its total. Where :func:`..ops.normalize.xla_chains`, both
+    round as the XLA rung rounds them: each product is fused into its
+    miner chain, Yuma 4's total is a chain of `S_n * D` over validators,
+    and the others' total is one chain over every (validator, miner)
+    product, as XLA merges the two sums. Else plain sums."""
+    inc = incentive.unsqueeze(-2)
+    if not xla_chains(*B.shape[-2:]):
+        D = msum(B * inc)
+        D = D if S_n is None else S_n * D
+        return D, D.sum(dim=-1, keepdim=True)
+    D = fma_chain(B, inc)
+    if S_n is not None:
+        return S_n * D, fma_chain(S_n, D, keepdim=True)
+    return D, fma_chain(B.flatten(-2), inc.expand_as(B).flatten(-2), keepdim=True)
 
 
 def yuma_epoch(
@@ -193,7 +247,7 @@ def yuma_epoch(
     if bonds_mode is BondsMode.EMA_PREV and W_prev is not None:
         clip_base = W_prev
     W_clipped = torch.minimum(clip_base, C.unsqueeze(-2))
-    R = (S_n.unsqueeze(-1) * W_clipped).sum(dim=-2)
+    R = validator_dot(S_n.unsqueeze(-1), W_clipped).squeeze(-2)
     incentive = torch.nan_to_num(R / miner_sum(R, keepdim=True))
     T = torch.nan_to_num(R / P)
     T_v = miner_sum(W_clipped) / miner_sum(W_n)
@@ -210,7 +264,7 @@ def yuma_epoch(
 
     nan = torch.tensor(float("nan"), dtype=dtype, device=W.device)
     a = b = nan
-    bond_alpha = torch.as_tensor(config.bond_alpha, dtype=dtype, device=W.device)
+    bond_alpha = config_value(config.bond_alpha, C)
     if config.liquid_alpha and bonds_mode is not BondsMode.CAPACITY:
         bond_alpha, a, b = liquid_alpha_rate(
             C,
@@ -232,7 +286,7 @@ def yuma_epoch(
             first_epoch,
             renormalize=bonds_mode is BondsMode.EMA_RUST,
         )
-        D = miner_sum(B_ema * incentive.unsqueeze(-2))
+        D, D_tot = dividends(B_ema, incentive)
         out.update(
             server_trust=T,
             validator_trust=T_v,
@@ -245,16 +299,16 @@ def yuma_epoch(
     elif bonds_mode is BondsMode.CAPACITY:
         B_prev = torch.zeros_like(W_n) if B_old is None else B_old
         B = capacity_bonds_update(B_prev, W_n, S_n, config)
-        D = miner_sum(B * incentive.unsqueeze(-2))
+        D, D_tot = dividends(B, incentive)
         out.update(server_trust=T, validator_trust=T_v, validator_bonds=B)
     elif bonds_mode is BondsMode.RELATIVE:
         B_prev = torch.zeros_like(W_n) if B_old is None else B_old
         B = relative_bonds_update(B_prev, W_n, rate_vm)
-        D = S_n * miner_sum(B * incentive.unsqueeze(-2))
+        D, D_tot = dividends(B, incentive, S_n)
         out["validator_bonds"] = B
     else:  # pragma: no cover
         raise ValueError(f"unknown bonds mode: {bonds_mode}")
 
     out["validator_reward"] = D
-    out["validator_reward_normalized"] = D / (D.sum(dim=-1, keepdim=True) + 1e-6)
+    out["validator_reward_normalized"] = D / (D_tot + 1e-6)
     return out

@@ -45,7 +45,13 @@ from typing import Optional
 
 import torch
 
-from yuma_simulation_tpu_torch.models.epoch import EMA_MODES, MAXINT, BondsMode
+from yuma_simulation_tpu_torch.models.epoch import (
+    EMA_MODES,
+    MAXINT,
+    BondsMode,
+    dividends,
+    ema_column_sum,
+)
 from yuma_simulation_tpu_torch.models.variants import ResetMode
 from yuma_simulation_tpu_torch.ops import _build
 from yuma_simulation_tpu_torch.ops.consensus import (
@@ -57,8 +63,9 @@ from yuma_simulation_tpu_torch.ops.consensus import (
     stake_weighted_median,
 )
 from yuma_simulation_tpu_torch.ops.cuda_consensus import MMA_LAUNCHES, check_cuda_float32
+from yuma_simulation_tpu_torch.ops.fma import fma
 from yuma_simulation_tpu_torch.ops.launches import COUNTERS
-from yuma_simulation_tpu_torch.ops.normalize import sequential_sum
+from yuma_simulation_tpu_torch.ops.normalize import sequential_sum, validator_dot
 
 CASE_SCAN_LAUNCHES = COUNTERS["case_scan"]
 VARYING_SCAN_LAUNCHES = COUNTERS["varying_scan"]
@@ -226,17 +233,24 @@ def _clip_rank_rate(S, C, clip_base, alpha, *, mode, liquid, liquid_scal, overri
     (pallas_epoch.py:531). Returns `(W_clipped, incentive [..., 1, M],
     rate)`; `rate` is `alpha` when liquid alpha is off."""
     W_clipped = torch.minimum(clip_base, C)
-    R = (W_clipped * S).sum(dim=-2, keepdim=True)
+    R = validator_dot(W_clipped, S)
     incentive = torch.nan_to_num(R / R.sum(dim=-1, keepdim=True))
     rate = alpha
     if liquid and mode is not BondsMode.CAPACITY:
-        rate = _liquid_rate_on_grid(
-            C,
-            *liquid_scal,
-            n=C.shape[-1],
-            override_high=overrides[0],
-            override_low=overrides[1],
-        )
+        def rate_of(C, *scal):
+            return _liquid_rate_on_grid(C, *scal, n=C.shape[-1], override_high=overrides[0],
+                                        override_low=overrides[1])
+
+        if C.device.type == "cpu":
+            # Scenario by scenario, each from a contiguous copy: PyTorch's
+            # CPU `pow` rounds an element by where it falls in its vector
+            # loop, so only the same layout gives a lane its run alone's bits.
+            rate = torch.cat([
+                rate_of(C[:, i : i + 1].contiguous(), *(x[i : i + 1] for x in liquid_scal))
+                for i in range(C.shape[1])
+            ], dim=1)
+        else:
+            rate = rate_of(C, *liquid_scal)
     return W_clipped, incentive, rate
 
 
@@ -245,39 +259,36 @@ def _bond_phase(
     mode, cap_alpha, decay,
 ):
     """The bond recurrence and normalized dividends of one epoch
-    (pallas_epoch.py:568). Returns `(B_next, D_n [..., V, 1])`."""
+    (pallas_epoch.py:568). Returns `(B_next, D_n [..., V, 1])`. Products
+    and sums round as on the JAX package's XLA rung, with the same helpers
+    as :func:`..models.epoch.yuma_epoch` (its multiply-adds fused)."""
     if mode in EMA_MODES:
         if mode is BondsMode.EMA_RUST:
             B_t = S * W_clipped
-            B_t = torch.nan_to_num(B_t / (B_t.sum(dim=-2, keepdim=True) + 1e-6))
+            B_t = torch.nan_to_num(B_t / (validator_dot(S, W_clipped) + 1e-6))
         else:
             bond_base = W_n if mode is BondsMode.EMA else clip_base
-            W_b = (1.0 - beta) * bond_base + beta * W_clipped
-            B_t = S * W_b
-            B_t = torch.nan_to_num(B_t / B_t.sum(dim=-2, keepdim=True))
+            W_b = fma(1.0 - beta, bond_base, beta * W_clipped)
+            B_t = torch.nan_to_num(S * W_b / validator_dot(S, W_b))
         # First-epoch adoption is a select, never a blend.
-        B_next = B_t if first else rate * B_t + (1.0 - rate) * B_old
+        B_next = B_t if first else fma(1.0 - rate, B_old, rate * B_t)
         if mode is BondsMode.EMA_RUST:
-            B_next = torch.nan_to_num(
-                B_next / (B_next.sum(dim=-2, keepdim=True) + 1e-6)
-            )
-        D = (B_next * incentive).sum(dim=-1, keepdim=True)
+            colsum = ema_column_sum(B_next, B_t, None if first else B_old, rate)
+            B_next = torch.nan_to_num(B_next / (colsum + 1e-6))
     elif mode is BondsMode.CAPACITY:
         # The 2^64-1 constant enters float32 arithmetic deliberately.
         cap_vec = S * torch.tensor(MAXINT, dtype=S.dtype, device=S.device)
         remaining = torch.clamp(cap_vec - B_old, min=0.0)
         purchase = torch.minimum(cap_alpha * cap_vec, remaining) * W_n
-        B_next = (1.0 - decay) * B_old + purchase
-        B_next = torch.minimum(B_next, cap_vec)
-        D = (B_next * incentive).sum(dim=-1, keepdim=True)
+        B_next = torch.minimum(fma(1.0 - decay, B_old, purchase), cap_vec)
     else:  # RELATIVE
         B_dec = B_old * (1.0 - rate)
         remaining = torch.clamp(1.0 - B_dec, min=0.0)
         purchase = torch.minimum(rate * W_n, remaining)
         B_next = torch.clamp(B_dec + purchase, max=1.0)
-        D = S * (B_next * incentive).sum(dim=-1, keepdim=True)
-    D_tot = D.sum(dim=-1, keepdim=True).sum(dim=-2, keepdim=True)
-    return B_next, D / (D_tot + 1e-6)
+    S_rel = S[..., 0] if mode is BondsMode.RELATIVE else None
+    D, D_tot = dividends(B_next, incentive[..., 0, :], S_rel, msum=lambda x: x.sum(dim=-1))
+    return B_next, (D / (D_tot + 1e-6)).unsqueeze(-1)
 
 
 def _scan_plain(W, S, hp, reset_index, reset_epoch, state, *, T, p):
@@ -403,7 +414,7 @@ class _ScanArgs(ctypes.Structure):
             "W", "S", "hp", "reset_index", "reset_epoch", "bonds", "bonds_in",
             "cprev", "wprev", "dn", "bonds_out", "inc_out", "cons_out", "wn", "sn",
             "sint", "chi", "C", "inc", "rate", "dsum", "dpart", "dgroup", "rden",
-            "pden", "ticket", "scales", "dacc", "stream",
+            "pden", "ticket", "dtot", "scales", "dacc", "stream",
         )
     ] + [
         (name, ctypes.c_int)
@@ -496,7 +507,7 @@ def _scratch_layout(T: int, Bn: int, V: int, M: int) -> tuple:
         ("chi", f4 * T * Bn * M), ("C", f4 * T * Bn * M), ("inc", f4 * T * Bn * M),
         ("rate", f4 * T * Bn * M), ("dsum", f4 * Bn * V), ("dpart", f4 * 2 * Bn * tiles * V),
         ("dgroup", f4 * Bn * groups * V), ("rden", f4 * T * Bn * V), ("pden", f4 * Bn * V),
-        ("ticket", f4 * Bn * (groups + 1)),
+        ("ticket", f4 * Bn * (groups + 1)), ("dtot", f4 * 2 * Bn),
     )
     offsets, total = [], 0
     for name, nbytes in regions:
@@ -595,9 +606,10 @@ _HP_KEYS = ("kappa", "bond_penalty", "bond_alpha", "capacity_alpha", "decay_rate
             "liquid_alpha", "alpha_low", "alpha_high")
 
 
-def _hp_table(Bn, kappa, bond_penalty, bond_alpha, capacity_alpha, decay_rate,
-              liquid_alpha, alpha_low, alpha_high) -> torch.Tensor:
-    """The per-scenario hyperparameter rows `[B, 9]` (column order of
+@functools.lru_cache(maxsize=256)
+def _hp_row(kappa, bond_penalty, bond_alpha, capacity_alpha, decay_rate,
+            liquid_alpha, alpha_low, alpha_high) -> tuple:
+    """One scenario's hyperparameter row of 9 values (column order of
     pallas_epoch.py:1667-1677), computed on the host in float32 so the
     kernel and the plain version read identical values."""
 
@@ -613,24 +625,31 @@ def _hp_table(Bn, kappa, bond_penalty, bond_alpha, capacity_alpha, decay_rate,
         al = ah = logit_low = logit_num = torch.zeros(())
     vals = [kappa, bond_penalty, bond_alpha, capacity_alpha, decay_rate,
             logit_low, logit_num, al, ah]
-    return torch.stack([f32(v).broadcast_to((Bn,)) for v in vals], dim=1).contiguous()
-
-
-@functools.lru_cache(maxsize=256)
-def _hp_row(*vals) -> tuple:
-    return tuple(_hp_table(1, *vals)[0].tolist())
+    return tuple(float(f32(v)) for v in vals)
 
 
 def _hyperparams(Bn: int, **hp):
     """The hyperparameters as the kernels take them: one row shared by
     every scenario (a tuple of 9 float32 values) when each is a Python
-    number, else the CPU float32 table `[B, 9]`."""
+    number, else the CPU float32 table `[B, 9]` of per-scenario values
+    (`[B]` or 0-d tensors or arrays). Each row of the table is computed
+    as a shared row is, so a scenario reads the bits its run alone with
+    scalar hyperparameters reads."""
     vals = tuple(hp[k] for k in _HP_KEYS)
     if all(type(v) in (float, int, bool) for v in vals):  # the common case, cached
         return _hp_row(*vals)
     if all(isinstance(v, numbers.Real) for v in vals):
         return _hp_row(*(float(v) for v in vals))
-    return _hp_table(Bn, *vals)
+    cols = [
+        v if isinstance(v, bool)
+        else torch.as_tensor(v, dtype=torch.float32).cpu().broadcast_to((Bn,))
+        for v in vals
+    ]
+    rows = [
+        _hp_row(*(v if isinstance(v, bool) else float(v[i]) for v in cols))
+        for i in range(Bn)
+    ]
+    return torch.tensor(rows, dtype=torch.float32)
 
 
 def _reset_arg(x, Bn: int):

@@ -19,6 +19,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -58,6 +59,20 @@ def liquid_alpha_rate(
     coefficients (0-d, or `[...]` when batched).
     """
     dtype = C.dtype
+    grid = np.ndim(alpha_low) + np.ndim(alpha_high) > 0
+    if grid and C.ndim > 1 and len(C) > 1 and C.device.type == "cpu":
+        # A config grid's lanes one at a time: PyTorch's CPU `pow` rounds
+        # an element by where it falls in its vector loop, so only a lane's
+        # own layout gives it the bits of its run alone.
+        lanes = [
+            liquid_alpha_rate(
+                C[i : i + 1], *(x[i : i + 1] if np.ndim(x) else x for x in (alpha_low, alpha_high)),
+                override_consensus_high=override_consensus_high,
+                override_consensus_low=override_consensus_low,
+            )
+            for i in range(C.shape[0])
+        ]
+        return tuple(torch.cat(parts) for parts in zip(*lanes))
     # Degenerate spread falls back to the 0.99 quantile (yumas.py:132-133),
     # checked after the overrides are substituted; with BOTH overridden the
     # reference compares two Python floats, decided here statically.
@@ -99,5 +114,9 @@ def liquid_alpha_rate(
     alpha = _as(1.0, C) / (1.0 + torch.pow(_as(math.e, C), -a_b * C + b_b))
     lo = _as(alpha_low, C)
     hi = _as(alpha_high, C)
+    if lo.ndim:
+        lo = lo.unsqueeze(-1)
+    if hi.ndim:
+        hi = hi.unsqueeze(-1)
     bond_alpha = 1.0 - torch.minimum(torch.maximum(alpha, lo), hi)
     return bond_alpha.to(dtype), a, b

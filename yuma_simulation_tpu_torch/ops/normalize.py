@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from yuma_simulation_tpu_torch.ops.fma import fma_chain
+
 WEIGHT_EPS = 1e-6
 
 #: Fixed block count of the miner-axis sum (see :func:`miner_sum`).
@@ -50,6 +52,36 @@ def miner_sum(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     for i in range(1, SUM_BLOCKS):
         total = total + part[..., i]
     return total.unsqueeze(-1) if keepdim else total
+
+
+#: Widest validator axis, and the miner count bound, of an epoch whose
+#: reduces the port spells as XLA's chains of FMAs (see :func:`xla_chains`).
+XLA_CHAIN_MAX = 16
+
+
+def xla_chains(V: int, M: int) -> bool:
+    """Whether the reduces of products of a `[V, M]` epoch (the rank's and
+    the bond target's column sums, the dividends and their total, Yuma 0's
+    re-normalization) are spelled as the chains of FMAs XLA's CPU backend
+    compiles them into (:func:`..ops.fma.fma_chain`): at most 16
+    validators and fewer than 16 miners. tests/test_torch_simulate.py pins
+    the port's epochs there bitwise to JAX's XLA rung: the built-in cases
+    ([3, 2]) and a random [5, 8] suite (ROADMAP §C, C2, has the versions
+    and shapes it does not reach yet). Past these widths XLA's order
+    depends on the shape (on random data no spelling tried matched at
+    V = 17 to 200 with M = 2, or at M = 31, 300, 512 or 4096), so the port
+    keeps its plain sums there, in the engines' reduction-order class
+    (atol 2e-6) and at one op per sum instead of a loop of FMAs."""
+    return V <= XLA_CHAIN_MAX and M < XLA_CHAIN_MAX
+
+
+def validator_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """`sum(x * y)` over the validator axis (-2), kept: one fused chain
+    where :func:`xla_chains`, else the plain sum."""
+    x, y = torch.broadcast_tensors(x, y)
+    if xla_chains(*x.shape[-2:]):
+        return fma_chain(x, y, -2, keepdim=True)
+    return (x * y).sum(dim=-2, keepdim=True)
 
 
 def normalize_weight_rows(W: torch.Tensor, eps: float = WEIGHT_EPS) -> torch.Tensor:

@@ -2,13 +2,22 @@
 
 from yuma_simulation_tpu_torch.simulation.engine import (  # noqa: F401
     SimulationResult,
+    config_is_batched,
+    config_vmap_axes,
     run_simulation,
     simulate,
     simulate_constant,
     simulate_scaled,
     simulate_scaled_batch,
+    zero_carry,
 )
 from yuma_simulation_tpu_torch.simulation.sweep import (  # noqa: F401
+    build_config_batch,
+    config_grid,
     simulate_batch,
     stack_scenarios,
+    sweep_hyperparams,
+    sweep_scaled_fused,
+    sweepable_config_fields,
+    total_dividends_batch,
 )

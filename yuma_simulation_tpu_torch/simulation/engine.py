@@ -38,7 +38,9 @@ from yuma_simulation_tpu_torch.models.config import YumaConfig
 from yuma_simulation_tpu_torch.models.epoch import (
     EMA_MODES,
     BondsMode,
+    config_value,
     capacity_bonds_update,
+    dividends,
     ema_bonds_update,
     relative_bonds_update,
     yuma_epoch,
@@ -62,7 +64,6 @@ from yuma_simulation_tpu_torch.ops.cuda_epoch import (
 )
 from yuma_simulation_tpu_torch.ops.liquid import liquid_alpha_rate
 from yuma_simulation_tpu_torch.ops.normalize import (
-    miner_sum,
     normalize_stake,
     normalize_weight_rows,
 )
@@ -154,8 +155,13 @@ def _dividends_per_1k(D_n, S, config):
     """Dividend per 1000 tao (reference simulation_utils.py:45-49,
     95-107), from normalized dividends and the raw stakes. The divide by
     1000 is a multiply by float32(0.001), as XLA compiles it."""
-    stakes_units = S * config.total_subnet_stake * 0.001
-    emission = config.validator_emission_ratio * D_n * config.total_epoch_emission
+    ratio, total, stake = (
+        config_value(x, S) if np.ndim(x) else x  # a grid's [B] field, per scenario
+        for x in (config.validator_emission_ratio, config.total_epoch_emission,
+                  config.total_subnet_stake)
+    )
+    stakes_units = S * stake * 0.001
+    emission = ratio * D_n * total
     return torch.where(stakes_units > 1e-6, emission / stakes_units, 0.0)
 
 
@@ -176,21 +182,82 @@ def fused_hparams(config: YumaConfig) -> dict:
     )
 
 
-def _tensor_config(config: YumaConfig, device) -> YumaConfig:
-    """The config with its float fields as 0-d float32 tensors — what
-    JAX's jitted engine sees of its config (traced leaves), which selects
-    the float32 logit branch of the liquid-alpha fit."""
+def _map_config(config: YumaConfig, fn) -> YumaConfig:
+    """`config` with each field's value `v` replaced by `fn(field, v)`."""
 
     def conv(dc):
-        vals = {}
-        for f in fields(dc):
-            v = getattr(dc, f.name)
-            if f.type == "float" and isinstance(v, (int, float)):
-                v = torch.tensor(float(v), dtype=torch.float32, device=device)
-            vals[f.name] = v
-        return replace(dc, **vals)
+        return replace(dc, **{f.name: fn(f, getattr(dc, f.name)) for f in fields(dc)})
 
     return YumaConfig(simulation=conv(config.simulation), yuma_params=conv(config.yuma_params))
+
+
+def _tensor_config(config: YumaConfig, device) -> YumaConfig:
+    """The config with its float fields as float32 tensors — what JAX's
+    jitted engine sees of its config (traced leaves), which selects the
+    float32 logit branch of the liquid-alpha fit: a scalar as a 0-d tensor,
+    a `[B]` field of a :func:`..sweep.config_grid` grid as a `[B]` tensor
+    (its consumers broadcast it per lane)."""
+
+    def conv(f, v):
+        if f.type != "float":
+            return v
+        if np.ndim(v):
+            return torch.as_tensor(v, dtype=torch.float32).to(device)
+        if isinstance(v, (int, float)):
+            return torch.tensor(float(v), dtype=torch.float32, device=device)
+        return v
+
+    return _map_config(config, conv)
+
+
+def zero_carry(spec: VariantSpec, V: int, M: int, dtype=torch.float32, device="cpu") -> dict:
+    """The carry at global epoch 0, as the engines' zero-init makes it:
+    `bonds [V, M]`, `consensus [M]`, and `w_prev [V, M]` for a variant that
+    carries previous weights."""
+    dev = resolve_device(device)
+    carry = {
+        "bonds": torch.zeros((V, M), dtype=dtype, device=dev),
+        "consensus": torch.zeros((M,), dtype=dtype, device=dev),
+    }
+    if spec.carries_prev_weights:
+        carry["w_prev"] = torch.zeros((V, M), dtype=dtype, device=dev)
+    return carry
+
+
+def config_is_batched(config: YumaConfig) -> bool:
+    """Whether any field of the config carries a leading batch axis (a
+    :func:`..sweep.config_grid` grid). One shared predicate: the engines
+    agree on what counts as batched."""
+    return any(
+        np.ndim(getattr(part, f.name)) > 0
+        for part in (config.simulation, config.yuma_params)
+        for f in fields(part)
+    )
+
+
+def config_vmap_axes(config: YumaConfig) -> YumaConfig:
+    """Per field, 0 where it carries the batch axis and None where it is
+    shared: which fields of a partly batched config vary per lane."""
+    return _map_config(config, lambda _, v: 0 if np.ndim(v) else None)
+
+
+def config_lanes(config: YumaConfig, lanes: Optional[int] = None) -> int:
+    """The lane count of a batched config (1 for a scalar one): every
+    batched field must hold one value per lane, and `lanes` of them when
+    given (one per scenario of a batch)."""
+    sizes = {
+        np.shape(getattr(part, f.name))
+        for part in (config.simulation, config.yuma_params)
+        for f in fields(part)
+        if np.ndim(getattr(part, f.name))
+    }
+    want = {(lanes,)} if lanes is not None else sizes
+    if len(sizes) > 1 or (sizes and sizes != want):
+        raise ValueError(
+            f"batched config fields have shapes {sorted(sizes)}; a batched config "
+            f"needs one value per scenario ({lanes if lanes is not None else 'all alike'})"
+        )
+    return sizes.pop()[0] if sizes else 1
 
 
 def _apply_reset(B, C_prev, epoch: int, reset_index, reset_epoch, reset_mode, M):
@@ -543,15 +610,14 @@ def plan_scaled_engine(
 
 
 def _check_scalar_config(config: YumaConfig, name: str) -> None:
-    """A config with `[B]`-vector fields (a `config_grid` grid) is not
-    ported yet."""
-    for part in (config.simulation, config.yuma_params):
-        for f in fields(part):
-            if np.ndim(getattr(part, f.name)) > 0:
-                raise NotImplementedError(
-                    f"{name}: per-scenario config vectors ({f.name}) are not "
-                    "ported yet (ROADMAP queue A, slice 3: config_grid)"
-                )
+    """The single-scenario entry points take scalar configs only; a
+    `[B]`-vector config (a `config_grid` grid) goes through the batched
+    ones (`simulate_batch`, `simulate_scaled_batch`, the sweeps)."""
+    if config_is_batched(config):
+        raise ValueError(
+            f"{name} runs one scenario and takes a scalar config; run a "
+            "config_grid grid through simulate_scaled_batch or the sweeps"
+        )
 
 
 def _throughput_inputs(W, S, *extra):
@@ -697,12 +763,16 @@ def simulate_scaled_batch(
     one `scales [E]` shared by all. `epoch_impl`: "auto", "eager" (the
     loop over :func:`yuma_epoch` with the batch as a leading dim),
     "fused_scan" or "fused_scan_mxu" (K5 advancing every scenario each
-    epoch). Returns `(total_dividends [B, V], final_bonds [B, V, M])`."""
+    epoch). `config` may carry `[B]` fields (a :func:`..sweep.config_grid`
+    grid, one value per scenario): K5 reads them as its per-scenario
+    hyperparameter table `[B, 9]`; the eager rung broadcasts them per
+    lane. Returns `(total_dividends [B, V], final_bonds
+    [B, V, M])`."""
     config = config if config is not None else YumaConfig()
     spec = spec if spec is not None else variant_for_version("Yuma 1 (paper)")
-    _check_scalar_config(config, "simulate_scaled_batch")
     if W.ndim != 3:
         raise ValueError(f"W must be [B, V, M], got {tuple(W.shape)}")
+    config_lanes(config, W.shape[0])
     dev, (S, scales) = _throughput_inputs(W, S, scales)
     consensus_impl = resolve_consensus_impl(consensus_impl, *W.shape[-2:])
     engine = plan_scaled_engine(
@@ -796,11 +866,9 @@ def _simulate_constant_hoisted(W, S, num_epochs, cfg, spec, consensus_impl, x64)
         rate = torch.as_tensor(cfg.bond_alpha, dtype=W.dtype, device=W.device)
 
     def dividends_of(B):
-        # The miner-axis sum as the full epoch spells it (miner_sum).
-        D = miner_sum(B * incentive)
-        if spec.bonds_mode is BondsMode.RELATIVE:
-            D = S_n * D
-        return _dividends_per_1k(D / (D.sum() + 1e-6), S, cfg)
+        # D and its total as the full epoch rounds them.
+        D, D_tot = dividends(B, incentive, S_n if spec.bonds_mode is BondsMode.RELATIVE else None)
+        return _dividends_per_1k(D / (D_tot + 1e-6), S, cfg)
 
     if spec.bonds_mode in EMA_MODES:
         B_target = res0["validator_bond"]

@@ -2,19 +2,33 @@
 
 `simulate_batch` runs a `[B, E, V, M]` suite on one rung: the fused scans
 take the scenario batch as a grid dimension with per-scenario reset
-vectors; the eager rung runs the batch through :func:`yuma_epoch`'s
-leading batch dimension.
+vectors and hyperparameter rows; the eager rung runs the batch through
+:func:`yuma_epoch`'s leading batch dimension. A config may carry `[B]`
+fields, one value per scenario (:func:`config_grid`): the fused scans read
+them as their `[B, 9]` hyperparameter table, and the eager rung broadcasts
+them per lane. Either way a lane is bitwise the same point run alone with
+a scalar config.
+
+The grid sweeps: :func:`sweep_hyperparams` (one scenario over a config
+grid, on the case scans), :func:`sweep_scaled_fused` (the scaled workload
+over a grid, on the scaled scan) and :func:`total_dividends_batch`.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import itertools
+from dataclasses import replace
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from yuma_simulation_tpu_torch.models.config import YumaConfig
-from yuma_simulation_tpu_torch.models.variants import VariantSpec
+from yuma_simulation_tpu_torch.models.config import (
+    SimulationHyperparameters,
+    YumaConfig,
+    YumaParams,
+)
+from yuma_simulation_tpu_torch.models.variants import VariantSpec, variant_for_version
 from yuma_simulation_tpu_torch.ops.consensus import resolve_consensus_impl
 from yuma_simulation_tpu_torch.scenarios.base import Scenario
 from yuma_simulation_tpu_torch.simulation.engine import (
@@ -22,8 +36,11 @@ from yuma_simulation_tpu_torch.simulation.engine import (
     MXU_RUNGS,
     _simulate_case_fused,
     _simulate_scan,
+    config_lanes,
     plan_engine,
     resolve_device,
+    simulate_scaled_batch,
+    validate_initial_state,
 )
 
 
@@ -55,6 +72,22 @@ def stack_scenarios(
     return W, S, r_idx, r_epoch
 
 
+def _run_batch(weights, stakes, reset_index, reset_epoch, config, spec, *, engine,
+               consensus_impl, carry=None, **common):
+    """One batch on the rung `engine`; `carry` (leading batch dim) resumes
+    every lane."""
+    if engine in FUSED_RUNGS:
+        return _simulate_case_fused(
+            weights, stakes, reset_index, reset_epoch, config, spec,
+            varying=engine.startswith("fused_varying"), mxu=engine in MXU_RUNGS,
+            carry=carry, **common,
+        )
+    V, M = weights.shape[-2:]
+    return _simulate_scan(weights, stakes, reset_index, reset_epoch, config, spec,
+                          consensus_impl=resolve_consensus_impl(consensus_impl, V, M),
+                          carry=carry, **common)
+
+
 def simulate_batch(
     weights: torch.Tensor,  # [B, E, V, M]
     stakes: torch.Tensor,  # [B, E, V]
@@ -71,28 +104,180 @@ def simulate_batch(
     """A scenario suite in one call, on the device the tensors live on.
     Returns `{"dividends": [B, E, V], ...}` tensors. `epoch_impl` as in
     :func:`..engine.simulate` ("auto" is the varying or case scan on CUDA
-    tensors, the eager rung on CPU tensors)."""
+    tensors, the eager rung on CPU tensors). `config` may carry `[B]`
+    fields, one value per scenario (a :func:`config_grid` grid)."""
     if weights.ndim != 4:
         raise ValueError(f"weights must be [B, E, V, M], got {tuple(weights.shape)}")
+    config_lanes(config, weights.shape[0])
     dev = resolve_device(weights.device)
     engine = plan_engine(
         epoch_impl, consensus_impl, weights.shape, weights.dtype, dev,
         config.consensus_precision,
     )
-    common = dict(
-        save_bonds=save_bonds,
-        save_incentives=save_incentives,
-        save_consensus=False,
-        x64=x64,
+    return _run_batch(
+        weights, stakes, reset_index, reset_epoch, config, spec, engine=engine,
+        consensus_impl=consensus_impl, save_bonds=save_bonds,
+        save_incentives=save_incentives, save_consensus=False, x64=x64,
     )
-    if engine in FUSED_RUNGS:
-        return _simulate_case_fused(
-            weights, stakes, reset_index, reset_epoch, config, spec,
-            varying=engine.startswith("fused_varying"),
-            mxu=engine in MXU_RUNGS, **common,
+
+
+def sweep_hyperparams(
+    scenario: Scenario,
+    yuma_version: str,
+    configs: YumaConfig,
+    *,
+    save_bonds: bool = False,
+    dtype: torch.dtype = torch.float32,
+    initial_state: Optional[dict] = None,
+    epoch_offset: int = 0,
+    epoch_impl: str = "auto",
+    device="cuda",
+    x64: bool = False,
+) -> dict:
+    """One scenario over a batched config (build it with
+    :func:`config_grid`): the scenario is repeated over the grid axis and
+    run as one batch, as :func:`simulate_batch` runs one (on the card the
+    varying or the case scan, K3 or K2, with the grid as its `[G, 9]`
+    hyperparameter table).
+    Returns `{"dividends": [G, E, V](, "bonds": [G, E, V, M])}`; each lane
+    is bitwise the same point run alone with a scalar config.
+
+    `initial_state` / `epoch_offset`: resume every lane from ONE shared
+    carry (the `final_state` of a `return_state=True` run), with the
+    scenario's epochs indexed as global epochs `[offset, offset + E)`.
+    The JAX package's `quarantine=` (the per-lane non-finite guard) is not
+    ported yet (ROADMAP queue A, slice 7)."""
+    if epoch_offset < 0:
+        raise ValueError(f"epoch_offset must be >= 0, got {epoch_offset}")
+    spec = variant_for_version(yuma_version)
+    dev = resolve_device(device)
+    G = config_lanes(configs)
+    E, V, M = np.shape(scenario.weights)
+    W = torch.as_tensor(np.asarray(scenario.weights), dtype=dtype).to(dev)
+    S = torch.as_tensor(np.asarray(scenario.stakes), dtype=dtype).to(dev)
+    ri, re_ = _reset_metadata([scenario] * G, dev)
+    carry = None
+    if initial_state is not None:
+        validate_initial_state(initial_state, spec, V, M)
+        carry = {
+            k: torch.as_tensor(np.asarray(v), dtype=dtype).to(dev).expand((G,) + np.shape(v))
+            for k, v in initial_state.items()
+        }
+    engine = plan_engine(epoch_impl, "bisect", (G, E, V, M), dtype, dev,
+                         configs.consensus_precision)
+    return _run_batch(
+        W.expand(G, E, V, M), S.expand(G, E, V), ri, re_, configs, spec, engine=engine,
+        consensus_impl="bisect", carry=carry, epoch_offset=epoch_offset,
+        save_bonds=save_bonds, save_incentives=False, save_consensus=False, x64=x64,
+    )
+
+
+def sweep_scaled_fused(
+    W: torch.Tensor,  # [V, M] shared base weights (or [G, V, M] per point)
+    S: torch.Tensor,  # [V] shared stakes (or [G, V])
+    scales: torch.Tensor,  # [E] per-epoch weight scale
+    configs: YumaConfig,  # from config_grid: [G] fields
+    yuma_version: str,
+    *,
+    epoch_impl: str = "auto",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """A hyperparameter grid over the scaled workload as one call: the
+    shared scenario is broadcast over the grid and run by
+    :func:`..engine.simulate_scaled_batch` (on the card the scaled scan,
+    K5, with the grid as its `[G, 9]` hyperparameter table), on the device
+    the tensors live on. Returns `(total_dividends [G, V], final_bonds
+    [G, V, M])`."""
+    spec = variant_for_version(yuma_version)
+    G = config_lanes(configs)
+    if W.ndim == 2:
+        W = W.expand((G,) + tuple(W.shape))
+        S = torch.as_tensor(S, dtype=W.dtype, device=W.device).expand((G,) + tuple(S.shape))
+    return simulate_scaled_batch(W, S, scales, configs, spec, epoch_impl=epoch_impl)
+
+
+def sweepable_config_fields(
+    base_simulation: SimulationHyperparameters,
+    base_params: YumaParams,
+) -> tuple[set, set]:
+    """The (simulation, yuma_params) field names a batched config may
+    vary: floats only. The fields that select a different kernel path
+    (`consensus_precision`, `liquid_alpha`, the quantile overrides) are
+    excluded; the JAX package's one exclusion list."""
+    sim_fields = {f for f in vars(base_simulation) if f != "consensus_precision"}
+    par_fields = {
+        f
+        for f in vars(base_params)
+        if f not in ("liquid_alpha", "override_consensus_high", "override_consensus_low")
+    }
+    return sim_fields, par_fields
+
+
+def build_config_batch(
+    points: Sequence[dict],
+    base_simulation: Optional[SimulationHyperparameters] = None,
+    base_params: Optional[YumaParams] = None,
+) -> YumaConfig:
+    """Stack per-point float-field overrides into one batched
+    :class:`YumaConfig` whose sweepable fields are `[len(points)]`
+    float32 tensors (on the CPU; the engines move them). Rejects fields
+    that cannot be swept and unknown names."""
+    if not points:
+        raise ValueError("config batch needs at least one point")
+    base_simulation = base_simulation or SimulationHyperparameters()
+    base_params = base_params or YumaParams()
+    sim_fields, par_fields = sweepable_config_fields(base_simulation, base_params)
+    for point in points:
+        for name in point:
+            if name not in sim_fields and name not in par_fields:
+                raise ValueError(f"cannot sweep non-float/static field '{name}'")
+
+    def column(base, name):
+        return torch.tensor(
+            np.asarray([p.get(name, getattr(base, name)) for p in points], np.float32)
         )
-    V, M = weights.shape[-2:]
-    return _simulate_scan(
-        weights, stakes, reset_index, reset_epoch, config, spec,
-        consensus_impl=resolve_consensus_impl(consensus_impl, V, M), **common,
-    )
+
+    sim = replace(base_simulation, **{f: column(base_simulation, f) for f in sim_fields})
+    par = replace(base_params, **{f: column(base_params, f) for f in par_fields})
+    return YumaConfig(simulation=sim, yuma_params=par)
+
+
+def config_grid(
+    base_simulation: Optional[SimulationHyperparameters] = None,
+    base_params: Optional[YumaParams] = None,
+    **axes: Sequence[float],
+) -> tuple[YumaConfig, list[dict]]:
+    """A batched :class:`YumaConfig` from a cartesian hyperparameter grid:
+    `axes` maps field names (`kappa`, `bond_alpha`, `bond_penalty`, ...)
+    to value lists. Returns the batched config (fields stacked over the
+    grid's flat order, the last axis fastest) and the grid-point dicts in
+    the same order."""
+    names = list(axes)
+    points = [dict(zip(names, combo)) for combo in itertools.product(*axes.values())]
+    return build_config_batch(points, base_simulation, base_params), points
+
+
+def total_dividends_batch(
+    scenarios: Sequence[Scenario],
+    yuma_version: str,
+    config: Optional[YumaConfig] = None,
+    *,
+    dtype: torch.dtype = torch.float32,
+    device="cuda",
+    x64: bool = False,
+) -> np.ndarray:
+    """`[B, V]` total dividends of a suite of same-shaped scenarios: the
+    per-epoch dividends of one :func:`simulate_batch`, summed over epochs
+    on the device. Suites of mixed shapes need the JAX package's donor
+    packing (`pack_scenarios` with per-scenario miner masks), which is
+    not ported yet (ROADMAP queue A, part 3e)."""
+    config = config if config is not None else YumaConfig()
+    spec = variant_for_version(yuma_version)
+    if len({np.shape(s.weights) for s in scenarios}) != 1:
+        raise NotImplementedError(
+            "total_dividends_batch: scenarios of different shapes need "
+            "pack_scenarios and per-scenario miner masks, which are not ported "
+            "yet (ROADMAP queue A, part 3e: the planner)"
+        )
+    W, S, ri, re_ = stack_scenarios(scenarios, dtype, device)
+    ys = simulate_batch(W, S, ri, re_, config, spec, x64=x64)
+    return ys["dividends"].sum(dim=1).cpu().numpy()
