@@ -31,8 +31,16 @@ process per source, on first use), then:
    main(["--out-dir", ...])`, auto -> K3, all four bond_penalty sheets),
    gated on the golden CSVs' header and quoting, on every differing
    rendered cell being pinned in tests/golden/csv_diff_cells.json, and on
-   the totals within 1.5e-6 of the `*_full.csv` goldens; and the grid
-   sweeps at full width: an 8-point `config_grid` (bond_alpha x kappa)
+   the totals within 1.5e-6 of the `*_full.csv` goldens; then the chart
+   table's suite as `v1.api.generate_chart_table` runs it
+   (`_simulate_suite`, 14 cases x 9 versions at the four bond_penalty
+   values, 9 K3 launches each, every per-epoch array held to the same
+   suite on the CPU and the totals to the goldens, every chart's numbers
+   computed by the charts module's numpy helpers, nothing rendered) and a
+   padded suite of mixed shapes at real width ([2, 64, 256, 4096] with
+   miner masks, on the eager rung: no launch, the unpadded lane bitwise
+   its solo run, the padded lane and a 16-epoch CPU run within
+   PAD_RTOL / PAD_ATOL); and the grid sweeps at full width: an 8-point `config_grid` (bond_alpha x kappa)
    through `sweep_hyperparams` (K3; Yuma 1, and Yuma 3.1 with its reset)
    over the 256 x 4096 x 64 workload and `sweep_scaled_fused` (K5) over its
    first epoch x 64 scales, each lane bitwise its solo scalar run, with
@@ -63,7 +71,10 @@ process per source, on first use), then:
    fused rung passes it and with a float: host clock around a call that
    is not synchronized, on an idle stream, averaged over 20 calls), one
    `{"bisect": {...}}` line (K1's and K4's event and device ms at 1 and 16
-   slabs), one `{"cli": ..., "sweeps": ..., "fma_helper": ...}` line, and one `{"kernels": [...]}` line for K1-K6 (launches on the
+   slabs), one `{"charts": {...}}` line (the chart suite's seconds per
+   beta, the padded suite's seconds and errors), one `{"cli": ...,
+   "sweeps": ..., "fma_helper": ...}` line, and one `{"kernels": [...]}`
+   line for K1-K6 (launches on the
    main paths, max |kernel - plain|, kernel and plain times from CUDA
    events, the roofline bound, and a library call's time where one
    exists), the card line, and last `{"ok": true, "device": {...}}`.
@@ -111,13 +122,19 @@ VERSIONS = [
     ),
 ]
 ATOL, RTOL = 2e-6, 1e-5
+#: A padded lane against its run unpadded, both on the eager rung: the JAX
+#: package's own tolerance for a padded suite against per-case runs
+#: (tests/unit/test_api_v1.py). The padding moves the miner sum's blocks,
+#: so a row sum, and through it a normalized weight, may move by an ulp.
+PAD_RTOL, PAD_ATOL = 2e-5, 2e-6
 OUT_DIR = os.path.join("build", "chip_smoke")
 #: Calls that open a profiled window and are not counted (kernel_device_ms).
 WINDOW_WARMUP = 5
 
 
-def workload(seed: int, E: int, nnz: int = 48, strong: int = 64):
-    """Per-epoch weights and stakes shaped like a real subnet, as the JAX
+def workload(seed: int, E: int, nnz: int = 48, strong: int = 64, shape=None):
+    """Per-epoch weights and stakes shaped like a real subnet (`shape` =
+    `(V, M)`, by default the module's 256 x 4096), as the JAX
     package's foundry/metagraph.py::synthetic_snapshot draws one epoch:
     heavy-tailed lognormal stakes (sigma 1.2) drifting every epoch; a
     shared miner-quality vector (Gamma draws: `strong` miners, and a tail
@@ -127,6 +144,7 @@ def workload(seed: int, E: int, nnz: int = 48, strong: int = 64):
     0.99-quantile fallback has a spread (with a single Gamma(1/8) vector
     almost every miner's consensus is 0, every quantile coincides, and the
     reference's logistic fit divides by zero)."""
+    V, M = shape or (globals()["V"], globals()["M"])
     rng = np.random.default_rng(seed)
     stakes0 = rng.lognormal(0.0, 1.2, V)
     drift = np.exp(np.cumsum(rng.normal(0.0, 0.05, (E, V)), axis=0))
@@ -492,6 +510,165 @@ def cli_phase(torch, launches, report):
     report["cli"] = rec
     print(f"CLI ok: four sheets on the card, every differing cell pinned, full precision "
           f"within 1.5e-6; per sheet {rec}; launches {counts}", flush=True)
+
+
+def charts_phase(torch, dev, W_np, S_np, launches, report):
+    """The chart-table path on the card, as `generate_chart_table` runs it
+    (v1/api.py::_simulate_suite), and a padded suite of mixed shapes at
+    real width through `simulate_batch(miner_mask=)`.
+
+    The suite: the 14 built-in cases x 9 versions at each of the CLI's four
+    bond_penalty values, exactly 9 K3 launches a beta (auto); every
+    per-epoch dividend, bond and incentive array within ATOL / RTOL of the
+    same suite on the CPU (the eager rung, bitwise the JAX package's XLA
+    rung); each case's summed dividends within 1.5e-6 of the `*_full.csv`
+    goldens; every chart's numbers from the charts module's numpy helpers,
+    not rendered (chip_smoke imports no matplotlib).
+
+    The padded suite: the 256 x 4096 x 64 workload beside a 128 x 2048 x 48
+    draw (seed 1), padded to [2, 64, 256, 4096] with a per-scenario miner
+    mask (Yuma 1): no kernel launched (the eager rung); the unpadded lane
+    bitwise its solo eager run; the padded lane within PAD_RTOL / PAD_ATOL
+    of its solo unpadded eager run; both lanes within the same of the CPU
+    eager run of the padded suite's first 16 epochs."""
+    from yuma_simulation_tpu_torch.models.config import SimulationHyperparameters, YumaConfig
+    from yuma_simulation_tpu_torch.models.variants import (
+        canonical_versions,
+        variant_for_version,
+    )
+    from yuma_simulation_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from yuma_simulation_tpu_torch.reporting import charts
+    from yuma_simulation_tpu_torch.scenarios import get_cases
+    from yuma_simulation_tpu_torch.scenarios.base import Scenario
+    from yuma_simulation_tpu_torch.simulation.sweep import (
+        pad_scenarios,
+        simulate_batch,
+        stack_scenarios,
+    )
+    from yuma_simulation_tpu_torch.v1.api import _simulate_suite
+
+    cases, versions = get_cases(), canonical_versions()
+    golden_dir = os.path.join("tests", "golden")
+    rec = {"suite_seconds": {}, "suite_worst_vs_cpu": {}, "golden_worst_abs": {}}
+    for beta in ("0", "0.5", "0.99", "1.0"):
+        hp = SimulationHyperparameters(bond_penalty=float(beta))
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        card = _simulate_suite(cases, versions, hp)
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        assert counts["varying_scan"] == len(versions) and sum(counts.values()) == len(versions), (
+            beta, counts)
+        launches["varying_scan"] += counts["varying_scan"]
+        cpu = _simulate_suite(cases, versions, hp, device="cpu")
+        with open(os.path.join(golden_dir, f"total_dividends_b{beta}_full.csv")) as f:
+            golden = list(csv.DictReader(f))
+        worst_cpu = worst_golden = 0.0
+        for (i, version), (_, (div, bonds, inc)) in card.items():
+            case = cases[i]
+            _, (c_div, c_bonds, c_inc) = cpu[(i, version)]
+            label = f"charts beta={beta} {case.name} {version}"
+            pairs = [(np.asarray([div[v] for v in case.validators]),
+                      np.asarray([c_div[v] for v in case.validators]), "dividends"),
+                     (np.asarray(bonds), np.asarray(c_bonds), "bonds"),
+                     (np.asarray(inc), np.asarray(c_inc), "incentives")]
+            for got, ref, key in pairs:
+                np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL, err_msg=f"{label} {key}")
+                worst_cpu = max(worst_cpu, float(np.abs(got - ref).max()))
+            for j, std in enumerate(["Validator A", "Validator B", "Validator C"]):
+                gap = abs(sum(div[case.validators[j]]) - float(golden[i][f"{std} - {version}"]))
+                assert gap < 1.5e-6, f"{label} {std}: |total - golden| {gap}"
+                worst_golden = max(worst_golden, gap)
+            # Every chart's numbers, as the plotters compute them.
+            lines = charts._dividend_series(case.validators, div, case.base_validator,
+                                            case.num_epochs)
+            assert [name for name, _, _ in lines] == case.validators, label
+            assert all(np.isfinite(series).all() for _, series, _ in lines), label
+            for normalize in (False, True):
+                series = charts._bond_series(bonds, len(case.validators), len(case.servers),
+                                             normalize)
+                assert series.shape == (len(case.servers), len(case.validators),
+                                        case.num_epochs) and np.isfinite(series).all(), label
+            weights = charts._server2_weights(case.weights_epochs, len(case.validators),
+                                              case.num_epochs)
+            assert weights.shape == (case.num_epochs, len(case.validators)), label
+            if case.plot_incentives:
+                assert np.isfinite(charts._incentive_series(inc)).all(), label
+        rec["suite_seconds"][beta] = seconds
+        rec["suite_worst_vs_cpu"][beta] = worst_cpu
+        rec["golden_worst_abs"][beta] = worst_golden
+        print(f"chart suite ok: beta={beta}, 14 cases x 9 versions on the card in "
+              f"{seconds:.4f} s, launches {counts}; max |card - CPU| {worst_cpu:.3g}, "
+              f"worst |total - golden| {worst_golden:.3g}", flush=True)
+
+    # ---- The padded suite at real width.
+    W_small, S_small, _ = workload(seed=1, E=E * 3 // 4, shape=(V // 2, M // 2))
+    suite = [
+        Scenario(name=f"synthetic {w.shape[1]}x{w.shape[2]}",
+                 validators=[f"v{i}" for i in range(w.shape[1])], base_validator="v0",
+                 weights=w, stakes=st, num_epochs=w.shape[0])
+        for w, st in ((W_np, S_np), (W_small, S_small))
+    ]
+    config, spec = YumaConfig(), variant_for_version("Yuma 1 (paper)")
+    keys = ("dividends", "bonds", "incentives")
+    saves = dict(save_bonds=True, save_incentives=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    Wp, Sp, ri, re_, mask = pad_scenarios(suite)
+    padded = simulate_batch(Wp, Sp, ri, re_, config, spec, miner_mask=mask, **saves)
+    torch.cuda.synchronize()
+    pad_seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    assert tuple(Wp.shape) == (2, E, V, M) and not any(counts.values()), (Wp.shape, counts)
+    del Wp, Sp
+
+    def real(out, lane, e, v, m):
+        return {
+            "dividends": out["dividends"][lane, :e, :v],
+            "bonds": out["bonds"][lane, :e, :v, :m],
+            "incentives": out["incentives"][lane, :e, :m],
+        }
+
+    pad_err = {}
+    for lane, scenario in enumerate(suite):
+        e, v, m = scenario.weights.shape
+        solo = simulate_batch(*stack_scenarios([scenario]), config, spec,
+                              epoch_impl="eager", **saves)
+        for key in keys:
+            got, ref = real(padded, lane, e, v, m)[key], real(solo, 0, e, v, m)[key]
+            assert torch.isfinite(got).all(), (lane, key)
+            if lane == 0:
+                check_equal(f"padded suite, unpadded lane {key} vs its solo eager run", got, ref)
+            else:
+                check_close(f"padded suite, padded lane {key} vs its solo eager run", got, ref,
+                            atol=PAD_ATOL, rtol=PAD_RTOL)
+            pad_err[f"lane{lane}_{key}_vs_solo"] = max_err(got, ref)
+        del solo
+    prefix = min(16, E)
+    cpu_suite = [Scenario(name=s.name, validators=s.validators, base_validator="v0",
+                          weights=s.weights[:prefix], stakes=s.stakes[:prefix],
+                          num_epochs=len(s.weights[:prefix])) for s in suite]
+    Wc, Sc, ric, rec_, mask_c = pad_scenarios(cpu_suite, device="cpu")
+    t0 = time.perf_counter()
+    cpu = simulate_batch(Wc, Sc, ric, rec_, config, spec, miner_mask=mask_c, **saves)
+    cpu_seconds = time.perf_counter() - t0
+    for lane, scenario in enumerate(cpu_suite):
+        e, v, m = scenario.weights.shape
+        for key in keys:
+            got = real(padded, lane, e, v, m)[key].cpu()
+            ref = real(cpu, lane, e, v, m)[key]
+            check_close(f"padded suite lane {lane} {key}: card vs the CPU, {prefix} epochs",
+                        got, ref, atol=PAD_ATOL, rtol=PAD_RTOL)
+            pad_err[f"lane{lane}_{key}_vs_cpu"] = max_err(got, ref)
+    rec["padded"] = dict(shape=[2, E, V, M], lanes=[list(s.weights.shape) for s in suite],
+                         version="Yuma 1 (paper)", seconds=pad_seconds, launches=counts,
+                         cpu_prefix_epochs=prefix, cpu_prefix_seconds=cpu_seconds,
+                         max_abs_err=pad_err)
+    report["charts"] = rec
+    print(f"padded suite ok: [2, {E}, {V}, {M}] with miner masks on the eager rung in "
+          f"{pad_seconds:.3f} s, launches {counts}; unpadded lane bitwise its solo run; "
+          f"max |err| {pad_err}", flush=True)
 
 
 def sweep_phase(torch, dev, W_np, S_np, quiet_miner, launches, report):
@@ -980,6 +1157,7 @@ def main() -> int:
 
     # ---- The artifact CLI and the grid sweeps.
     cli_phase(torch, launches, report)
+    charts_phase(torch, dev, W_np, S_np, launches, report)
     sweep_phase(torch, dev, W_np, S_np, quiet_miner, launches, report)
 
     # ---- K4, K5, K6 and the scaled throughput path.
@@ -1026,6 +1204,7 @@ def main() -> int:
     print(json.dumps({"phases": report["phases"]}))
     print(json.dumps({"host_ms": report["host_ms"]}))
     print(json.dumps({"bisect": report["bisect"]}))
+    print(json.dumps({"charts": report["charts"]}))
     print(json.dumps({"cli": report["cli"], "sweeps": report["sweeps"],
                       "fma_helper": report["fma_helper"]}))
     print(json.dumps({"kernels": kernels}))

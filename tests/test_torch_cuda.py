@@ -9,7 +9,9 @@ tensor-core (K4) spellings of every scan, the case scan at epoch tiles
 that do not divide E, phase 8 inside phase 7's launch and the rank phase
 at the edges of their layouts, the scaled scan (K5) and the single fused
 epoch (K6) with their options, K6 called back to back without a
-synchronization, and the refusals on CUDA tensors.
+synchronization, the refusals on CUDA tensors, and the chart path: the
+chart table's suite through K3, a padded suite with miner masks on the
+eager rung, and the chart CLI (skipped where matplotlib is missing).
 
 Every test is marked `cuda` and takes the `cuda` fixture, which skips it
 where no CUDA device is present. The JAX package is not needed (the card's
@@ -856,3 +858,77 @@ def test_cli_sheets_on_card(cuda, tmp_path):
             and f"{mine[r][0]}|{mine[0][c]}|{mine[r][c]}|{gold[r][c]}" not in pins[beta]
         ]
         assert not outside, (beta, outside)
+
+
+def test_chart_suite_on_card(cuda):
+    """The chart table's suite (v1/api.py::_simulate_suite) on the card:
+    the 14 cases x 9 versions at bond_penalty 0.5 in 9 K3 launches, every
+    per-epoch dividend, bond and incentive array within atol 2e-6 / rtol
+    1e-5 of the same suite on the CPU."""
+    from yuma_simulation_tpu_torch.scenarios import get_cases
+    from yuma_simulation_tpu_torch.v1.api import _simulate_suite
+
+    hp = SimulationHyperparameters(bond_penalty=0.5)
+    reset_launch_counts()
+    card = _simulate_suite(get_cases(), VERSIONS, hp)
+    assert launch_counts()["varying_scan"] == 9 and sum(launch_counts().values()) == 9
+    cpu = _simulate_suite(get_cases(), VERSIONS, hp, device="cpu")
+    assert set(card) == set(cpu)
+    for key, (_, (div, bonds, inc)) in card.items():
+        _, (c_div, c_bonds, c_inc) = cpu[key]
+        np.testing.assert_allclose(np.asarray(list(div.values())),
+                                   np.asarray(list(c_div.values())), atol=ATOL, rtol=RTOL)
+        np.testing.assert_allclose(np.asarray(bonds), np.asarray(c_bonds), atol=ATOL, rtol=RTOL)
+        np.testing.assert_allclose(np.asarray(inc), np.asarray(c_inc), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("version,params", VERSIONS, ids=IDS)
+def test_padded_suite_eager_on_card(cuda, version, params):
+    """A padded suite of mixed shapes with its miner masks on CUDA tensors:
+    "auto" runs the eager rung (no kernel launch) within atol 2e-6 / rtol
+    1e-5 of the same run on CPU tensors; the fused rungs refuse the mask."""
+    from yuma_simulation_tpu_torch.scenarios.base import Scenario
+    from yuma_simulation_tpu_torch.simulation.sweep import pad_scenarios, simulate_batch
+
+    rng = np.random.default_rng(3)
+    suite = [create_case("Case 10")] + [
+        Scenario(name=f"random {e}x{v}x{m}", validators=[f"v{i}" for i in range(v)],
+                 base_validator="v0", weights=rng.random((e, v, m), dtype=np.float32),
+                 stakes=np.tile(rng.gamma(1.0, size=v).astype(np.float32), (e, 1)),
+                 num_epochs=e)
+        for e, v, m in ((30, 5, 4), (20, 3, 37))
+    ]
+    config, spec = YumaConfig(yuma_params=params), variant_for_version(version)
+    padded = pad_scenarios(suite, device=cuda)
+    reset_launch_counts()
+    got = simulate_batch(*padded[:4], config, spec, miner_mask=padded[4], save_bonds=True,
+                         save_incentives=True, x64=True)
+    assert not any(launch_counts().values()), launch_counts()
+    ref = simulate_batch(*(t.cpu() for t in padded[:4]), config, spec,
+                         miner_mask=padded[4].cpu(), save_bonds=True, save_incentives=True,
+                         x64=True)
+    for i, scenario in enumerate(suite):
+        e, v, m = scenario.weights.shape
+        for key, cut in (("dividends", (slice(e), slice(v))),
+                         ("bonds", (slice(e), slice(v), slice(m))),
+                         ("incentives", (slice(e), slice(m)))):
+            torch.testing.assert_close(got[key][i][cut].cpu(), ref[key][i][cut], atol=ATOL,
+                                       rtol=RTOL, msg=lambda msg: f"lane {i} {key}: {msg}")
+    with pytest.raises(ValueError, match="no per-scenario miner masks"):
+        simulate_batch(*padded[:4], config, spec, miner_mask=padded[4],
+                       epoch_impl="fused_varying")
+
+
+def test_chart_cli_on_card(cuda, tmp_path):
+    """The chart CLI on the card (where matplotlib is installed):
+    `--bond-penalty 0.5 --cases "Case 1"` simulates through K3 (9
+    launches) and writes 36 PNG images."""
+    pytest.importorskip("matplotlib")
+    from yuma_simulation_tpu_torch.cli.charts_table_generator import main
+
+    reset_launch_counts()
+    seconds = main(["--bond-penalty", "0.5", "--cases", "Case 1", "--out-dir", str(tmp_path)])
+    assert list(seconds) == ["0.5"]
+    assert launch_counts()["varying_scan"] == 9
+    html = (tmp_path / "simulation_results_b0.5.html").read_text()
+    assert html.count('<img src="data:image/png;base64,') == 36

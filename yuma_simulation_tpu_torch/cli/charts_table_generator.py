@@ -1,0 +1,87 @@
+"""Generate the per-beta chart-table HTML files.
+
+The port's counterpart of the JAX package's `cli/charts_table_generator.py`
+(the reference's `scripts/charts_table_generator.py`, which hard-codes its
+parameters, reference charts_table_generator.py:12-48): the same flags for
+the sweep values, the output directory, the case subset and the table
+style, and the same file names (`simulation_results_b{beta}.html`), each
+written as it completes. The suite is simulated on the card unless
+`--device cpu` is given; rendering the charts needs matplotlib:
+
+    python -m yuma_simulation_tpu_torch.cli.charts_table_generator \
+        [--bond-penalty 0 0.5 0.99 1.0] [--cases "Case 3" ...] \
+        [--out-dir DIR] [--no-draggable] [--device cuda|cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import pathlib
+import time
+
+from yuma_simulation_tpu_torch.models.config import SimulationHyperparameters
+from yuma_simulation_tpu_torch.models.variants import canonical_versions
+from yuma_simulation_tpu_torch.scenarios import create_case, get_cases
+from yuma_simulation_tpu_torch.simulation.engine import resolve_device
+from yuma_simulation_tpu_torch.v1.api import generate_chart_table
+
+
+def main(argv: list[str] | None = None) -> dict[str, float]:
+    """Write one table per `--bond-penalty` value, each as it completes.
+    Returns the wall seconds each table took, by value."""
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--bond-penalty",
+        nargs="+",
+        default=["0", "0.5", "0.99", "1.0"],
+        help="bond_penalty sweep values; kept as strings so output file "
+        "names match the reference's (b0, b0.5, b0.99, b1.0)",
+    )
+    parser.add_argument(
+        "--cases",
+        nargs="*",
+        default=None,
+        help="registry keys of cases to include, e.g. 'Case 3' "
+        "(default: all registered cases)",
+    )
+    parser.add_argument("--out-dir", type=pathlib.Path, default=pathlib.Path("."))
+    parser.add_argument(
+        "--no-draggable",
+        action="store_true",
+        help="emit the notebook-style table instead of the drag-to-scroll one",
+    )
+    parser.add_argument(
+        "--device",
+        default="cuda",
+        help="the device to simulate on (default: the card; without CUDA "
+        "this raises: pass --device cpu to run on the CPU)",
+    )
+    args = parser.parse_args(argv)
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as exc:
+        raise ImportError(
+            "charts_table_generator renders its charts with matplotlib, which is "
+            "not installed; the simulation itself does not need it "
+            "(yuma_simulation_tpu_torch.v1.api._simulate_suite)"
+        ) from exc
+    device = resolve_device(args.device)
+    cases = [create_case(name) for name in args.cases] if args.cases else get_cases()
+    args.out_dir.mkdir(parents=True, exist_ok=True)
+    seconds = {}
+    for bond_penalty in args.bond_penalty:
+        t0 = time.perf_counter()
+        hp = SimulationHyperparameters(bond_penalty=float(bond_penalty))
+        table = generate_chart_table(
+            cases, canonical_versions(), hp,
+            draggable_table=not args.no_draggable, device=device,
+        )
+        file_name = args.out_dir / f"simulation_results_b{bond_penalty}.html"
+        file_name.write_bytes(table.data.encode("utf-8"))
+        seconds[bond_penalty] = time.perf_counter() - t0
+        print(f"HTML saved to {file_name} ({seconds[bond_penalty]:.3f} s)")
+    return seconds
+
+
+if __name__ == "__main__":
+    main()

@@ -184,6 +184,7 @@ def yuma_epoch(
     bonds_mode: BondsMode = BondsMode.EMA,
     W_prev: Optional[torch.Tensor] = None,
     first_epoch=None,
+    miner_mask: Optional[torch.Tensor] = None,
     consensus_impl: str = "bisect",
     x64: bool = False,
 ) -> dict:
@@ -202,6 +203,9 @@ def yuma_epoch(
       first_epoch: a bool (or bool tensor) selecting the fresh-bond branch
         of the EMA modes when `B_old` is always a tensor; None derives it
         from `B_old is None`.
+      miner_mask: optional `[..., M]` 0/1 mask of a padded suite's miner
+        columns (1 = real); it reaches the u16 quantize and the liquid-alpha
+        quantiles, and nothing else.
       consensus_impl: "bisect" (default), "sorted" (closed form, identical
         values) or "kernel" (the CUDA bisection kernel on CUDA tensors, its
         plain version on CPU tensors; identical values).
@@ -239,6 +243,7 @@ def yuma_epoch(
         C_raw,
         sum_dtype=torch.float64 if rust64 else None,
         out_dtype=dtype,
+        miner_mask=miner_mask,
         grid_bits=bisection_iterations(config.consensus_precision),
     )
 
@@ -272,6 +277,7 @@ def yuma_epoch(
             config.alpha_high,
             override_consensus_high=config.override_consensus_high,
             override_consensus_low=config.override_consensus_low,
+            miner_mask=miner_mask,
         )
     rate_vm = _per_lane(bond_alpha, W_n)
 

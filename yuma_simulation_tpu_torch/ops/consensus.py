@@ -202,6 +202,7 @@ def quantize_u16(
     *,
     sum_dtype: Optional[torch.dtype] = None,
     out_dtype: torch.dtype = torch.float32,
+    miner_mask: Optional[torch.Tensor] = None,
     grid_bits: Optional[int] = None,
 ) -> torch.Tensor:
     """Sum-normalize C and truncate onto the u16 grid:
@@ -211,7 +212,14 @@ def quantize_u16(
     divide in float64 (Yuma 0, reference yumas.py:81). With `grid_bits`
     (every C is a grid point `k * 2^-grid_bits`) the float32 denominator is
     the exact integer sum of the `k`; beyond the int32 bound it falls back
-    to :func:`miner_sum`."""
+    to :func:`miner_sum`.
+
+    `miner_mask` (`[..., M]`, 1 = real miner, 0 = padding of a padded
+    suite) zeroes the padded columns before the sum, so padding cannot move
+    the grid of the real miners. The int32 gate still takes the padded
+    width, as the JAX package's does."""
+    if miner_mask is not None:
+        C = torch.where(miner_mask.to(torch.bool), C, torch.zeros_like(C))
     if sum_dtype is not None:
         C = C.to(sum_dtype)
     if (

@@ -11,7 +11,9 @@ Parity notes, as in the JAX package:
   traces its config) they are float32 `log`s;
 - the logistic is `e ** (-a*C + b)` (a power with base `math.e`), not `exp`;
 - the quantile is linear interpolation `v_lo*(1-frac) + v_hi*frac` at
-  position `q*(n-1)` computed in the working dtype.
+  position `q*(n-1)` computed in the working dtype; over a padded suite's
+  real miners only (`miner_mask`), with the interpolation one FMA, as XLA
+  compiles the JAX package's masked quantile.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from yuma_simulation_tpu_torch.ops.fma import fma
 
 
 def _logit(x) -> float:
@@ -41,6 +45,26 @@ def _quantile(C: torch.Tensor, q: float) -> torch.Tensor:
     return v_lo * (1.0 - frac) + v_hi * frac
 
 
+def _masked_quantile(C: torch.Tensor, q: float, mask: torch.Tensor) -> torch.Tensor:
+    """The quantile over the real miners only (`mask` 1 = real, 0 =
+    padding, `[..., M]`), so padded columns cannot shift the liquid-alpha
+    quantiles: a sort with `+inf` in the padded places, then linear
+    interpolation at `q * (n - 1)`, `n` the real count of each row. XLA's
+    CPU backend contracts the interpolation's first product into its add
+    (ROADMAP §C), so it is `fma(v_lo, 1 - frac, v_hi * frac)`."""
+    dtype = C.dtype
+    real = mask.to(torch.bool)
+    s = torch.sort(torch.where(real, C, _as(math.inf, C)), dim=-1).values
+    n = real.to(dtype).sum(dim=-1)
+    p = _as(q, C) * (n - 1.0)
+    lo = torch.floor(p).to(torch.int64)
+    hi = torch.ceil(p).to(torch.int64)
+    frac = p - lo.to(dtype)
+    v_lo = torch.gather(s, -1, lo.unsqueeze(-1)).squeeze(-1)
+    v_hi = torch.gather(s, -1, hi.unsqueeze(-1)).squeeze(-1)
+    return fma(v_lo, 1.0 - frac, v_hi * frac)
+
+
 def _as(x, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(x, dtype=like.dtype, device=like.device)
 
@@ -52,8 +76,11 @@ def liquid_alpha_rate(
     *,
     override_consensus_high: Optional[float] = None,
     override_consensus_low: Optional[float] = None,
+    miner_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per-miner EMA rate from quantized consensus `[..., M]`.
+    """Per-miner EMA rate from quantized consensus `[..., M]`. With
+    `miner_mask` (`[..., M]` 0/1, a padded suite) the quantiles are taken
+    over the real miners only.
 
     Returns `(bond_alpha [..., M], a, b)`, `a`/`b` the fitted logistic
     coefficients (0-d, or `[...]` when batched).
@@ -69,17 +96,25 @@ def liquid_alpha_rate(
                 C[i : i + 1], *(x[i : i + 1] if np.ndim(x) else x for x in (alpha_low, alpha_high)),
                 override_consensus_high=override_consensus_high,
                 override_consensus_low=override_consensus_low,
+                miner_mask=(miner_mask[i : i + 1]
+                            if miner_mask is not None and miner_mask.ndim > 1 else miner_mask),
             )
             for i in range(C.shape[0])
         ]
         return tuple(torch.cat(parts) for parts in zip(*lanes))
+
+    def quant(q):
+        if miner_mask is None:
+            return _quantile(C, q)
+        return _masked_quantile(C, q, miner_mask)
+
     # Degenerate spread falls back to the 0.99 quantile (yumas.py:132-133),
     # checked after the overrides are substituted; with BOTH overridden the
     # reference compares two Python floats, decided here statically.
     if override_consensus_high is not None and override_consensus_low is not None:
         c_low = _as(override_consensus_low, C)
         c_high = (
-            _quantile(C, 0.99)
+            quant(0.99)
             if override_consensus_high == override_consensus_low
             else _as(override_consensus_high, C)
         )
@@ -87,12 +122,12 @@ def liquid_alpha_rate(
         if override_consensus_high is not None:
             c_high = _as(override_consensus_high, C)
         else:
-            c_high = _quantile(C, 0.75)
+            c_high = quant(0.75)
         if override_consensus_low is not None:
             c_low = _as(override_consensus_low, C)
         else:
-            c_low = _quantile(C, 0.25)
-        c_high = torch.where(c_high == c_low, _quantile(C, 0.99), c_high)
+            c_low = quant(0.25)
+        c_high = torch.where(c_high == c_low, quant(0.99), c_high)
 
     if isinstance(alpha_high, (int, float)) and isinstance(alpha_low, (int, float)):
         num = _as(_logit(alpha_high) - _logit(alpha_low), C)

@@ -1,9 +1,12 @@
-"""Dividend aggregation and the total-dividends table.
+"""Dividend aggregation, the total-dividends table and the chart grid's HTML.
 
 The port's counterparts of the JAX package's `reporting/tables.py`
-(`calculate_total_dividends`, `generate_total_dividends_table`), which
-follow the reference's `_calculate_total_dividends` (charts_utils.py:15-45)
-and `generate_total_dividends_table` (simulation_utils.py:319-381). The
+(`calculate_total_dividends`, `generate_total_dividends_table`, and the
+HTML functions `generate_draggable_html_table` / `generate_ipynb_table`),
+which follow the reference's `_calculate_total_dividends`
+(charts_utils.py:15-45), `generate_total_dividends_table`
+(simulation_utils.py:319-381) and its two HTML tables
+(simulation_utils.py:115-316). The
 table is a plain :class:`Table` of columns and rows instead of a pandas
 DataFrame, and :meth:`Table.to_csv` writes the bytes pandas'
 `to_csv(index=False, float_format="%.6f")` writes, with the stdlib `csv`
@@ -123,3 +126,121 @@ def generate_total_dividends_table(
         for i, row in enumerate(rows):
             row.extend(float(totals[i, j]) for j in range(len(_STANDARD_VALIDATORS)))
     return Table(columns=columns, rows=rows)
+
+
+# --- HTML assembly -----------------------------------------------------------
+
+
+_SCROLL_TABLE_CSS = """
+<style>
+  body { margin: 0; padding: 0; overflow: hidden; }
+  .yuma-table-scroll {
+    background: #fff;
+    width: 100%;
+    height: 100vh;
+    overflow: auto;
+    border: 1px solid #ccc;
+    position: relative;
+    user-select: none;
+    cursor: grab;
+  }
+  .yuma-table-scroll:active { cursor: grabbing; }
+  .yuma-case-even td { background: #ffffff !important; }
+  .yuma-case-odd td { background: #f0f0f0 !important; }
+  .yuma-table-scroll img {
+    user-select: none;
+    -webkit-user-drag: none;
+    pointer-events: none;
+  }
+  table { border-collapse: collapse; margin: 0; width: auto; }
+  td, th { padding: 10px; vertical-align: top; text-align: center; }
+</style>
+"""
+
+_DRAG_SCROLL_JS = """
+<script>
+  document.addEventListener('DOMContentLoaded', () => {
+    const pane = document.querySelector('.yuma-table-scroll');
+    let drag = null;
+    pane.addEventListener('dragstart', e => e.preventDefault());
+    pane.addEventListener('mousedown', e => {
+      e.preventDefault();
+      drag = {x: e.clientX, y: e.clientY,
+              left: pane.scrollLeft, top: pane.scrollTop};
+    });
+    document.addEventListener('mouseup', () => { drag = null; });
+    document.addEventListener('mousemove', e => {
+      if (!drag) return;
+      e.preventDefault();
+      pane.scrollLeft = drag.left - (e.clientX - drag.x);
+      pane.scrollTop = drag.top - (e.clientY - drag.y);
+    });
+  });
+</script>
+"""
+
+_NOTEBOOK_CSS = """
+<style>
+  .yuma-table-scroll {
+    background: #fff;
+    width: 100%;
+    overflow-x: auto;
+    overflow-y: hidden;
+    white-space: nowrap;
+    border: 1px solid #ccc;
+  }
+  table { border-collapse: collapse; table-layout: auto; width: auto; }
+  td, th { padding: 10px; vertical-align: top; text-align: center; }
+  .yuma-case-even td { background: #ffffff !important; }
+  .yuma-case-odd td { background: #f8f8f8 !important; }
+</style>
+"""
+
+
+def _table_body(
+    summary_table: Table,
+    case_row_ranges: list[tuple[int, int, int]],
+) -> str:
+    def case_index(row: int) -> int:
+        for start, end, idx in case_row_ranges:
+            if start <= row <= end:
+                return idx
+        return 0
+
+    head = "".join(f"<th>{col}</th>" for col in summary_table.columns)
+    body = []
+    for row, values in enumerate(summary_table.rows):
+        parity = "even" if case_index(row) % 2 == 0 else "odd"
+        cells = "".join(f"<td>{value}</td>" for value in values)
+        body.append(f"<tr class='yuma-case-{parity}'>{cells}</tr>")
+    return (
+        "<div class='yuma-table-scroll'><table>"
+        f"<thead><tr>{head}</tr></thead>"
+        f"<tbody>{''.join(body)}</tbody>"
+        "</table></div>"
+    )
+
+
+def generate_draggable_html_table(
+    table_data: dict[str, list[str]],
+    summary_table: Table,
+    case_row_ranges: list[tuple[int, int, int]],
+) -> str:
+    """Standalone HTML chart grid with drag-to-scroll
+    (reference simulation_utils.py:115-248). `summary_table` is the
+    :class:`Table` of chart cells (one column per version, one row per
+    chart); `case_row_ranges` holds `(first_row, last_row, case_index)`."""
+    del table_data  # kept for signature parity; summary_table carries the cells
+    return _SCROLL_TABLE_CSS + _DRAG_SCROLL_JS + _table_body(
+        summary_table, case_row_ranges
+    )
+
+
+def generate_ipynb_table(
+    table_data: dict[str, list[str]],
+    summary_table: Table,
+    case_row_ranges: list[tuple[int, int, int]],
+) -> str:
+    """Notebook-friendly chart grid (reference simulation_utils.py:250-316)."""
+    del table_data
+    return _NOTEBOOK_CSS + _table_body(summary_table, case_row_ranges)

@@ -14,6 +14,7 @@ from yuma_simulation_tpu_torch.simulation.engine import (  # noqa: F401
 from yuma_simulation_tpu_torch.simulation.sweep import (  # noqa: F401
     build_config_batch,
     config_grid,
+    pad_scenarios,
     simulate_batch,
     stack_scenarios,
     sweep_hyperparams,

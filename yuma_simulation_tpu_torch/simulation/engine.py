@@ -17,8 +17,9 @@ the varying scan when its epoch tile reaches 2, else the case scan, for
 CUDA tensors; "eager" on `device="cpu"`, as JAX's "auto" resolves to its
 XLA rung off the TPU, and where the dyadic quantize grid no longer fits
 int32 (the fused and eager quantize fallbacks may differ by an ulp there,
-so "auto" never mixes them). The fused rungs on CPU tensors run the
-kernels' plain PyTorch versions.
+so "auto" never mixes them), and for a padded suite with per-scenario miner
+masks, which only the eager rung takes. The fused rungs on CPU tensors run
+the kernels' plain PyTorch versions.
 
 The throughput paths (:func:`simulate_scaled`, :func:`simulate_scaled_batch`,
 :func:`simulate_constant`) return dividend totals and the final bonds
@@ -121,11 +122,15 @@ def plan_engine(
     dtype,
     device: torch.device,
     precision: int = 100_000,
+    has_miner_mask: bool = False,
 ) -> str:
     """Resolve `epoch_impl` for a `[(B,) E, V, M]` workload to a rung.
     `auto` never picks a fused rung once `M * 2^iters >= 2^31` (the JAX
     package's gate, pallas_epoch.py:1308-1315); that test comes before any
-    query of the device."""
+    query of the device. A padded suite's per-scenario miner mask
+    (`has_miner_mask`) runs on the eager rung only, as the JAX planner
+    sends it to its XLA rung: "auto" resolves to "eager" and a fused rung
+    raises."""
     if epoch_impl not in EPOCH_IMPLS:
         raise ValueError(
             f"unknown epoch_impl {epoch_impl!r}; expected one of {EPOCH_IMPLS}"
@@ -137,12 +142,17 @@ def plan_engine(
         )
     fusable = consensus_impl in ("auto", "bisect") and dtype == torch.float32
     if epoch_impl == "auto":
-        if device.type != "cuda" or not fusable or shape[-3] < 1:
+        if device.type != "cuda" or not fusable or has_miner_mask or shape[-3] < 1:
             return "eager"
         if not dyadic_grid_fits_int32(shape[-1], bisection_iterations(precision)):
             return "eager"
         tile = varying_scan_epoch_tile(tuple(shape), device)
         return "fused_varying" if tile >= 2 else "fused_scan"
+    if epoch_impl in FUSED_RUNGS and has_miner_mask:
+        raise ValueError(
+            "the batched fused case scan has no per-scenario miner masks; "
+            "heterogeneous suites use epoch_impl='eager'"
+        )
     if epoch_impl in FUSED_RUNGS and not fusable:
         raise ValueError(
             f"epoch_impl={epoch_impl!r} bisects in-kernel on float32: it needs "
@@ -285,6 +295,7 @@ def _simulate_scan(
     save_incentives: bool = True,
     save_consensus: bool = False,
     consensus_impl: str = "bisect",
+    miner_mask: Optional[torch.Tensor] = None,  # [(B,) M] 1 = real, 0 = padding
     carry: Optional[dict] = None,
     epoch_offset: int = 0,
     return_carry: bool = False,
@@ -293,12 +304,15 @@ def _simulate_scan(
     """The eager rung: a Python loop over :func:`yuma_epoch`, carrying
     `(bonds, w_prev, consensus)`. Returns the per-epoch outputs stacked on
     the epoch axis (`dividends [(B,) E, V]`, ...), plus the final carry
-    with `return_carry`."""
+    with `return_carry`. `miner_mask` marks a padded suite's real miner
+    columns, per scenario (`[B, M]`) or shared (`[M]`)."""
     *lead, E, V, M = weights.shape
     dtype, dev = weights.dtype, weights.device
     cfg = _tensor_config(config, dev)
     ri = torch.as_tensor(reset_index, device=dev)
     r_epoch = torch.as_tensor(reset_epoch, device=dev)
+    if miner_mask is not None:
+        miner_mask = torch.as_tensor(miner_mask, dtype=dtype).to(dev)
     if carry is None:
         B = torch.zeros(tuple(lead) + (V, M), dtype=dtype, device=dev)
         W_prev = torch.zeros_like(B)
@@ -330,6 +344,7 @@ def _simulate_scan(
             bonds_mode=spec.bonds_mode,
             W_prev=kernel_prev,
             first_epoch=epoch == 0,
+            miner_mask=miner_mask,
             consensus_impl=consensus_impl,
             x64=x64,
         )

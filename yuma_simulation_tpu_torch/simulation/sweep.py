@@ -11,7 +11,9 @@ a scalar config.
 
 The grid sweeps: :func:`sweep_hyperparams` (one scenario over a config
 grid, on the case scans), :func:`sweep_scaled_fused` (the scaled workload
-over a grid, on the scaled scan) and :func:`total_dividends_batch`.
+over a grid, on the scaled scan) and :func:`total_dividends_batch`. A suite
+of mixed shapes is padded to one shape by :func:`pad_scenarios`, with a
+per-scenario miner mask that :func:`simulate_batch` takes.
 """
 
 from __future__ import annotations
@@ -57,6 +59,52 @@ def _reset_metadata(scenarios: Sequence[Scenario], device):
     return r_idx.to(device), r_epoch.to(device)
 
 
+def pad_scenarios(
+    scenarios: Sequence[Scenario],
+    dtype: torch.dtype = torch.float32,
+    *,
+    pack_tiles: bool = False,
+    device="cuda",
+):
+    """Pad a suite of mixed shapes to one `[B, E, V, M]` shape, as the JAX
+    package does: appended epochs get zero weights and zero stakes (the
+    dividend conversion's `stake > 1e-6` guard gives them zero dividends),
+    appended validators zero stake, and appended miner columns zero weight
+    and a 0 in the returned per-scenario miner mask, which keeps them out
+    of the u16 quantize and the liquid-alpha quantiles.
+
+    Returns `(W [B, E, V, M], S [B, E, V], reset_index [B], reset_epoch
+    [B], miner_mask [B, M])` on `device`. `pack_tiles=True` (the JAX
+    package's donor packing to the planner's tile buckets) is not ported
+    yet (ROADMAP queue A, part 3e: the planner)."""
+    if pack_tiles:
+        raise NotImplementedError(
+            "pad_scenarios(pack_tiles=True) packs to the planner's shape buckets, "
+            "which are not ported yet (ROADMAP queue A, part 3e: the planner)"
+        )
+    dev = resolve_device(device)
+    E = max(s.weights.shape[0] for s in scenarios)
+    V = max(s.weights.shape[1] for s in scenarios)
+    M = max(s.weights.shape[2] for s in scenarios)
+    B = len(scenarios)
+    W = np.zeros((B, E, V, M), np.float32)
+    S = np.zeros((B, E, V), np.float32)
+    mask = np.zeros((B, M), np.float32)
+    for i, s in enumerate(scenarios):
+        e, v, m = s.weights.shape
+        W[i, :e, :v, :m] = s.weights
+        S[i, :e, :v] = s.stakes
+        mask[i, :m] = 1.0
+    r_idx, r_epoch = _reset_metadata(scenarios, dev)
+    return (
+        torch.as_tensor(W, dtype=dtype).to(dev),
+        torch.as_tensor(S, dtype=dtype).to(dev),
+        r_idx,
+        r_epoch,
+        torch.as_tensor(mask, dtype=dtype).to(dev),
+    )
+
+
 def stack_scenarios(
     scenarios: Sequence[Scenario], dtype: torch.dtype = torch.float32, device="cuda"
 ):
@@ -73,9 +121,9 @@ def stack_scenarios(
 
 
 def _run_batch(weights, stakes, reset_index, reset_epoch, config, spec, *, engine,
-               consensus_impl, carry=None, **common):
+               consensus_impl, carry=None, miner_mask=None, **common):
     """One batch on the rung `engine`; `carry` (leading batch dim) resumes
-    every lane."""
+    every lane; `miner_mask` (eager rung only) marks padded miners."""
     if engine in FUSED_RUNGS:
         return _simulate_case_fused(
             weights, stakes, reset_index, reset_epoch, config, spec,
@@ -85,7 +133,7 @@ def _run_batch(weights, stakes, reset_index, reset_epoch, config, spec, *, engin
     V, M = weights.shape[-2:]
     return _simulate_scan(weights, stakes, reset_index, reset_epoch, config, spec,
                           consensus_impl=resolve_consensus_impl(consensus_impl, V, M),
-                          carry=carry, **common)
+                          miner_mask=miner_mask, carry=carry, **common)
 
 
 def simulate_batch(
@@ -98,6 +146,7 @@ def simulate_batch(
     save_bonds: bool = False,
     save_incentives: bool = False,
     consensus_impl: str = "bisect",
+    miner_mask: Optional[torch.Tensor] = None,  # [B, M] for padded suites
     epoch_impl: str = "auto",
     x64: bool = False,
 ) -> dict:
@@ -105,18 +154,21 @@ def simulate_batch(
     Returns `{"dividends": [B, E, V], ...}` tensors. `epoch_impl` as in
     :func:`..engine.simulate` ("auto" is the varying or case scan on CUDA
     tensors, the eager rung on CPU tensors). `config` may carry `[B]`
-    fields, one value per scenario (a :func:`config_grid` grid)."""
+    fields, one value per scenario (a :func:`config_grid` grid).
+    `miner_mask` (from :func:`pad_scenarios`) marks each scenario's real
+    miners; such a suite runs on the eager rung ("auto" resolves to it, a
+    fused rung raises), as the JAX package runs it on its XLA rung."""
     if weights.ndim != 4:
         raise ValueError(f"weights must be [B, E, V, M], got {tuple(weights.shape)}")
     config_lanes(config, weights.shape[0])
     dev = resolve_device(weights.device)
     engine = plan_engine(
         epoch_impl, consensus_impl, weights.shape, weights.dtype, dev,
-        config.consensus_precision,
+        config.consensus_precision, has_miner_mask=miner_mask is not None,
     )
     return _run_batch(
         weights, stakes, reset_index, reset_epoch, config, spec, engine=engine,
-        consensus_impl=consensus_impl, save_bonds=save_bonds,
+        consensus_impl=consensus_impl, miner_mask=miner_mask, save_bonds=save_bonds,
         save_incentives=save_incentives, save_consensus=False, x64=x64,
     )
 
@@ -268,15 +320,15 @@ def total_dividends_batch(
     """`[B, V]` total dividends of a suite of same-shaped scenarios: the
     per-epoch dividends of one :func:`simulate_batch`, summed over epochs
     on the device. Suites of mixed shapes need the JAX package's donor
-    packing (`pack_scenarios` with per-scenario miner masks), which is
-    not ported yet (ROADMAP queue A, part 3e)."""
+    packing (`pack_scenarios`: :func:`pad_scenarios` to the planner's tile
+    buckets), which is not ported yet (ROADMAP queue A, part 3e)."""
     config = config if config is not None else YumaConfig()
     spec = variant_for_version(yuma_version)
     if len({np.shape(s.weights) for s in scenarios}) != 1:
         raise NotImplementedError(
             "total_dividends_batch: scenarios of different shapes need "
-            "pack_scenarios and per-scenario miner masks, which are not ported "
-            "yet (ROADMAP queue A, part 3e: the planner)"
+            "pack_scenarios (padding to the planner's tile buckets), which is "
+            "not ported yet (ROADMAP queue A, part 3e: the planner)"
         )
     W, S, ri, re_ = stack_scenarios(scenarios, dtype, device)
     ys = simulate_batch(W, S, ri, re_, config, spec, x64=x64)
