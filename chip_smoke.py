@@ -44,7 +44,15 @@ process per source, on first use), then:
    through `sweep_hyperparams` (K3; Yuma 1, and Yuma 3.1 with its reset)
    over the 256 x 4096 x 64 workload and `sweep_scaled_fused` (K5) over its
    first epoch x 64 scales, each lane bitwise its solo scalar run, with
-   wall seconds per sheet and scenario-epochs/s printed;
+   wall seconds per sheet and scenario-epochs/s printed; then the long
+   runs (streams_phase): `simulate_streamed` and `simulate(max_resident_
+   epochs=16)` bitwise the monolithic run at 256 x 4096 x 64 (slabs
+   [16]*4 and [23, 23, 18], K3 and K2, Yuma 1 / 2 / 3.1, one launch a
+   slab), a 2048-epoch stream of 256-epoch slabs bitwise the monolithic
+   8.6 GB run with its peak allocation within the plan's two-slab
+   estimate, the HBM preflight refusing a (20000, 256, 4096) stack with
+   nothing allocated, `simulate_generated` over chunks drawn on the card,
+   and a donor-packed mixed suite through `total_dividends_batch`;
 6. holds K4 (the bisection's support on the tensor cores) against its
    plain version at 256 x 4096 bitwise, timed as K1 at one slab and 16,
    and K2, K3 and K5 with `mxu=True`
@@ -73,7 +81,9 @@ process per source, on first use), then:
    `{"bisect": {...}}` line (K1's and K4's event and device ms at 1 and 16
    slabs), one `{"charts": {...}}` line (the chart suite's seconds per
    beta, the padded suite's seconds and errors), one `{"cli": ...,
-   "sweeps": ..., "fma_helper": ...}` line, and one `{"kernels": [...]}`
+   "sweeps": ..., "fma_helper": ...}` line, one `{"streams": {...}}` line
+   (the long stream's epochs/s, peak bytes and its parts timed alone; the
+   preflight's message; the sync-debug warnings), and one `{"kernels": [...]}`
    line for K1-K6 (launches on the
    main paths, max |kernel - plain|, kernel and plain times from CUDA
    events, the roofline bound, and a library call's time where one
@@ -753,6 +763,269 @@ def sweep_phase(torch, dev, W_np, S_np, quiet_miner, launches, report):
           f"bitwise its solo run; {G * E / seconds:.1f} scenario-epochs/s", flush=True)
 
 
+def _np_equal(label, got, ref):
+    if not np.array_equal(got, ref, equal_nan=True):
+        bad = int((got != ref).sum())
+        raise AssertionError(f"{label}: {bad} of {np.size(got)} values differ")
+
+
+def streams_phase(torch, dev, W_np, S_np, quiet_miner, launches, report):
+    """Long runs on the card (`simulate_streamed`, `simulate(max_resident_
+    epochs=)`, `simulate_generated`), the HBM preflight, and a donor-packed
+    mixed suite:
+
+    - streamed against monolithic, bitwise (dividends and the final carry),
+      at 256 x 4096 x 64 with slabs [16, 16, 16, 16] and [23, 23, 18], on
+      auto (K3) and on "fused_scan" (K2), for Yuma 1, Yuma 2 (the w_prev
+      carry) and Yuma 3.1 (its reset at epoch 30, inside the second slab);
+      one scan launch a slab; one stream run under
+      `torch.cuda.set_sync_debug_mode("warn")`, its warnings printed;
+    - a long stream: 2048 epochs in 256-epoch slabs (1.07 GB each), the
+      host holding four distinct slabs in turn; dividends bitwise the
+      monolithic `simulate` of the same 8.6 GB stack; the stream's peak
+      allocation within the plan's estimate for STREAM_BUFFERS resident
+      slabs, and under half the monolithic peak; epochs/s of both; then
+      the stream once more under `stream_timeline()`: CUDA events around
+      each copy and scan inside the stream (the copy time that ran while a
+      scan ran, the card's busy time and idle share) and the host's
+      staging time inside `_CudaSlabs.stage`;
+    - the preflight: `simulate` of a (20000, 256, 4096) broadcast view
+      (84 GB, no host memory) raises HBMPreflightError naming a
+      `max_resident_epochs`, with nothing allocated on the card;
+    - `simulate_generated` over chunks drawn on the card (a CUDA
+      torch.Generator seeded per chunk), bitwise the monolithic run;
+    - `total_dividends_batch` of Case 1 with a random subnet (donor-packed,
+      eager rung) within PAD_RTOL / PAD_ATOL of the same call on the CPU."""
+    import warnings
+
+    from yuma_simulation_tpu_torch.models.config import YumaConfig
+    from yuma_simulation_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from yuma_simulation_tpu_torch.scenarios import create_case
+    from yuma_simulation_tpu_torch.scenarios.base import Scenario
+    from yuma_simulation_tpu_torch.scenarios.synthetic import random_subnet_scenario
+    from yuma_simulation_tpu_torch.simulation.engine import (
+        simulate,
+        simulate_generated,
+        simulate_streamed,
+        stream_timeline,
+    )
+    from yuma_simulation_tpu_torch.simulation.planner import (
+        STREAM_BUFFERS,
+        plan_dispatch,
+        scan_scratch_bytes,
+    )
+    from yuma_simulation_tpu_torch.simulation.sweep import total_dividends_batch
+    from yuma_simulation_tpu_torch.telemetry.cost import HBMPreflightError, estimate_hbm_bytes
+
+    rec: dict = {}
+    validators = [f"v{i}" for i in range(V)]
+    reset_epoch = 30
+
+    def scenario(Wx, Sx, reset=True):
+        return Scenario(
+            name="stream", validators=validators, base_validator="v0", weights=Wx,
+            stakes=Sx, num_epochs=len(Wx), reset_bonds_index=quiet_miner if reset else None,
+            reset_bonds_epoch=reset_epoch if reset else None,
+        )
+
+    def counted(fn):
+        reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, launch_counts()
+
+    # ---- Streamed against monolithic, bitwise, on K3 and K2.
+    scen = scenario(W_np, S_np)
+    offs = np.cumsum([0, 23, 23, 18])
+    ragged = [(W_np[a:b], S_np[a:b]) for a, b in zip(offs[:-1], offs[1:])]
+    even = [(W_np[a:a + 16], S_np[a:a + 16]) for a in range(0, E, 16)]
+    checked = 0
+    for version in ("Yuma 1 (paper)", "Yuma 2 (Adrian-Fish)", "Yuma 3.1 (Rhef+reset)"):
+        for impl, counter in (("auto", "varying_scan"), ("fused_scan", "case_scan")):
+            kw = dict(save_bonds=False, save_incentives=False, epoch_impl=impl,
+                      return_state=True)
+            mono = simulate(scen, version, **kw)
+            for label, chunks in (("[16]*4", even), ("[23, 23, 18]", ragged)):
+                got, counts = counted(lambda: simulate_streamed(
+                    chunks, version, reset_bonds_index=quiet_miner,
+                    reset_bonds_epoch=reset_epoch, **kw))
+                assert got.engine == mono.engine, (got.engine, mono.engine)
+                assert counts[counter] == len(chunks), (label, counts)
+                launches[counter] = launches.get(counter, 0) + counts[counter]
+                _np_equal(f"stream {version} {impl} {label} dividends",
+                          got.dividends, mono.dividends)
+                for key, value in mono.final_state.items():
+                    _np_equal(f"stream {version} {impl} {label} final {key}",
+                              got.final_state[key], value)
+                checked += 1
+            got, counts = counted(lambda: simulate(scen, version, max_resident_epochs=16, **kw))
+            assert counts[counter] == 4, counts
+            launches[counter] = launches.get(counter, 0) + counts[counter]
+            _np_equal(f"max_resident_epochs {version} {impl}", got.dividends, mono.dividends)
+            print(f"streams ok: {version} {impl} -> {mono.engine}: slabs [16]*4, "
+                  "[23, 23, 18] and max_resident_epochs=16 bitwise the monolithic run",
+                  flush=True)
+    rec["bitwise_streams"] = checked
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            simulate_streamed(ragged, "Yuma 1 (paper)", reset_bonds_index=quiet_miner,
+                              reset_bonds_epoch=reset_epoch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # torch announces the mode itself ("a prototype feature"); the rest
+    # are synchronizing calls.
+    syncs = sorted({f"{w.filename.split('yuma_simulation_tpu_torch/')[-1]}:{w.lineno}: "
+                    f"{str(w.message)[:80]}" for w in caught
+                    if "prototype feature" not in str(w.message)})
+    rec["sync_debug_warnings"] = syncs
+    print(f"streams: set_sync_debug_mode('warn') over a 3-slab stream: {len(syncs)} "
+          f"synchronizing calls {syncs}", flush=True)
+
+    # ---- A long stream: 2048 epochs in 256-epoch slabs, four distinct
+    # slabs on the host, reused in turn.
+    slab_epochs, n_slabs = 256, 8
+    t0 = time.perf_counter()
+    tiled_W = np.concatenate([W_np] * (slab_epochs // E))
+    tiled_S = np.concatenate([S_np] * (slab_epochs // E))
+    slabs = [(np.roll(tiled_W, 37 * k, axis=2), np.roll(tiled_S, 5 * k, axis=1))
+             for k in range(4)]
+    del tiled_W, tiled_S
+    print(f"streams: four {slab_epochs}-epoch slabs made in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    def stream():
+        return (slabs[i % 4] for i in range(n_slabs))
+
+    long_epochs = slab_epochs * n_slabs
+    version = "Yuma 1 (paper)"
+    plan = plan_dispatch("streams", (slab_epochs, V, M), version, YumaConfig(),
+                         torch.float32, streaming=True, device=dev)
+    two_slabs = estimate_hbm_bytes(
+        V, M, resident_epochs=STREAM_BUFFERS * slab_epochs,
+        scratch_bytes=scan_scratch_bytes(plan.engine, V, M),
+    ).total_bytes
+    simulate_streamed(stream(), version)  # warm-up: pinned buffers, allocator
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    streamed = simulate_streamed(stream(), version)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    counts = launch_counts()
+    stream_peak = torch.cuda.max_memory_allocated() - base
+    assert streamed.engine == plan.engine == "fused_varying", (streamed.engine, plan.engine)
+    assert counts["varying_scan"] == n_slabs, counts
+    launches["varying_scan"] += counts["varying_scan"]
+    big = scenario(np.concatenate([s[0] for s in stream()]),
+                   np.concatenate([s[1] for s in stream()]), reset=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mono = simulate(big, version, save_bonds=False, save_incentives=False)
+    torch.cuda.synchronize()
+    mono_s = time.perf_counter() - t0
+    mono_peak = torch.cuda.max_memory_allocated() - base
+    _np_equal("long stream dividends", streamed.dividends, mono.dividends)
+    assert np.isfinite(streamed.dividends).all()
+    assert stream_peak <= two_slabs, (stream_peak, two_slabs)
+    assert stream_peak * 2 < mono_peak, (stream_peak, mono_peak)
+    del big, mono
+    # The same stream once more under the timeline: events around each
+    # copy and scan inside the stream, the host's staging time in it.
+    t0 = time.perf_counter()
+    with stream_timeline() as timeline:
+        timed = simulate_streamed(stream(), version)
+        torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    _np_equal("timed long stream dividends", timed.dividends, streamed.dividends)
+    tl = timeline.summary()
+    assert tl["slabs"] == n_slabs and len(timeline.copies) == n_slabs, tl
+    assert tl["copy_scan_overlap_ms"] <= min(tl["copy_ms"], tl["scan_ms"]) + 1e-3, tl
+    rec["long_stream"] = dict(
+        epochs=long_epochs, slab_epochs=slab_epochs, slab_bytes=slab_epochs * V * M * 4,
+        stream_seconds=stream_s, stream_epochs_per_s=long_epochs / stream_s,
+        monolithic_seconds=mono_s, monolithic_epochs_per_s=long_epochs / mono_s,
+        stream_peak_bytes=stream_peak, two_slab_estimate_bytes=two_slabs,
+        monolithic_peak_bytes=mono_peak, timed_stream_seconds=timed_s,
+        device_idle_share=1.0 - tl["busy_ms"] / (timed_s * 1e3), timeline=tl,
+    )
+    print(f"streams: {long_epochs} epochs in {slab_epochs}-epoch slabs bitwise the monolithic "
+          f"run; {long_epochs / stream_s:.1f} epochs/s streamed vs {long_epochs / mono_s:.1f} "
+          f"monolithic; peak {stream_peak / 2**30:.3f} GiB (estimate for {STREAM_BUFFERS} "
+          f"slabs {two_slabs / 2**30:.3f}, monolithic {mono_peak / 2**30:.3f})", flush=True)
+    print(f"streams: timed stream {timed_s:.3f} s: host staging {tl['fill_s']:.3f} s filling "
+          f"+ {tl['wait_s']:.3f} s waiting; copies {tl['copy_ms']:.1f} ms, scans "
+          f"{tl['scan_ms']:.1f} ms, copy time hidden behind the scans "
+          f"{tl['copy_scan_overlap_ms']:.2f} ms; card busy {tl['busy_ms']:.1f} ms "
+          f"(idle share {rec['long_stream']['device_idle_share']:.4f}); "
+          f"{tl['hidden_slabs']} of {n_slabs - 1} slabs' copy + scan "
+          f"({tl['hidden_behind_staging_ms']:.1f} ms) ended behind the next slab's staging",
+          flush=True)
+
+    # ---- The preflight: an 84 GB stack is refused before any allocation.
+    huge_E = 20000
+    huge = Scenario(
+        name="huge", validators=validators, base_validator="v0",
+        weights=np.broadcast_to(W_np[:1], (huge_E, V, M)),
+        stakes=np.broadcast_to(S_np[:1], (huge_E, V)), num_epochs=huge_E,
+    )
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    try:
+        simulate(huge, version)
+    except HBMPreflightError as err:
+        message = str(err)
+    else:
+        raise AssertionError("a (20000, 256, 4096) stack was not refused")
+    assert "max_resident_epochs<=" in message, message
+    assert torch.cuda.memory_allocated() == before
+    rec["preflight"] = message
+    print(f"streams: preflight refused [{huge_E}, {V}, {M}] with nothing allocated: {message}",
+          flush=True)
+
+    # ---- simulate_generated: chunks drawn on the card.
+    CH, chunks_n = 64, 4
+
+    def gen(i):
+        g = torch.Generator(device=dev)
+        g.manual_seed(1000 + i)
+        Wg = torch.rand((CH, V, M), generator=g, device=dev)
+        Wg = torch.where(Wg > 0.99, Wg, torch.zeros_like(Wg))
+        return Wg, torch.rand((CH, V), generator=g, device=dev) + 0.01
+
+    (d_gen, b_gen), counts = counted(lambda: simulate_generated(gen, chunks_n, version))
+    assert counts["varying_scan"] == chunks_n, counts
+    launches["varying_scan"] += counts["varying_scan"]
+    parts = [gen(i) for i in range(chunks_n)]
+    stack = scenario(torch.cat([p[0] for p in parts]).cpu().numpy(),
+                     torch.cat([p[1] for p in parts]).cpu().numpy(), reset=False)
+    del parts
+    mono = simulate(stack, version, save_bonds=False, save_incentives=False, return_state=True)
+    _np_equal("simulate_generated dividends", d_gen, mono.dividends)
+    _np_equal("simulate_generated final bonds", b_gen, mono.final_state["bonds"])
+    rec["generated"] = dict(chunks=chunks_n, chunk_epochs=CH, launches=counts["varying_scan"])
+    print(f"streams: simulate_generated {chunks_n} x {CH} epochs drawn on the card bitwise "
+          "the monolithic run", flush=True)
+
+    # ---- A mixed suite through total_dividends_batch (donor-packed).
+    suite = [create_case("Case 1"),
+             random_subnet_scenario(7, num_validators=5, num_miners=4, num_epochs=30)]
+    for version in ("Yuma 1 (paper)", "Yuma 1 (paper) - liquid alpha on"):
+        got, counts = counted(lambda: total_dividends_batch(suite, version))
+        ref = total_dividends_batch(suite, version, device="cpu")
+        assert not any(counts.values()), counts  # the masked suite runs eager
+        assert got.shape == ref.shape == (2, 8), got.shape
+        np.testing.assert_allclose(got, ref, rtol=PAD_RTOL, atol=PAD_ATOL)
+    rec["mixed_suite_max_abs"] = float(np.abs(got - ref).max())
+    print("streams: total_dividends_batch of a mixed suite within PAD_RTOL / PAD_ATOL of "
+          "the CPU run", flush=True)
+    report["streams"] = rec
+
+
 def scaled_phases(torch, dev, measured, launches, report):
     """K5 and K6 against their plain versions, then the scaled throughput
     path through its entry points."""
@@ -769,11 +1042,11 @@ def scaled_phases(torch, dev, measured, launches, report):
     from yuma_simulation_tpu_torch.ops.normalize import normalize_weight_rows
     from yuma_simulation_tpu_torch.simulation.engine import (
         fused_hparams,
-        plan_scaled_engine,
         simulate_constant,
         simulate_scaled,
         simulate_scaled_batch,
     )
+    from yuma_simulation_tpu_torch.simulation.planner import resolve_scaled_engine
 
     # Base weights: the first epoch of workload(seed, 1) - its 64 strong
     # miners keep liquid alpha finite; scales as bench.py's headline.
@@ -892,7 +1165,8 @@ def scaled_phases(torch, dev, measured, launches, report):
         f"simulate_scaled auto, {E_main} epochs",
         lambda: simulate_scaled(W1, S1, sc_main, config, spec),
     )
-    rung = plan_scaled_engine("auto", "bisect", (V, M), torch.float32, dev, E_main)
+    rung = resolve_scaled_engine((V, M), spec.bonds_mode, config, torch.float32, E_main,
+                                 device=dev)
     assert counts["ema_scan"] == 1, counts
     assert tot.shape == (V,) and bonds.shape == (V, M), (tot.shape, bonds.shape)
     assert torch.isfinite(tot).all() and torch.isfinite(bonds).all()
@@ -1159,6 +1433,7 @@ def main() -> int:
     cli_phase(torch, launches, report)
     charts_phase(torch, dev, W_np, S_np, launches, report)
     sweep_phase(torch, dev, W_np, S_np, quiet_miner, launches, report)
+    streams_phase(torch, dev, W_np, S_np, quiet_miner, launches, report)
 
     # ---- K4, K5, K6 and the scaled throughput path.
     measured = {"consensus_bisect": k1, **scans}
@@ -1207,6 +1482,7 @@ def main() -> int:
     print(json.dumps({"charts": report["charts"]}))
     print(json.dumps({"cli": report["cli"], "sweeps": report["sweeps"],
                       "fma_helper": report["fma_helper"]}))
+    print(json.dumps({"streams": report["streams"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -16,13 +16,13 @@ from yuma_simulation_tpu_torch.ops import cuda_consensus, cuda_epoch
 
 HEADER = Path(cuda_epoch.__file__).resolve().parent.parent / "csrc" / "scan_phases.cuh"
 
-_SCALARS = {"int": ctypes.c_int, "float": ctypes.c_float}
+_SCALARS = {"int": ctypes.c_int, "float": ctypes.c_float, "double": ctypes.c_double}
 _STRUCTS = {"LiquidSpec": cuda_epoch._LiquidSpec}
 
 
 def _c_fields(struct: str) -> list:
     """`[(name, ctypes type), ...]` of `struct <struct> { ... };` in the
-    header: pointers as `c_void_p`, `int` / `float` scalars and arrays,
+    header: pointers as `c_void_p`, `int` / `float` / `double` scalars and arrays,
     nested structs as their mirrors."""
     text = re.sub(r"//[^\n]*", "", HEADER.read_text())
     body = re.search(r"struct\s+%s\s*\{(.*?)\};" % struct, text, re.S)

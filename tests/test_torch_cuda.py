@@ -932,3 +932,150 @@ def test_chart_cli_on_card(cuda, tmp_path):
     assert launch_counts()["varying_scan"] == 9
     html = (tmp_path / "simulation_results_b0.5.html").read_text()
     assert html.count('<img src="data:image/png;base64,') == 36
+
+
+# ---------------------------------------------------------------------------
+# long runs: streamed, generated, the preflight
+
+
+def _stream_scenario(E=24, V=32, M=300, seed=5, reset=(7, 10)):
+    from yuma_simulation_tpu_torch.scenarios.base import Scenario
+
+    rng = np.random.default_rng(seed)
+    W = rng.random((E, V, M)).astype(np.float32)
+    W[W < 0.6] = 0.0
+    S = (rng.random((E, V)) + 0.01).astype(np.float32)
+    return Scenario(name="stream", validators=[f"v{i}" for i in range(V)], base_validator="v0",
+                    weights=W, stakes=S, num_epochs=E, reset_bonds_index=reset[0],
+                    reset_bonds_epoch=reset[1])
+
+
+@pytest.mark.parametrize("slabs", [(8, 8, 8), (7, 7, 10)], ids=["even", "ragged"])
+@pytest.mark.parametrize("impl,counter", [("auto", "varying_scan"), ("fused_scan", "case_scan")],
+                         ids=["K3", "K2"])
+@pytest.mark.parametrize("version", ["Yuma 1 (paper)", "Yuma 2 (Adrian-Fish)",
+                                     "Yuma 3.1 (Rhef+reset)",
+                                     "Yuma 4 (Rhef+relative bonds) - liquid alpha on"])
+def test_streamed_bitwise_monolithic_on_card(cuda, version, impl, counter, slabs):
+    """`simulate_streamed` through the double buffer (pinned staging, side
+    stream copies) bitwise the monolithic run on K3 and K2, every output
+    and the final carry, one scan launch a slab; the reset at epoch 10
+    falls in the second slab, and the ragged slabs run K3 at tiles 7, 7, 10."""
+    from yuma_simulation_tpu_torch.simulation.engine import simulate_streamed
+
+    scen = _stream_scenario()
+    params = dict(VERSIONS)[version]
+    config = YumaConfig(yuma_params=params)
+    kw = dict(save_bonds=True, save_incentives=True, save_consensus=True, epoch_impl=impl,
+              return_state=True)
+    mono = simulate(scen, version, config, **kw)
+    bounds = np.cumsum((0,) + slabs)
+    chunks = [(scen.weights[a:b], scen.stakes[a:b]) for a, b in zip(bounds[:-1], bounds[1:])]
+    reset_launch_counts()
+    got = simulate_streamed(chunks, version, config, reset_bonds_index=7, reset_bonds_epoch=10,
+                            **kw)
+    assert launch_counts()[counter] == len(slabs), launch_counts()
+    assert got.engine == mono.engine != "eager"
+    for key in ("dividends", "bonds", "incentives", "consensus"):
+        np.testing.assert_array_equal(getattr(got, key), getattr(mono, key), err_msg=key)
+    for key, value in mono.final_state.items():
+        np.testing.assert_array_equal(got.final_state[key], value, err_msg=key)
+    capped = simulate(scen, version, config, max_resident_epochs=slabs[0], **kw)
+    np.testing.assert_array_equal(capped.dividends, mono.dividends)
+
+
+def test_stream_timeline_on_card(cuda):
+    """A stream of four host slabs under `stream_timeline()`: one copy and
+    one scan timed a slab, the copy time that ran while a scan ran at most
+    either side's sum, the card's busy time within the span, and the
+    result bitwise the same stream run without the timeline."""
+    from yuma_simulation_tpu_torch.simulation.engine import simulate_streamed, stream_timeline
+
+    scen = _stream_scenario()
+    chunks = [(scen.weights[a:a + 6], scen.stakes[a:a + 6]) for a in range(0, 24, 6)]
+    plain = simulate_streamed(chunks, "Yuma 1 (paper)")
+    with stream_timeline() as timeline:
+        timed = simulate_streamed(chunks, "Yuma 1 (paper)")
+        torch.cuda.synchronize()
+    np.testing.assert_array_equal(timed.dividends, plain.dividends)
+    got = timeline.summary()
+    assert got["slabs"] == len(timeline.copies) == 4 and len(timeline.hidden) == 3, got
+    assert 0 <= got["copy_scan_overlap_ms"] <= min(got["copy_ms"], got["scan_ms"]) + 1e-3, got
+    assert 0 < got["busy_ms"] <= got["span_ms"] + 1e-3, got
+    assert got["fill_s"] > 0 and got["wait_s"] >= 0, got
+
+
+def test_preflight_refuses_before_allocating(cuda):
+    """A (20000, 256, 4096) stack (84 GB, a broadcast view: no host
+    memory) is refused with a `max_resident_epochs` suggestion, and
+    nothing is allocated on the card."""
+    from yuma_simulation_tpu_torch.scenarios.base import Scenario
+    from yuma_simulation_tpu_torch.telemetry.cost import HBMPreflightError
+
+    E, V, M = 20000, 256, 4096
+    row = np.full((1, V, M), 1.0 / M, np.float32)
+    huge = Scenario(name="huge", validators=[f"v{i}" for i in range(V)], base_validator="v0",
+                    weights=np.broadcast_to(row, (E, V, M)),
+                    stakes=np.broadcast_to(np.ones((1, V), np.float32), (E, V)), num_epochs=E)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with pytest.raises(HBMPreflightError, match=r"max_resident_epochs<=\d+"):
+        simulate(huge, "Yuma 1 (paper)")
+    assert torch.cuda.memory_allocated() == before
+
+
+def test_simulate_generated_on_card(cuda):
+    """Chunks drawn on the card by a CUDA generator seeded per chunk:
+    `simulate_generated` bitwise the monolithic run of the concatenated
+    chunks (K3), one launch a chunk."""
+    from yuma_simulation_tpu_torch.scenarios.base import Scenario
+    from yuma_simulation_tpu_torch.simulation.engine import simulate_generated
+
+    CH, V, M, n = 16, 32, 300, 3
+
+    def gen(i):
+        g = torch.Generator(device=cuda)
+        g.manual_seed(100 + i)
+        W = torch.rand((CH, V, M), generator=g, device=cuda)
+        return torch.where(W > 0.7, W, torch.zeros_like(W)), torch.rand(
+            (CH, V), generator=g, device=cuda) + 0.01
+
+    for version in ("Yuma 1 (paper)", "Yuma 2 (Adrian-Fish)"):
+        reset_launch_counts()
+        d, b = simulate_generated(gen, n, version)
+        assert launch_counts()["varying_scan"] == n, launch_counts()
+        W = torch.cat([gen(i)[0] for i in range(n)]).cpu().numpy()
+        S = torch.cat([gen(i)[1] for i in range(n)]).cpu().numpy()
+        mono = simulate(Scenario(name="g", validators=[f"v{i}" for i in range(V)],
+                                 base_validator="v0", weights=W, stakes=S, num_epochs=CH * n),
+                        version, return_state=True)
+        np.testing.assert_array_equal(d, mono.dividends)
+        np.testing.assert_array_equal(b, mono.final_state["bonds"])
+
+
+def test_stream_under_tiny_device_spec_reslices_bitwise(cuda, monkeypatch):
+    """Under a `YUMA_TPU_DEVICE_SPEC` override sized so the plan caps slabs
+    at 3 epochs, one 24-epoch chunk runs as 8 slabs of 3 (8 K3 launches),
+    bitwise the monolithic run made without the override."""
+    import json
+
+    from yuma_simulation_tpu_torch.simulation.engine import simulate_streamed
+    from yuma_simulation_tpu_torch.simulation.planner import plan_dispatch, scan_scratch_bytes
+    from yuma_simulation_tpu_torch.telemetry.cost import DEVICE_SPEC_ENV, estimate_hbm_bytes
+
+    scen = _stream_scenario()
+    E, V, M = scen.weights.shape
+    version = "Yuma 3.1 (Rhef+reset)"
+    mono = simulate(scen, version, save_bonds=False, save_incentives=False)
+    scratch = scan_scratch_bytes("fused_varying", V, M)
+    fixed = estimate_hbm_bytes(V, M, scratch_bytes=scratch).total_bytes
+    per_epoch = estimate_hbm_bytes(V, M, resident_epochs=1, scratch_bytes=scratch).total_bytes - fixed
+    memory = int((fixed + 7 * per_epoch) / 0.92)
+    monkeypatch.setenv(DEVICE_SPEC_ENV, json.dumps({"name": "tiny", "memory_bytes": memory}))
+    plan = plan_dispatch("t", (E, V, M), version, YumaConfig(), torch.float32, streaming=True)
+    assert plan.engine == "fused_varying" and plan.memory.chunk_epochs == 3, plan.memory
+    reset_launch_counts()
+    got = simulate_streamed([(scen.weights, scen.stakes)], version, reset_bonds_index=7,
+                            reset_bonds_epoch=10)
+    assert launch_counts()["varying_scan"] == 8, launch_counts()
+    np.testing.assert_array_equal(got.dividends, mono.dividends)

@@ -205,3 +205,34 @@ def test_u16_grid_divide_rounds_as_compiled_jax():
     k = np.arange(0, 65536, dtype=np.float32)
     compiled = np.asarray(jax.jit(lambda x: x / 65535.0)(jnp.asarray(k, jnp.float32)))
     np.testing.assert_array_equal((torch.tensor(k) * tc.U16_INV).numpy(), compiled)
+
+
+@pytest.mark.parametrize("B,V,M", [(3, 3, 2), (14, 3, 2), (2, 8, 2), (3, 7, 2), (1, 5, 2),
+                                   (3, 2, 2), (3, 6, 5), (14, 4, 8)])
+def test_rank_sum_bitwise_jax_batched_dot(B, V, M):
+    """The rank's sum over validators bitwise XLA:CPU's batched dot (the
+    JAX package's `einsum("v,vm->m")` under vmap, jitted) on random rows:
+    an FMA chain, except at M = 2 with 3 <= V <= 8 over two or more lanes,
+    where the dot sums its first miner column plainly (ROADMAP §C, C2)."""
+    from yuma_simulation_tpu_torch.ops.normalize import rank_sum
+
+    rng = np.random.default_rng(B * 100 + V * 10 + M)
+    dot = jax.jit(jax.vmap(lambda s, w: jnp.einsum("v,vm->m", s, w, precision="highest")))
+    for _ in range(8):
+        S = rng.random((B, V)).astype(np.float32)
+        S /= S.sum(1, keepdims=True)
+        W = (rng.random((B, V, M)) * (rng.random((B, V, M)) > 0.3)).astype(np.float32)
+        got = rank_sum(_t(S).unsqueeze(-1), _t(W), lanes=B)[:, 0].numpy()
+        np.testing.assert_array_equal(got, np.asarray(dot(_j(S), _j(W))))
+
+
+def test_fold_sum_is_a_register_fold():
+    """`fold_sum` adds the upper half onto the lower, lane by lane: for 8
+    lanes `((x0 + x4) + (x2 + x6)) + ((x1 + x5) + (x3 + x7))`."""
+    from yuma_simulation_tpu_torch.ops.normalize import fold_sum
+
+    x = torch.tensor([[1e8, 1.0, -1e8, 3.0, 0.5, 7.0, 2.0, 1e-3]])
+    a = [x[0, i] for i in range(8)]
+    want = ((a[0] + a[4]) + (a[2] + a[6])) + ((a[1] + a[5]) + (a[3] + a[7]))
+    assert torch.equal(fold_sum(x), want.reshape(1, 1))
+    assert torch.equal(fold_sum(x[:, :4]), ((a[0] + a[2]) + (a[1] + a[3])).reshape(1, 1))

@@ -34,6 +34,7 @@ from yuma_simulation_tpu.ops import consensus as jc
 from yuma_simulation_tpu.ops import liquid as jl
 from yuma_simulation_tpu.scenarios import create_case as j_create_case
 from yuma_simulation_tpu.scenarios.synthetic import random_subnet_scenario
+from yuma_simulation_tpu.simulation.sweep import pack_scenarios as j_pack_scenarios
 from yuma_simulation_tpu.simulation.sweep import pad_scenarios as j_pad_scenarios
 from yuma_simulation_tpu.v1.api import _simulate_suite as j_simulate_suite
 from tests.test_torch_charts import _images
@@ -48,8 +49,13 @@ from yuma_simulation_tpu_torch.ops import consensus as tc
 from yuma_simulation_tpu_torch.ops import liquid as tl
 from yuma_simulation_tpu_torch.ops.launches import launch_counts, reset_launch_counts
 from yuma_simulation_tpu_torch.scenarios.base import Scenario
-from yuma_simulation_tpu_torch.simulation.engine import plan_engine, run_simulation
-from yuma_simulation_tpu_torch.simulation.sweep import pad_scenarios, simulate_batch
+from yuma_simulation_tpu_torch.simulation.engine import run_simulation
+from yuma_simulation_tpu_torch.simulation.planner import plan_dispatch
+from yuma_simulation_tpu_torch.simulation.sweep import (
+    pack_scenarios,
+    pad_scenarios,
+    simulate_batch,
+)
 from yuma_simulation_tpu_torch.v1.api import _simulate_suite
 
 #: tests/unit/test_api_v1.py's tolerance for a padded suite against per-case runs.
@@ -85,8 +91,14 @@ def test_pad_scenarios_bitwise_jax():
     for got, ref in zip(ours, theirs):
         assert got.dtype == (torch.int32 if got.ndim == 1 else torch.float32)
         np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
-    with pytest.raises(NotImplementedError, match="3e"):
-        pad_scenarios([_port(s) for s in suite], pack_tiles=True, device="cpu")
+    # Donor packing: the suite on the planner's (8, 128) bucket, the JAX
+    # package's pack_scenarios tensor for tensor.
+    packed = pack_scenarios([_port(s) for s in suite], device="cpu")
+    assert [tuple(t.shape) for t in packed] == [(4, 40, 8, 128), (4, 40, 8), (4,), (4,), (4, 128)]
+    for got, ref in zip(packed, j_pack_scenarios(suite)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert torch.equal(pad_scenarios([_port(s) for s in suite], pack_tiles=True,
+                                     device="cpu")[0], packed[0])
 
 
 def _masked_rows(seed, B=4, M=37):
@@ -142,12 +154,14 @@ def test_masked_quantile_bitwise_jax():
 @pytest.mark.parametrize("seed", range(4))
 def test_masked_liquid_alpha_rate_matches_jax(seed, bounds):
     """`liquid_alpha_rate(miner_mask=)` against JAX's jitted function: the
-    slope `a` (the masked quantiles' spread) bitwise; the rate and the
-    intercept `b` within atol 2e-6 / rtol 1e-5. The reason for the
-    tolerance: the logistic fit after the quantiles is the unmasked code,
-    which does not round as XLA compiles it yet (ROADMAP §C, C2: XLA:CPU
-    contracts `b = logit_low + a * c_low` and folds the u16 constant into
-    `-a * C`); its unmasked counterpart in test_torch_ops.py has the same
+    slope `a` (the masked quantiles' spread) and the intercept `b` (one
+    FMA, ROADMAP §C, C2) bitwise; the rate within atol 2e-6 / rtol 1e-5.
+    The reason for the tolerance: the port spells the exponent as XLA:CPU
+    compiles it inside the jitted scan (`fma(k, -a * U16_INV, b)`, pinned
+    bitwise on random suites by
+    test_torch_simulate.py::test_random_epochs_bitwise_jax_xla_rung), and
+    the function jitted alone lands in another fusion, which contracts it
+    otherwise; its unmasked counterpart in test_torch_ops.py has the same
     tolerance. The quantiles themselves are bitwise
     (test_masked_quantile_bitwise_jax)."""
     C, mask = _masked_rows(seed)
@@ -162,8 +176,8 @@ def test_masked_liquid_alpha_rate_matches_jax(seed, bounds):
     got = tl.liquid_alpha_rate(Q, *args_t, miner_mask=torch.tensor(mask))
     rate, a, b = (x.numpy() for x in got)
     np.testing.assert_array_equal(a, np.asarray(ref[1]))
+    np.testing.assert_array_equal(b, np.asarray(ref[2]))
     np.testing.assert_allclose(rate, np.asarray(ref[0]), atol=ATOL, rtol=RTOL)
-    np.testing.assert_allclose(b, np.asarray(ref[2]), atol=ATOL, rtol=RTOL)
     # The padded columns move nothing: each row alone, unmasked and cut to
     # its real miners, fits the same logistic within the same tolerance.
     for i in range(len(C)):
@@ -241,8 +255,10 @@ def test_miner_mask_runs_the_eager_rung():
     "eager"`, bitwise."""
     shape = (2, 40, 5, 4)
     for device in ("cpu", "cuda"):
-        assert plan_engine("auto", "bisect", shape, torch.float32, torch.device(device),
-                           has_miner_mask=True) == "eager"
+        plan = plan_dispatch("padded", shape, "Yuma 1 (paper)", YumaConfig(), torch.float32,
+                             has_miner_mask=True, check_memory=False, device=device)
+        assert plan.engine == "eager"
+        assert plan.reasons == ("auto->eager: per-scenario miner mask",)
     W, S, ri, re_, mask = pad_scenarios([_port(s) for s in _mixed_suite()[:2]], device="cpu")
     spec = variant_for_version("Yuma 1 (paper)")
     reset_launch_counts()

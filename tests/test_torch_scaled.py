@@ -35,7 +35,11 @@ from yuma_simulation_tpu.ops.pallas_epoch import _support_limbs_mxu as j_support
 from yuma_simulation_tpu.ops.pallas_epoch import fused_ema_epoch as j_ema_epoch
 from yuma_simulation_tpu.ops.pallas_epoch import fused_ema_scan as j_ema_scan
 from yuma_simulation_tpu.simulation import engine as j_engine
-from yuma_simulation_tpu_torch.models.config import YumaConfig, YumaParams
+from yuma_simulation_tpu_torch.models.config import (
+    SimulationHyperparameters,
+    YumaConfig,
+    YumaParams,
+)
 from yuma_simulation_tpu_torch.models.epoch import BondsMode
 from yuma_simulation_tpu_torch.models.variants import variant_for_version
 from yuma_simulation_tpu_torch.ops.consensus import (
@@ -47,11 +51,11 @@ from yuma_simulation_tpu_torch.ops.consensus import (
 from yuma_simulation_tpu_torch.ops.cuda_epoch import fused_ema_epoch, fused_ema_scan
 from yuma_simulation_tpu_torch.ops.normalize import normalize_weight_rows
 from yuma_simulation_tpu_torch.simulation.engine import (
-    plan_scaled_engine,
     simulate_constant,
     simulate_scaled,
     simulate_scaled_batch,
 )
+from yuma_simulation_tpu_torch.simulation.planner import resolve_scaled_engine
 
 ATOL, RTOL = 2e-6, 1e-5
 V, M, E, BB = 6, 18, 8, 2
@@ -332,10 +336,16 @@ def test_scaled_rungs_agree_and_auto_is_eager_on_cpu():
 
 
 def test_plan_scaled_engine():
+    """The scaled path's rung, now the planner's `resolve_scaled_engine`:
+    the cases of the engine's former `plan_scaled_engine`, one for one;
+    "xla", JAX's name of the bottom rung, now runs "eager"."""
     f32, cpu, cuda = torch.float32, torch.device("cpu"), torch.device("cuda")
+    mode = variant_for_version("Yuma 1 (paper)").bonds_mode
 
-    def plan(impl, shape=(256, 4096), dev=cuda, epochs=16, **kw):
-        return plan_scaled_engine(impl, "bisect", shape, kw.pop("dtype", f32), dev, epochs, **kw)
+    def plan(impl, shape=(256, 4096), dev=cuda, epochs=16, precision=100_000, **kw):
+        cfg = YumaConfig(simulation=SimulationHyperparameters(consensus_precision=precision))
+        return resolve_scaled_engine(shape, mode, cfg, kw.pop("dtype", f32), epochs,
+                                     device=dev, epoch_impl=impl, **kw)
 
     assert plan("auto", dev=cpu) == "eager"
     assert plan("auto") == "fused_scan"
@@ -346,12 +356,13 @@ def test_plan_scaled_engine():
     assert plan("auto", epochs=0) == "eager"
     assert plan("auto", dtype=torch.float64) == "eager"
     assert plan("fused_mxu", dev=cpu) == "fused_mxu"
-    with pytest.raises(ValueError, match="unknown epoch_impl 'xla'"):
-        plan("xla")
+    assert plan("xla") == "eager"
+    with pytest.raises(ValueError, match="unknown epoch_impl 'nope'"):
+        plan("nope")
     with pytest.raises(ValueError, match="simulate_scaled_batch"):
         plan("fused", (2, 8, 16), batched=True)
     with pytest.raises(ValueError, match="unknown consensus_impl"):
-        plan_scaled_engine("auto", "atuo", (8, 16), f32, cpu, 4)
+        plan("auto", (8, 16), dev=cpu, epochs=4, consensus_impl="atuo")
 
 
 # ---------------------------------------------------------------------------
@@ -446,7 +457,11 @@ def test_scaled_path_refusals():
     with pytest.raises(ValueError, match="liquid alpha"):
         simulate_scaled(W, S, scales, liquid, None, epoch_impl="fused_mxu")
     with pytest.raises(ValueError, match="unknown epoch_impl"):
-        simulate_scaled(W, S, scales, epoch_impl="xla")
+        simulate_scaled(W, S, scales, epoch_impl="nope")
+    # "xla", the JAX package's name of the bottom rung, runs the eager rung.
+    for a, b in zip(simulate_scaled(W, S, scales, epoch_impl="xla"),
+                    simulate_scaled(W, S, scales, epoch_impl="eager")):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="unknown consensus_impl"):
         simulate_scaled(W, S, scales, consensus_impl="atuo", epoch_impl="fused_scan")
     with pytest.raises(ValueError, match="unknown epoch_impl"):

@@ -36,7 +36,8 @@ from yuma_simulation_tpu_torch.models.config import (
 from yuma_simulation_tpu_torch.models.variants import canonical_versions, variant_for_version
 from yuma_simulation_tpu_torch.scenarios import create_case, get_cases
 from yuma_simulation_tpu_torch.scenarios.base import Scenario
-from yuma_simulation_tpu_torch.simulation.engine import plan_engine, run_simulation, simulate
+from yuma_simulation_tpu_torch.simulation.engine import run_simulation, simulate
+from yuma_simulation_tpu_torch.simulation.planner import plan_dispatch
 from yuma_simulation_tpu_torch.simulation.sweep import simulate_batch, stack_scenarios
 
 ATOL, RTOL = 2e-6, 1e-5
@@ -142,27 +143,34 @@ def test_simulate_batch_golden_surface_beta1(epoch_impl):
 
 
 def test_plan_engine():
+    """The rung resolution, now the planner's (`plan_dispatch(...).engine`):
+    the cases of the engine's former `plan_engine`, one for one."""
     cpu, f32 = torch.device("cpu"), torch.float32
-    assert plan_engine("auto", "bisect", (40, 3, 2), f32, cpu) == "eager"
-    assert plan_engine("fused_scan", "auto", (40, 3, 2), f32, cpu) == "fused_scan"
-    assert plan_engine("fused_varying_mxu", "bisect", (40, 3, 2), f32, cpu) == (
-        "fused_varying_mxu"
-    )
-    assert plan_engine("fused_scan_mxu", "bisect", (40, 3, 2), f32, cpu) == "fused_scan_mxu"
+
+    def engine(impl, consensus, shape, dev, precision=100_000):
+        cfg = YumaConfig(simulation=SimulationHyperparameters(consensus_precision=precision))
+        return plan_dispatch("t", shape, "Yuma 1 (paper)", cfg, f32, epoch_impl=impl,
+                             consensus_impl=consensus, check_memory=False,
+                             device=dev).engine
+
+    assert engine("auto", "bisect", (40, 3, 2), cpu) == "eager"
+    assert engine("fused_scan", "auto", (40, 3, 2), cpu) == "fused_scan"
+    assert engine("fused_varying_mxu", "bisect", (40, 3, 2), cpu) == "fused_varying_mxu"
+    assert engine("fused_scan_mxu", "bisect", (40, 3, 2), cpu) == "fused_scan_mxu"
     # Past the dyadic grid's int32 bound (M * 2^17 >= 2^31) auto keeps to the
-    # eager rung on the card too, as JAX's auto keeps to XLA; the gate comes
-    # before any query of the device, so no GPU is needed here.
+    # eager rung on the card too, as JAX's auto keeps to XLA; planning is
+    # host arithmetic, so no GPU is needed here.
     cuda = torch.device("cuda")
-    assert plan_engine("auto", "bisect", (4, 8, 16384), f32, cuda) == "eager"
-    assert plan_engine("auto", "bisect", (4, 8, 64), f32, cuda, precision=2**26) == "eager"
+    assert engine("auto", "bisect", (4, 8, 16384), cuda) == "eager"
+    assert engine("auto", "bisect", (4, 8, 64), cuda, precision=2**26) == "eager"
     with pytest.raises(ValueError, match="bisect"):
-        plan_engine("fused_scan_mxu", "sorted", (40, 3, 2), f32, cpu)
+        engine("fused_scan_mxu", "sorted", (40, 3, 2), cpu)
     with pytest.raises(ValueError, match="epoch_impl"):
-        plan_engine("nope", "bisect", (40, 3, 2), f32, cpu)
+        engine("nope", "bisect", (40, 3, 2), cpu)
     with pytest.raises(ValueError, match="bisect"):
-        plan_engine("fused_scan", "sorted", (40, 3, 2), f32, cpu)
+        engine("fused_scan", "sorted", (40, 3, 2), cpu)
     with pytest.raises(ValueError, match="unknown consensus_impl"):
-        plan_engine("auto", "atuo", (40, 3, 2), f32, cpu)
+        engine("auto", "atuo", (40, 3, 2), cpu)
 
 
 def test_config_from_numpy_round_trips_jax_config():
@@ -360,11 +368,9 @@ def _random_batch(B=3, E=6, V=5, M=8, seed=5008):
     return W, S, np.array([0, 1, 2], np.int32), np.array([3, 5, 100], np.int32)
 
 
-@pytest.fixture(scope="module")
-def xla_random_epochs():
-    """JAX's XLA rung on `_random_batch()` (odd V = 5, M = 8: inside
-    ops/normalize.py::xla_chains) at bond_penalty 0.5: per-epoch
-    dividends, bonds and incentives of each of the 9 versions."""
+def _xla_random(**shape):
+    """JAX's XLA rung on `_random_batch(**shape)` at bond_penalty 0.5:
+    per-epoch dividends, bonds and incentives of each of the 9 versions."""
     from yuma_simulation_tpu.models.config import SimulationHyperparameters as JSim
     from yuma_simulation_tpu.models.variants import canonical_versions as j_versions
     from yuma_simulation_tpu.models.variants import variant_for_version as j_variant
@@ -372,7 +378,7 @@ def xla_random_epochs():
 
     import jax.numpy as jnp
 
-    arrays = [jnp.asarray(x) for x in _random_batch()]
+    arrays = [jnp.asarray(x) for x in _random_batch(**shape)]
     out = []
     for version, params in j_versions():
         ys = j_simulate_batch(
@@ -381,6 +387,25 @@ def xla_random_epochs():
         )
         out.append({k: np.asarray(ys[k]) for k in ("dividends", "bonds", "incentives")})
     return out
+
+
+@pytest.fixture(scope="module")
+def xla_random_epochs():
+    """JAX's XLA rung on `_random_batch()` (odd V = 5, M = 8: inside
+    ops/normalize.py::xla_chains)."""
+    return _xla_random()
+
+
+@pytest.fixture(scope="module", params=[(6, 5), (7, 2), (4, 8), (8, 2)],
+                ids=["v6m5", "v7m2", "v4m8", "v8m2"])
+def xla_random_epochs_shaped(request):
+    """`(shape, JAX's XLA rung on _random_batch(V, M))` at more shapes of
+    ROADMAP §C, C2: an even V (the plain scans' incentive sum); M = 2,
+    where XLA's batched dot for the rank sums its first miner column
+    plainly (ops/normalize.py::rank_sum); and V = 4 and 8, where XLA sums
+    the dividends in one vector register (ops/normalize.py::fold_sum)."""
+    V, M = request.param
+    return request.param, _xla_random(V=V, M=M)
 
 
 @pytest.mark.parametrize("index", range(9), ids=[v for v, _ in canonical_versions()])
@@ -405,23 +430,43 @@ def test_dividend_chains_bitwise_jax_xla_rung(xla_random_epochs, index):
     np.testing.assert_array_equal(got.numpy(), ref["dividends"], err_msg=version)
 
 
-#: The versions whose eager runs of `_random_batch()` are bitwise JAX's XLA
-#: rung; the two with liquid alpha are not yet (ROADMAP §C, C2).
-RANDOM_BITWISE = [0, 1, 3, 4, 5, 6, 7]
-
-
-@pytest.mark.parametrize("index", RANDOM_BITWISE,
-                         ids=[canonical_versions()[i][0] for i in RANDOM_BITWISE])
+@pytest.mark.parametrize("index", range(9), ids=[v for v, _ in canonical_versions()])
 def test_random_epochs_bitwise_jax_xla_rung(xla_random_epochs, index):
-    """Inside ops/normalize.py::xla_chains on random data: the eager
-    rung's per-epoch dividends, bonds and incentives of a random [5, 8]
-    suite with resets are bitwise JAX's XLA rung (its reduces of products
-    spelled as XLA's FMA chains, the rank's column sum among them)."""
+    """Inside ops/normalize.py::xla_chains on random data: the per-epoch
+    dividends, bonds and incentives of the eager rung and of the varying
+    scan's plain version on a random [5, 8] suite with resets are bitwise
+    JAX's XLA rung (its reduces of products
+    spelled as XLA's FMA chains, the rank's column sum among them), all
+    nine versions: the two with liquid alpha through the fit as XLA:CPU
+    compiles it (the quantile in float64 with one FMA, the intercept one
+    FMA, the exponent on the u16 grid integers; ROADMAP §C, C2)."""
     version, params = canonical_versions()[index]
     cfg = YumaConfig(simulation=SimulationHyperparameters(bond_penalty=0.5),
                      yuma_params=params)
-    ys = simulate_batch(*(torch.tensor(x) for x in _random_batch()), cfg,
-                        variant_for_version(version), save_bonds=True, save_incentives=True,
-                        epoch_impl="eager", x64=True)
-    for key, ref in xla_random_epochs[index].items():
-        np.testing.assert_array_equal(ys[key].numpy(), ref, err_msg=f"{version} {key}")
+    for impl in ("eager", "fused_varying"):
+        ys = simulate_batch(*(torch.tensor(x) for x in _random_batch()), cfg,
+                            variant_for_version(version), save_bonds=True,
+                            save_incentives=True, epoch_impl=impl, x64=True)
+        for key, ref in xla_random_epochs[index].items():
+            np.testing.assert_array_equal(ys[key].numpy(), ref,
+                                          err_msg=f"{version} {impl} {key}")
+
+
+@pytest.mark.parametrize("index", range(9), ids=[v for v, _ in canonical_versions()])
+def test_random_epochs_shapes_bitwise_jax_xla_rung(xla_random_epochs_shaped, index):
+    """C2's second half (ROADMAP §C), as far as it is closed: on random
+    [6, 5], [7, 2], [4, 8] and [8, 2] suites with resets, the eager rung's
+    and the varying scan's plain version's per-epoch outputs are bitwise
+    JAX's XLA rung, all nine versions. (At V = 8 with M >= 3, V = 2, V >=
+    9 with M = 2, and V = 16, not yet.)"""
+    (V, M), refs = xla_random_epochs_shaped
+    version, params = canonical_versions()[index]
+    cfg = YumaConfig(simulation=SimulationHyperparameters(bond_penalty=0.5),
+                     yuma_params=params)
+    for impl in ("eager", "fused_varying"):
+        ys = simulate_batch(*(torch.tensor(x) for x in _random_batch(V=V, M=M)), cfg,
+                            variant_for_version(version), save_bonds=True,
+                            save_incentives=True, epoch_impl=impl, x64=True)
+        for key, ref in refs[index].items():
+            np.testing.assert_array_equal(ys[key].numpy(), ref,
+                                          err_msg=f"[{V}, {M}] {version} {impl} {key}")

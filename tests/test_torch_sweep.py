@@ -188,11 +188,19 @@ def test_total_dividends_batch_matches_jax():
 
         ref = j_sweep.total_dividends_batch(j_get_cases(), version, jcfg)
         np.testing.assert_allclose(got, ref, atol=ATOL * 40, rtol=RTOL)
+    # A suite of mixed shapes, donor-packed (pack_scenarios) onto one
+    # masked batch on the eager rung: within the padded-suite tolerance of
+    # JAX's (tests/unit/test_api_v1.py), rows as wide as the packed V.
     mixed = [create_case("Case 1"), create_case("Case 1")]
     mixed[1] = dataclasses.replace(mixed[1], weights=mixed[1].weights[:20],
                                    stakes=mixed[1].stakes[:20], num_epochs=20)
-    with pytest.raises(NotImplementedError, match="3e"):
-        total_dividends_batch(mixed, version, device="cpu")
+    j_mixed = [j_create_case("Case 1"), j_create_case("Case 1")]
+    j_mixed[1] = dataclasses.replace(j_mixed[1], weights=j_mixed[1].weights[:20],
+                                     stakes=j_mixed[1].stakes[:20], num_epochs=20)
+    got = total_dividends_batch(mixed, version, device="cpu", x64=True)
+    ref = j_sweep.total_dividends_batch(j_mixed, version)
+    assert got.shape == np.shape(ref) == (2, 8)
+    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-6)
 
 
 def test_sweep_hyperparams_resumes_from_a_shared_carry():

@@ -4,8 +4,9 @@ The same Yuma-consensus simulator, for one NVIDIA H100: plain tensor code
 in PyTorch, and the JAX package's Pallas kernels rewritten by hand in CUDA
 C++ for `sm_90a` (:mod:`.ops.cuda_consensus`, :mod:`.ops.cuda_epoch`,
 sources under `csrc/`). The entry points are in :mod:`.simulation`
-(`simulate`, `simulate_batch`, `simulate_scaled`, `simulate_scaled_batch`,
-`simulate_constant`, `run_simulation`). They run on the card unless the
+(`simulate`, `simulate_streamed`, `simulate_generated`, `simulate_batch`,
+`simulate_scaled`, `simulate_scaled_batch`, `simulate_constant`,
+`run_simulation`), each planned by :func:`.simulation.plan_dispatch`. They run on the card unless the
 caller passes `device="cpu"` (or, for the tensor entry points, CPU
 tensors); on CPU tensors every kernel wrapper runs its plain PyTorch
 version instead.

@@ -161,8 +161,8 @@ struct LiquidSpec {
   int thresh[6];      // rank + 1 per selected rank
   int q_lo[3];        // per quantile (0.75, 0.25, 0.99): index of the floor
   int q_hi[3];        // and ceil order statistic in the rank list, -1 unused
-  float q_wlo[3];     // float32(1 - frac)
-  float q_whi[3];     // float32(frac)
+  double q_wlo[3];    // 1 - frac, float64 (jnp.quantile's weights)
+  double q_whi[3];    // frac
   int regime;         // 0 no override, 1 one override, 2 both, 3 both equal
   int has_high, has_low;
   float ov_high, ov_low;
@@ -473,10 +473,13 @@ __device__ __forceinline__ float stat(const int* sel, int i) {
   return (float)sel[i] * yuma::kU16Inv;
 }
 
+// jnp.quantile's interpolation as XLA:CPU compiles it in parity mode: in
+// float64, the low product fused into the add, rounded once to float32.
 __device__ float quant(const LiquidSpec& q, const int* sel, int i) {
   const float v_lo = stat(sel, q.q_lo[i]);
   if (q.q_hi[i] == q.q_lo[i]) return v_lo;
-  return v_lo * q.q_wlo[i] + stat(sel, q.q_hi[i]) * q.q_whi[i];
+  const double hi = (double)stat(sel, q.q_hi[i]) * q.q_whi[i];
+  return (float)__fma_rn((double)v_lo, q.q_wlo[i], hi);
 }
 
 // Phase 6b: incentive = nan_to_num(R / sum(R)); with liquid alpha, the
@@ -533,11 +536,16 @@ __global__ void k_incentive(ScanArgs a, int e0) {
   }
   const float al = hparam(a, b, ALO), ah = hparam(a, b, AHI);
   const float aa = hparam(a, b, LOGIT_NUM) / (c_low - c_high);
-  const float bb = hparam(a, b, LOGIT_LOW) + aa * c_low;
+  // The intercept is one FMA, and the exponent -aa * C + bb runs on the
+  // grid integers k with the u16 constant folded into the slope, as
+  // XLA:CPU compiles the JAX package's fit (ops/liquid.py).
+  const float bb = __fmaf_rn(aa, c_low, hparam(a, b, LOGIT_LOW));
+  const float slope = -aa * yuma::kU16Inv;
   const float e = 2.71828182845904523536f;
   float* rate = a.rate + (size_t)s * M;
   for (int m = threadIdx.x; m < M; m += blockDim.x) {
-    const float sig = 1.0f / (1.0f + powf(e, -aa * C[m] + bb));
+    const float k = (float)__float2int_rn(C[m] * 65535.0f);
+    const float sig = 1.0f / (1.0f + powf(e, __fmaf_rn(k, slope, bb)));
     rate[m] = 1.0f - yuma::min_nan(yuma::max_nan(sig, al), ah);
   }
 }
@@ -580,6 +588,13 @@ struct BondShared {
 // epochs take a block sum, and the serial chains stay at most 240 FMAs.
 __device__ __forceinline__ bool xla_chains(const ScanArgs& a) {
   return a.V <= 16 && a.M < 16;
+}
+
+// Within xla_chains, at 4 or 8 validators XLA holds D in one vector
+// register and sums it by halves (ops/normalize.py::fold_sum), not by
+// phase 7's chain.
+__device__ __forceinline__ bool fold_validators(const ScanArgs& a) {
+  return a.V == 4 || a.V == 8;
 }
 
 // Sum over the block's warps of one partial per (warp, column), added in
@@ -787,7 +802,7 @@ __device__ __forceinline__ bool bond_tile(const ScanArgs& a, const float* bin, i
   }
   // The dividend total as one chain of FMAs over (validator, miner), from
   // the bonds this block just stored (xla_chains).
-  if (xla_chains(a) && a.mode != RELATIVE) {
+  if (xla_chains(a) && a.mode != RELATIVE && !fold_validators(a)) {
     __syncthreads();
     if (threadIdx.x == 0) {
       const float* bb = a.bonds + (size_t)b * vm;
@@ -841,7 +856,8 @@ __device__ __forceinline__ float group_sum(const float* dp, int V, int v, int g,
 // D_n of scenario b = blockIdx.y at slot t / epoch e from each validator's
 // D before the stake factor, dof(v). Every thread of the block calls it.
 // The total: where xla_chains, Yuma 4's is a chain of FMAs of S_n[v] * D[v]
-// in validator order and the others' is phase 7's; else a block sum.
+// in validator order and the others' is phase 7's (at 4 or 8 validators
+// D's halves added lane by lane); else a block sum.
 template <class DOf>
 __device__ __forceinline__ void normalize_dividends(const ScanArgs& a, int t, int e,
                                                     BondShared& sh, DOf dof) {
@@ -864,6 +880,14 @@ __device__ __forceinline__ void normalize_dividends(const ScanArgs& a, int t, in
       float tot = 0.0f;
       for (int v = 0; v < V; ++v) tot = __fmaf_rn(sn[v], d[v], tot);
       sh.den = tot;
+    }
+    __syncthreads();
+    den = sh.den + 1e-6f;
+  } else if (fold_validators(a)) {
+    __syncthreads();
+    if (threadIdx.x == 0) {  // the halves added lane by lane, written out
+      sh.den = V == 4 ? (d[0] + d[2]) + (d[1] + d[3])
+                      : ((d[0] + d[4]) + (d[2] + d[6])) + ((d[1] + d[5]) + (d[3] + d[7]));
     }
     __syncthreads();
     den = sh.den + 1e-6f;

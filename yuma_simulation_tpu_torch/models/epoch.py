@@ -35,9 +35,12 @@ from yuma_simulation_tpu_torch.ops.consensus import (
 from yuma_simulation_tpu_torch.ops.fma import fma, fma_chain
 from yuma_simulation_tpu_torch.ops.liquid import liquid_alpha_rate
 from yuma_simulation_tpu_torch.ops.normalize import (
+    FOLD_VALIDATORS,
+    fold_sum,
     miner_sum,
     normalize_stake,
     normalize_weight_rows,
+    rank_sum,
     sequential_sum,
     validator_dot,
     xla_chains,
@@ -163,7 +166,10 @@ def dividends(B, incentive, S_n=None, msum=miner_sum):
     round as the XLA rung rounds them: each product is fused into its
     miner chain, Yuma 4's total is a chain of `S_n * D` over validators,
     and the others' total is one chain over every (validator, miner)
-    product, as XLA merges the two sums. Else plain sums."""
+    product, as XLA merges the two sums, except at 4 or 8 validators,
+    where XLA keeps D in one vector register and sums it with its
+    horizontal reduction (:func:`..ops.normalize.fold_sum`). Else plain
+    sums."""
     inc = incentive.unsqueeze(-2)
     if not xla_chains(*B.shape[-2:]):
         D = msum(B * inc)
@@ -172,6 +178,8 @@ def dividends(B, incentive, S_n=None, msum=miner_sum):
     D = fma_chain(B, inc)
     if S_n is not None:
         return S_n * D, fma_chain(S_n, D, keepdim=True)
+    if B.shape[-2] in FOLD_VALIDATORS:
+        return D, fold_sum(D)
     return D, fma_chain(B.flatten(-2), inc.expand_as(B).flatten(-2), keepdim=True)
 
 
@@ -252,7 +260,7 @@ def yuma_epoch(
     if bonds_mode is BondsMode.EMA_PREV and W_prev is not None:
         clip_base = W_prev
     W_clipped = torch.minimum(clip_base, C.unsqueeze(-2))
-    R = validator_dot(S_n.unsqueeze(-1), W_clipped).squeeze(-2)
+    R = rank_sum(S_n.unsqueeze(-1), W_clipped, W_clipped[..., 0, 0].numel()).squeeze(-2)
     incentive = torch.nan_to_num(R / miner_sum(R, keepdim=True))
     T = torch.nan_to_num(R / P)
     T_v = miner_sum(W_clipped) / miner_sum(W_n)

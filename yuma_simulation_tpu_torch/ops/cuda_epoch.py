@@ -63,9 +63,14 @@ from yuma_simulation_tpu_torch.ops.consensus import (
     stake_weighted_median,
 )
 from yuma_simulation_tpu_torch.ops.cuda_consensus import MMA_LAUNCHES, check_cuda_float32
-from yuma_simulation_tpu_torch.ops.fma import fma
+from yuma_simulation_tpu_torch.ops.fma import fma, fma64
 from yuma_simulation_tpu_torch.ops.launches import COUNTERS
-from yuma_simulation_tpu_torch.ops.normalize import sequential_sum, validator_dot
+from yuma_simulation_tpu_torch.ops.normalize import (
+    miner_sum,
+    rank_sum,
+    sequential_sum,
+    validator_dot,
+)
 
 CASE_SCAN_LAUNCHES = COUNTERS["case_scan"]
 VARYING_SCAN_LAUNCHES = COUNTERS["varying_scan"]
@@ -202,11 +207,12 @@ def _liquid_rate_on_grid(
         return stats[..., i : i + 1, :]
 
     def quant(q):
+        # In float64 with one FMA, as ops/liquid.py::_quantile.
         lo_i, hi_i, frac = pos[q]
         v_lo = stat(lo_i)
         if hi_i == lo_i:
             return v_lo
-        return v_lo * (1.0 - frac) + stat(hi_i) * frac
+        return fma64(v_lo.double(), 1.0 - frac, stat(hi_i).double() * frac).to(dtype)
 
     def const(x):
         return torch.tensor(x, dtype=dtype, device=C.device)
@@ -223,8 +229,9 @@ def _liquid_rate_on_grid(
             degenerate = c_high0 == c_low
         c_high = torch.where(degenerate, quant(0.99), c_high0)
     a = logit_num / (c_low - c_high)
-    b = logit_low + a * c_low
-    sig = const(1.0) / (1.0 + torch.pow(const(math.e), -a * C + b))
+    b = fma(a, c_low, logit_low)
+    # The exponent `-a * C + b` on the grid integers, as ops/liquid.py.
+    sig = const(1.0) / (1.0 + torch.pow(const(math.e), fma(C_int.to(dtype), -a * U16_INV, b)))
     return (1.0 - torch.minimum(torch.maximum(sig, alpha_low), alpha_high)).to(dtype)
 
 
@@ -233,8 +240,8 @@ def _clip_rank_rate(S, C, clip_base, alpha, *, mode, liquid, liquid_scal, overri
     (pallas_epoch.py:531). Returns `(W_clipped, incentive [..., 1, M],
     rate)`; `rate` is `alpha` when liquid alpha is off."""
     W_clipped = torch.minimum(clip_base, C)
-    R = validator_dot(W_clipped, S)
-    incentive = torch.nan_to_num(R / R.sum(dim=-1, keepdim=True))
+    R = rank_sum(S, W_clipped, lanes=W_clipped.shape[1])
+    incentive = torch.nan_to_num(R / miner_sum(R, keepdim=True))
     rate = alpha
     if liquid and mode is not BondsMode.CAPACITY:
         def rate_of(C, *scal):
@@ -397,8 +404,8 @@ class _LiquidSpec(ctypes.Structure):
         ("thresh", ctypes.c_int * 6),
         ("q_lo", ctypes.c_int * 3),
         ("q_hi", ctypes.c_int * 3),
-        ("q_wlo", ctypes.c_float * 3),
-        ("q_whi", ctypes.c_float * 3),
+        ("q_wlo", ctypes.c_double * 3),
+        ("q_whi", ctypes.c_double * 3),
         ("regime", ctypes.c_int),
         ("has_high", ctypes.c_int),
         ("has_low", ctypes.c_int),

@@ -48,6 +48,44 @@ def fma(a, b, c) -> torch.Tensor:
     return odd.to(torch.float32)
 
 
+def _round_to_odd(s, err):
+    """The float64 `s` rounded to odd, given the exact error `err` of the
+    sum it rounds: an even, inexact sum steps one ulp toward the exact
+    value (up in magnitude when the error has the sum's sign)."""
+    bits = s.view(torch.int64)
+    nudge = (err != 0) & torch.isfinite(err) & ((bits & 1) == 0)
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    return torch.where(nudge, bits + step, bits).view(torch.float64)
+
+
+def _two_sum(a, b):
+    s = a + b
+    bv = s - a
+    return s, (a - (s - bv)) + (b - bv)
+
+
+def _split(a):
+    """Veltkamp's split of a float64 into two halves of 26 bits each."""
+    t = a * 134217729.0  # 2^27 + 1
+    hi = t - (t - a)
+    return hi, a - hi
+
+
+def fma64(a, b, c) -> torch.Tensor:
+    """`round_f64(a * b + c)` with one rounding, for float64 tensors, as an
+    FMA instruction on float64 computes it: the product exactly as a sum of
+    two doubles (Dekker), then the three-term sum rounded once (Boldo and
+    Melquiond: `RN(th + RO(tl + pl))`, the inner sum rounded to odd)."""
+    a, b, c = (torch.as_tensor(x, dtype=torch.float64) for x in (a, b, c))
+    ph = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    pl = ((ah * bh - ph) + ah * bl + al * bh) + al * bl  # ph + pl == a * b
+    th, tl = _two_sum(c, ph)
+    v, err = _two_sum(tl, pl)
+    return th + _round_to_odd(v, err)
+
+
 def fma_chain(x: torch.Tensor, y: torch.Tensor, dim: int = -1, keepdim: bool = False):
     """`sum(x * y)` along `dim` as XLA's CPU backend contracts a reduce of
     products: from 0, left to right, each step one FMA

@@ -11,9 +11,14 @@ Parity notes, as in the JAX package:
   traces its config) they are float32 `log`s;
 - the logistic is `e ** (-a*C + b)` (a power with base `math.e`), not `exp`;
 - the quantile is linear interpolation `v_lo*(1-frac) + v_hi*frac` at
-  position `q*(n-1)` computed in the working dtype; over a padded suite's
-  real miners only (`miner_mask`), with the interpolation one FMA, as XLA
-  compiles the JAX package's masked quantile.
+  position `q*(n-1)`: `jnp.quantile`'s, in float64 (the JAX package's
+  parity mode) with the interpolation one float64 FMA; over a padded
+  suite's real miners only (`miner_mask`), in the working dtype with the
+  interpolation one float32 FMA;
+- `b = logit_low + a * c_low` is one FMA, and the exponent `-a * C + b` is
+  `fma(k, -a * U16_INV, b)` on the u16 grid integers k of C: these are the
+  multiply-adds XLA:CPU contracts in the jitted scan (ROADMAP §C, C2), so
+  the eager rung's rate is bitwise the XLA rung's.
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from yuma_simulation_tpu_torch.ops.fma import fma
+from yuma_simulation_tpu_torch.ops.fma import fma, fma64
+from yuma_simulation_tpu_torch.ops.consensus import U16_INV
 
 
 def _logit(x) -> float:
@@ -32,17 +38,17 @@ def _logit(x) -> float:
 
 
 def _quantile(C: torch.Tensor, q: float) -> torch.Tensor:
-    """Linear-interpolation quantile over the last axis."""
-    dtype = C.dtype
+    """Linear-interpolation quantile over the last axis, as `jnp.quantile`
+    computes it in the JAX package's parity mode (x64): the position
+    `q * (n - 1)` and the weights in float64, the sorted float32 values
+    widened, `v_lo * w_lo + v_hi * w_hi` contracted into one float64 FMA
+    (as XLA:CPU compiles it), rounded once to float32."""
     s = torch.sort(C, dim=-1).values
-    n = float(C.shape[-1])
-    p = torch.tensor(q, dtype=dtype, device=C.device) * (n - 1.0)
-    lo = torch.floor(p).to(torch.int64)
-    hi = torch.ceil(p).to(torch.int64)
-    frac = p - lo.to(dtype)
-    v_lo = s[..., lo]
-    v_hi = s[..., hi]
-    return v_lo * (1.0 - frac) + v_hi * frac
+    p = q * (C.shape[-1] - 1.0)
+    lo, hi = math.floor(p), math.ceil(p)
+    w_hi = p - lo
+    v_lo, v_hi = s[..., lo].double(), s[..., hi].double()
+    return fma64(v_lo, 1.0 - w_hi, v_hi * w_hi).to(C.dtype)
 
 
 def _masked_quantile(C: torch.Tensor, q: float, mask: torch.Tensor) -> torch.Tensor:
@@ -141,12 +147,15 @@ def liquid_alpha_rate(
         num = logit_high - logit_low
 
     a = num / (c_low - c_high)
-    b = logit_low + a * c_low
+    # XLA:CPU contracts the intercept into one FMA, and folds the u16
+    # grid's constant into the slope: the exponent `-a * C + b` becomes
+    # `fma(k, -a * U16_INV, b)` on the grid integers k = C * 65535.
+    b = fma(a, c_low, logit_low)
     if a.ndim:
         a_b, b_b = a.unsqueeze(-1), b.unsqueeze(-1)
     else:
         a_b, b_b = a, b
-    alpha = _as(1.0, C) / (1.0 + torch.pow(_as(math.e, C), -a_b * C + b_b))
+    alpha = _as(1.0, C) / (1.0 + torch.pow(_as(math.e, C), _grid_exponent(a_b, b_b, C)))
     lo = _as(alpha_low, C)
     hi = _as(alpha_high, C)
     if lo.ndim:
@@ -155,3 +164,13 @@ def liquid_alpha_rate(
         hi = hi.unsqueeze(-1)
     bond_alpha = 1.0 - torch.minimum(torch.maximum(alpha, lo), hi)
     return bond_alpha.to(dtype), a, b
+
+
+
+def _grid_exponent(a, b, C):
+    """The logistic's exponent `-a * C + b` over quantized consensus, as
+    XLA:CPU compiles it in the scan (ROADMAP §C, C2): C is `k * U16_INV`
+    with k the u16 grid integer, the constant is folded into the slope,
+    and the product fused into the add."""
+    k = torch.round(C * 65535.0)
+    return fma(k, -a * U16_INV, b)

@@ -64,10 +64,12 @@ def xla_chains(V: int, M: int) -> bool:
     the bond target's column sums, the dividends and their total, Yuma 0's
     re-normalization) are spelled as the chains of FMAs XLA's CPU backend
     compiles them into (:func:`..ops.fma.fma_chain`): at most 16
-    validators and fewer than 16 miners. tests/test_torch_simulate.py pins
-    the port's epochs there bitwise to JAX's XLA rung: the built-in cases
-    ([3, 2]) and a random [5, 8] suite (ROADMAP §C, C2, has the versions
-    and shapes it does not reach yet). Past these widths XLA's order
+    validators and fewer than 16 miners, with the exceptions XLA makes
+    there (:func:`rank_sum`, :func:`fold_sum`). tests/test_torch_simulate.py
+    pins the port's epochs there bitwise to JAX's XLA rung: the built-in
+    cases ([3, 2]) and random [5, 8], [6, 5], [7, 2], [4, 8] and [8, 2]
+    suites (ROADMAP §C, C2, has the shapes it does not reach yet). Past
+    these widths XLA's order
     depends on the shape (on random data no spelling tried matched at
     V = 17 to 200 with M = 2, or at M = 31, 300, 512 or 4096), so the port
     keeps its plain sums there, in the engines' reduction-order class
@@ -82,6 +84,39 @@ def validator_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     if xla_chains(*x.shape[-2:]):
         return fma_chain(x, y, -2, keepdim=True)
     return (x * y).sum(dim=-2, keepdim=True)
+
+
+#: Validator counts at which XLA's CPU backend holds the per-validator
+#: dividends in one vector register and sums them with its horizontal
+#: reduction (:func:`fold_sum`), not as a chain over (validator, miner).
+FOLD_VALIDATORS = (4, 8)
+
+
+def fold_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis as a vector register's horizontal reduction:
+    the upper half added onto the lower half, lane by lane, until one lane
+    is left (for 8: `(x0 + x4) + (x2 + x6)`, plus `(x1 + x5) + (x3 + x7)`);
+    a length that is a power of two. Kept."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x
+
+
+def rank_sum(S: torch.Tensor, W_clipped: torch.Tensor, lanes: int) -> torch.Tensor:
+    """The rank `R = sum(S * W_clipped)` over validators, kept, as XLA's
+    CPU backend compiles the JAX package's `einsum("v,vm->m")` (a batched
+    dot over `lanes` scenarios under `vmap`): :func:`validator_dot`, except
+    at M = 2 with 3 <= V <= 8 and two or more lanes, where the dot's first
+    miner column is a plain left-to-right sum and only the second a chain
+    of FMAs (a probe of the jitted einsum, ROADMAP §C, C2)."""
+    R = validator_dot(S, W_clipped)
+    V, M = W_clipped.shape[-2:]
+    if M == 2 and 3 <= V <= 8 and lanes >= 2:
+        x, y = torch.broadcast_tensors(S, W_clipped)
+        first = sequential_sum(x[..., 0] * y[..., 0], -1, keepdim=True).unsqueeze(-1)
+        R = torch.cat([first, R[..., 1:]], dim=-1)
+    return R
 
 
 def normalize_weight_rows(W: torch.Tensor, eps: float = WEIGHT_EPS) -> torch.Tensor:

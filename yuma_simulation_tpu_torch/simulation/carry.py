@@ -41,3 +41,23 @@ class HoistedCarry:
 
     bonds: torch.Tensor  # [V, M]
     acc: torch.Tensor  # [V]
+
+
+@dataclass
+class ScanCarry:
+    """The eager rung's scan carry (:func:`.engine._simulate_scan`): the
+    state one epoch hands the next. `w_prev` is None for variants that do
+    not carry previous weights. The JAX package's `quarantine` leg waits for the resilience
+    slice (ROADMAP queue A, slice 7)."""
+
+    bonds: torch.Tensor  # [(B,) V, M]
+    w_prev: Optional[torch.Tensor]  # [(B,) V, M] or None
+    consensus: torch.Tensor  # [(B,) M]
+
+    def to_dict(self) -> dict:
+        """The carry dict the entry points take and return
+        (``initial_state`` / ``final_state``)."""
+        out = {"bonds": self.bonds, "consensus": self.consensus}
+        if self.w_prev is not None:
+            out["w_prev"] = self.w_prev
+        return out

@@ -12,14 +12,23 @@ the loop runs on one of these rungs:
 - "eager": a Python loop over :func:`..models.epoch.yuma_epoch` (the
   counterpart of the JAX package's XLA `lax.scan` rung).
 
-`epoch_impl="auto"` resolves as the JAX package's planner does on the TPU:
-the varying scan when its epoch tile reaches 2, else the case scan, for
-CUDA tensors; "eager" on `device="cpu"`, as JAX's "auto" resolves to its
-XLA rung off the TPU, and where the dyadic quantize grid no longer fits
-int32 (the fused and eager quantize fallbacks may differ by an ulp there,
-so "auto" never mixes them), and for a padded suite with per-scenario miner
-masks, which only the eager rung takes. The fused rungs on CPU tensors run
-the kernels' plain PyTorch versions.
+Every entry point plans through :func:`..planner.plan_dispatch` (the scaled
+ones through :func:`..planner.resolve_scaled_engine`). `epoch_impl="auto"`
+resolves as the JAX package's planner does on the TPU: the varying scan
+when its epoch tile reaches 2, else the case scan, for CUDA tensors;
+"eager" on `device="cpu"`, as JAX's "auto" resolves to its XLA rung off the
+TPU, and where the dyadic quantize grid no longer fits int32 (the fused and
+eager quantize fallbacks may differ by an ulp there, so "auto" never mixes
+them), and for a padded suite with per-scenario miner masks, which only the
+eager rung takes. "xla", JAX's name of the bottom rung, runs "eager". The
+fused rungs on CPU tensors run the kernels' plain PyTorch versions.
+
+Long runs: :func:`simulate` with `max_resident_epochs`, and
+:func:`simulate_streamed`, run the epoch stack in slabs with the carry
+threaded between them, the next slab's copy to the card overlapping the
+scan over the current one; :func:`simulate_generated` runs slabs that a
+function builds on the card. Both are bitwise the monolithic run on the
+same rung.
 
 The throughput paths (:func:`simulate_scaled`, :func:`simulate_scaled_batch`,
 :func:`simulate_constant`) return dividend totals and the final bonds
@@ -29,7 +38,9 @@ kernel (K6) on the card, or the eager loop.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields, replace
+import contextlib
+import time
+from dataclasses import dataclass, field, fields, replace
 from typing import Optional
 
 import numpy as np
@@ -51,17 +62,12 @@ from yuma_simulation_tpu_torch.models.variants import (
     VariantSpec,
     variant_for_version,
 )
-from yuma_simulation_tpu_torch.ops.consensus import (
-    bisection_iterations,
-    dyadic_grid_fits_int32,
-    resolve_consensus_impl,
-)
+from yuma_simulation_tpu_torch.ops.consensus import resolve_consensus_impl
 from yuma_simulation_tpu_torch.ops.cuda_epoch import (
     fused_case_scan,
     fused_ema_epoch,
     fused_ema_scan,
     fused_varying_scan,
-    varying_scan_epoch_tile,
 )
 from yuma_simulation_tpu_torch.ops.liquid import liquid_alpha_rate
 from yuma_simulation_tpu_torch.ops.normalize import (
@@ -72,13 +78,16 @@ from yuma_simulation_tpu_torch.scenarios.base import Scenario
 from yuma_simulation_tpu_torch.simulation.carry import (
     HoistedCarry,
     ScaledCarry,
+    ScanCarry,
     TotalsCarry,
 )
-
-#: The tensor-core (K4) twins of the fused rungs, bitwise the same.
-MXU_RUNGS = ("fused_scan_mxu", "fused_varying_mxu")
-FUSED_RUNGS = ("fused_scan", "fused_varying") + MXU_RUNGS
-EPOCH_IMPLS = ("auto", "eager") + FUSED_RUNGS
+from yuma_simulation_tpu_torch.simulation.planner import (
+    FUSED_CASE_RUNGS,
+        STREAM_BUFFERS,
+    plan_dispatch,
+    resolve_scaled_engine,
+    rung_flags,
+)
 
 #: Above this many bytes for one saved per-epoch stream, `save_bonds="auto"`
 #: / `save_incentives="auto"` resolve to False.
@@ -97,7 +106,7 @@ class SimulationResult:
     #: host arrays), only with ``return_state=True``; fed back as
     #: ``initial_state=`` with ``epoch_offset=`` it continues the run.
     final_state: Optional[dict] = None
-    #: The rung that ran (one of :data:`FUSED_RUNGS`, or "eager").
+    #: The rung that ran (one of :data:`..planner.FUSED_CASE_RUNGS`, or "eager").
     engine: str = ""
 
 
@@ -113,52 +122,6 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
-
-
-def plan_engine(
-    epoch_impl: str,
-    consensus_impl: str,
-    shape,
-    dtype,
-    device: torch.device,
-    precision: int = 100_000,
-    has_miner_mask: bool = False,
-) -> str:
-    """Resolve `epoch_impl` for a `[(B,) E, V, M]` workload to a rung.
-    `auto` never picks a fused rung once `M * 2^iters >= 2^31` (the JAX
-    package's gate, pallas_epoch.py:1308-1315); that test comes before any
-    query of the device. A padded suite's per-scenario miner mask
-    (`has_miner_mask`) runs on the eager rung only, as the JAX planner
-    sends it to its XLA rung: "auto" resolves to "eager" and a fused rung
-    raises."""
-    if epoch_impl not in EPOCH_IMPLS:
-        raise ValueError(
-            f"unknown epoch_impl {epoch_impl!r}; expected one of {EPOCH_IMPLS}"
-        )
-    if consensus_impl not in ("auto", "sorted", "bisect", "kernel"):
-        raise ValueError(
-            f"unknown consensus_impl {consensus_impl!r}; "
-            "expected 'auto', 'sorted', 'bisect' or 'kernel'"
-        )
-    fusable = consensus_impl in ("auto", "bisect") and dtype == torch.float32
-    if epoch_impl == "auto":
-        if device.type != "cuda" or not fusable or has_miner_mask or shape[-3] < 1:
-            return "eager"
-        if not dyadic_grid_fits_int32(shape[-1], bisection_iterations(precision)):
-            return "eager"
-        tile = varying_scan_epoch_tile(tuple(shape), device)
-        return "fused_varying" if tile >= 2 else "fused_scan"
-    if epoch_impl in FUSED_RUNGS and has_miner_mask:
-        raise ValueError(
-            "the batched fused case scan has no per-scenario miner masks; "
-            "heterogeneous suites use epoch_impl='eager'"
-        )
-    if epoch_impl in FUSED_RUNGS and not fusable:
-        raise ValueError(
-            f"epoch_impl={epoch_impl!r} bisects in-kernel on float32: it needs "
-            "consensus_impl 'auto' or 'bisect' and dtype torch.float32"
-        )
-    return epoch_impl
 
 
 def _dividends_per_1k(D_n, S, config):
@@ -220,10 +183,10 @@ def _tensor_config(config: YumaConfig, device) -> YumaConfig:
     return _map_config(config, conv)
 
 
-def zero_carry(spec: VariantSpec, V: int, M: int, dtype=torch.float32, device="cpu") -> dict:
+def zero_carry(spec: VariantSpec, V: int, M: int, dtype=torch.float32, device="cuda") -> dict:
     """The carry at global epoch 0, as the engines' zero-init makes it:
     `bonds [V, M]`, `consensus [M]`, and `w_prev [V, M]` for a variant that
-    carries previous weights."""
+    carries previous weights; on the card unless `device` says otherwise."""
     dev = resolve_device(device)
     carry = {
         "bonds": torch.zeros((V, M), dtype=dtype, device=dev),
@@ -301,10 +264,10 @@ def _simulate_scan(
     return_carry: bool = False,
     x64: bool = False,
 ):
-    """The eager rung: a Python loop over :func:`yuma_epoch`, carrying
-    `(bonds, w_prev, consensus)`. Returns the per-epoch outputs stacked on
-    the epoch axis (`dividends [(B,) E, V]`, ...), plus the final carry
-    with `return_carry`. `miner_mask` marks a padded suite's real miner
+    """The eager rung: a Python loop over :func:`yuma_epoch`, threading a
+    :class:`..carry.ScanCarry` (bonds, w_prev, consensus). Returns the
+    per-epoch outputs stacked on the epoch axis (`dividends [(B,) E, V]`,
+    ...), plus the final carry with `return_carry`. `miner_mask` marks a padded suite's real miner
     columns, per scenario (`[B, M]`) or shared (`[M]`)."""
     *lead, E, V, M = weights.shape
     dtype, dev = weights.dtype, weights.device
@@ -313,14 +276,21 @@ def _simulate_scan(
     r_epoch = torch.as_tensor(reset_epoch, device=dev)
     if miner_mask is not None:
         miner_mask = torch.as_tensor(miner_mask, dtype=dtype).to(dev)
+    prev = spec.carries_prev_weights
     if carry is None:
-        B = torch.zeros(tuple(lead) + (V, M), dtype=dtype, device=dev)
-        W_prev = torch.zeros_like(B)
-        C_prev = torch.zeros(tuple(lead) + (M,), dtype=dtype, device=dev)
+        zeros = torch.zeros(tuple(lead) + (V, M), dtype=dtype, device=dev)
+        state = ScanCarry(
+            bonds=zeros, w_prev=zeros if prev else None,
+            consensus=torch.zeros(tuple(lead) + (M,), dtype=dtype, device=dev),
+        )
     else:
-        B = torch.as_tensor(carry["bonds"], dtype=dtype).to(dev)
-        W_prev = torch.as_tensor(carry.get("w_prev", torch.zeros_like(B)), dtype=dtype).to(dev)
-        C_prev = torch.as_tensor(carry["consensus"], dtype=dtype).to(dev)
+        def take(key):
+            return torch.as_tensor(carry[key], dtype=dtype).to(dev)
+
+        bonds = take("bonds")
+        w_prev = take("w_prev") if "w_prev" in carry else torch.zeros_like(bonds)
+        state = ScanCarry(bonds=bonds, w_prev=w_prev if prev else None,
+                          consensus=take("consensus"))
     ys: dict = {"dividends": []}
     if save_bonds:
         ys["bonds"] = []
@@ -332,13 +302,14 @@ def _simulate_scan(
         epoch = e + epoch_offset
         W = weights[..., e, :, :]
         S = stakes[..., e, :]
+        B = state.bonds
         if spec.reset_mode is not ResetMode.NONE:
-            B = _apply_reset(B, C_prev, epoch, ri, r_epoch, spec.reset_mode, M)
+            B = _apply_reset(B, state.consensus, epoch, ri, r_epoch, spec.reset_mode, M)
         kernel_prev = None
-        if spec.carries_prev_weights:
+        if prev:
             # Epoch 0 falls back to this epoch's normalized weights
             # (reference yumas.py:299-300).
-            kernel_prev = normalize_weight_rows(W) if epoch == 0 else W_prev
+            kernel_prev = normalize_weight_rows(W) if epoch == 0 else state.w_prev
         res = yuma_epoch(
             W, S, B, cfg,
             bonds_mode=spec.bonds_mode,
@@ -348,27 +319,25 @@ def _simulate_scan(
             consensus_impl=consensus_impl,
             x64=x64,
         )
-        B = res[spec.bond_state_key]
-        if spec.carries_prev_weights:
-            W_prev = res["weight"]
-        C_prev = res["server_consensus_weight"]
+        state = ScanCarry(
+            bonds=res[spec.bond_state_key],
+            w_prev=res["weight"] if prev else None,
+            consensus=res["server_consensus_weight"],
+        )
         ys["dividends"].append(
             _dividends_per_1k(res["validator_reward_normalized"], S, cfg)
         )
         if save_bonds:
-            ys["bonds"].append(B)
+            ys["bonds"].append(state.bonds)
         if save_incentives:
             ys["incentives"].append(res["server_incentive"])
         if save_consensus:
-            ys["consensus"].append(C_prev)
+            ys["consensus"].append(state.consensus)
     axis = len(lead)
     ys = {k: torch.stack(v, dim=axis) for k, v in ys.items()}
     if not return_carry:
         return ys
-    carry_out = {"bonds": B, "consensus": C_prev}
-    if spec.carries_prev_weights:
-        carry_out["w_prev"] = W_prev
-    return ys, carry_out
+    return ys, state.to_dict()
 
 
 def _simulate_case_fused(
@@ -468,26 +437,52 @@ def simulate(
     consensus_impl: str = "bisect",
     epoch_impl: str = "auto",
     dtype: torch.dtype = torch.float32,
-    device="cuda",
-    x64: bool = False,
+    mesh=None,
+    max_resident_epochs: Optional[int] = None,
+    retry_policy=None,
+    deadline=None,
     initial_state: Optional[dict] = None,
     epoch_offset: int = 0,
     return_state: bool = False,
+    device="cuda",
+    x64: bool = False,
 ) -> SimulationResult:
     """Simulate one scenario under one named version; returns host arrays.
 
-    `epoch_impl`: "auto" (default; see the module docstring), "eager",
-    "fused_scan", "fused_varying" or their tensor-core twins
-    "fused_scan_mxu" / "fused_varying_mxu". `consensus_impl`: "bisect" (default),
-    "sorted", "kernel" (the CUDA bisection kernel inside the eager rung) or
-    "auto"; the fused rungs bisect in-kernel. `x64=True` runs Yuma 0's
-    quantization divide in float64, the JAX package's parity mode.
+    `epoch_impl`: "auto" (default; see the module docstring), "eager"
+    ("xla", the JAX package's name, runs it), "fused_scan", "fused_varying"
+    or their tensor-core twins "fused_scan_mxu" / "fused_varying_mxu".
+    `consensus_impl`: "bisect" (default), "sorted", "kernel" (the CUDA
+    bisection kernel inside the eager rung) or "auto"; the fused rungs
+    bisect in-kernel. `x64=True` runs Yuma 0's quantization divide in
+    float64, the JAX package's parity mode.
+
+    The dispatch plan (:func:`..planner.plan_dispatch`) preflights the
+    footprint before anything is copied to the card: a stack that cannot
+    fit raises :class:`..telemetry.cost.HBMPreflightError`, which names a
+    `max_resident_epochs` that would.
+
+    `max_resident_epochs`: when set and the scenario is longer, the epoch
+    stack runs in slabs of that many epochs through
+    :func:`simulate_streamed` (the next slab's copy overlapping the scan
+    over the current one; on the card two slabs resident at a time),
+    bitwise the monolithic run on the same rung. The plan may cut the slabs
+    further, to its `memory.chunk_epochs`.
 
     `initial_state` / `epoch_offset` / `return_state`: the `final_state` of
     a `return_state=True` run fed back with `epoch_offset` set to that run's
     epoch count continues the trajectory over global epochs
     `[offset, offset + E)`.
+
+    `mesh` (slice 4), `retry_policy` and `deadline` (slice 7 of ROADMAP
+    queue A) are not ported yet and raise when given.
     """
+    if mesh is not None:
+        raise NotImplementedError(
+            "simulate(mesh=) shards the miner axis over devices, which is not "
+            "ported yet (ROADMAP queue A, slice 4)"
+        )
+    _refuse_resilience(retry_policy, deadline, "simulate")
     dev = resolve_device(device)
     config = config if config is not None else YumaConfig()
     spec = variant_for_version(yuma_version)
@@ -496,43 +491,53 @@ def simulate(
         validate_initial_state(initial_state, spec, V, M)
     if epoch_offset < 0:
         raise ValueError(f"epoch_offset must be >= 0, got {epoch_offset}")
+    if max_resident_epochs is not None and max_resident_epochs < 1:
+        raise ValueError(f"max_resident_epochs must be >= 1, got {max_resident_epochs}")
     itemsize = torch.empty((), dtype=dtype).element_size()
     save_bonds = _resolve_save(save_bonds, E * V * M * itemsize, "save_bonds")
     save_incentives = _resolve_save(save_incentives, E * M * itemsize, "save_incentives")
-    engine = plan_engine(
-        epoch_impl, consensus_impl, (E, V, M), dtype, dev, config.consensus_precision
+    will_stream = max_resident_epochs is not None and E > max_resident_epochs
+    # A streamed run is planned on the whole stack's rung, not re-decided on
+    # its first slab, so it stays bitwise the monolithic run; its memory is
+    # planned by simulate_streamed, on the slabs.
+    plan = plan_dispatch(
+        f"simulate:{yuma_version}", (E, V, M), spec, config, dtype,
+        epoch_impl=epoch_impl, consensus_impl=consensus_impl, save_bonds=save_bonds,
+        save_incentives=save_incentives, save_consensus=save_consensus,
+        max_resident_epochs=max_resident_epochs, check_memory=not will_stream, device=dev,
     )
+    if will_stream:
 
+        def chunk_gen():
+            for lo in range(0, E, max_resident_epochs):
+                hi = min(lo + max_resident_epochs, E)
+                yield scenario.weights[lo:hi], scenario.stakes[lo:hi]
+
+        return simulate_streamed(
+            chunk_gen(), yuma_version, config,
+            reset_bonds_index=scenario.reset_bonds_index,
+            reset_bonds_epoch=scenario.reset_bonds_epoch,
+            save_bonds=save_bonds, save_incentives=save_incentives,
+            save_consensus=save_consensus, consensus_impl=plan.consensus_impl,
+            epoch_impl=plan.engine, dtype=dtype, initial_state=initial_state,
+            epoch_offset=epoch_offset, return_state=return_state, device=dev, x64=x64,
+        )
+    plan.record()
     weights = torch.as_tensor(scenario.weights, dtype=dtype).to(dev)
     stakes = torch.as_tensor(scenario.stakes, dtype=dtype).to(dev)
-    ri = -1 if scenario.reset_bonds_index is None else scenario.reset_bonds_index
-    re_ = -1 if scenario.reset_bonds_epoch is None else scenario.reset_bonds_epoch
     carry = None
     if initial_state is not None:
         carry = {
-            k: torch.as_tensor(np.asarray(v), dtype=dtype).to(dev)
+            k: torch.as_tensor(np.array(v), dtype=dtype).to(dev)
             for k, v in initial_state.items()
         }
-    common = dict(
-        save_bonds=save_bonds,
-        save_incentives=save_incentives,
-        save_consensus=save_consensus,
-        carry=carry,
-        epoch_offset=epoch_offset,
-        return_carry=return_state,
-        x64=x64,
+    out = _dispatch_case(
+        plan, weights, stakes, _reset_int(scenario.reset_bonds_index),
+        _reset_int(scenario.reset_bonds_epoch), config, spec,
+        save_bonds=save_bonds, save_incentives=save_incentives,
+        save_consensus=save_consensus, carry=carry, epoch_offset=epoch_offset,
+        return_carry=return_state, x64=x64,
     )
-    if engine in FUSED_RUNGS:
-        out = _simulate_case_fused(
-            weights, stakes, ri, re_, config, spec,
-            varying=engine.startswith("fused_varying"),
-            mxu=engine in MXU_RUNGS, **common,
-        )
-    else:
-        out = _simulate_scan(
-            weights, stakes, torch.tensor(ri), torch.tensor(re_), config, spec,
-            consensus_impl=resolve_consensus_impl(consensus_impl, V, M), **common,
-        )
     state = None
     if return_state:
         out, carry_out = out
@@ -544,7 +549,38 @@ def simulate(
         incentives=host.get("incentives"),
         consensus=host.get("consensus"),
         final_state=state,
-        engine=engine,
+        engine=plan.engine,
+    )
+
+
+def _refuse_resilience(retry_policy, deadline, name: str) -> None:
+    """`retry_policy` / `deadline` arm the JAX package's engine ladder and
+    watchdog, which are not ported yet."""
+    if retry_policy is not None or deadline is not None:
+        raise NotImplementedError(
+            f"{name}(retry_policy=, deadline=) arm the engine-demotion ladder and "
+            "the watchdog, which are not ported yet (ROADMAP queue A, slice 7: "
+            "resilience)"
+        )
+
+
+def _reset_int(x) -> int:
+    return -1 if x is None else int(x)
+
+
+def _dispatch_case(plan, weights, stakes, reset_index, reset_epoch, config, spec, *,
+                   miner_mask=None, **common):
+    """One `[(B,) E, V, M]` dispatch on the plan's rung. The reset rule's
+    index and epoch are ints or `[B]` vectors; `miner_mask` (a padded
+    suite's) goes to the eager rung, the only one the plan lets take it."""
+    if plan.engine in FUSED_CASE_RUNGS:
+        return _simulate_case_fused(
+            weights, stakes, reset_index, reset_epoch, config, spec,
+            **rung_flags(plan.engine), **common,
+        )
+    return _simulate_scan(
+        weights, stakes, reset_index, reset_epoch, config, spec,
+        consensus_impl=plan.consensus_impl, miner_mask=miner_mask, **common,
     )
 
 
@@ -571,58 +607,438 @@ def run_simulation(
 
 
 # ---------------------------------------------------------------------------
-# the throughput paths: totals and final bonds, no per-epoch outputs
-
-#: The scaled path's rungs; the batch takes the scans and the eager rung.
-SCALED_IMPLS = ("auto", "eager", "fused", "fused_mxu", "fused_scan", "fused_scan_mxu")
-SCALED_BATCH_IMPLS = ("auto", "eager", "fused_scan", "fused_scan_mxu")
+# long runs: the epoch stack in slabs, the carry threaded between them
 
 
-def plan_scaled_engine(
-    epoch_impl: str,
-    consensus_impl: str,
-    shape,
-    dtype,
-    device: torch.device,
-    num_epochs: int,
-    precision: int = 100_000,
+def simulate_streamed(
+    chunks,
+    yuma_version: str,
+    config: Optional[YumaConfig] = None,
     *,
-    batched: bool = False,
-) -> str:
-    """Resolve `epoch_impl` of :func:`simulate_scaled` (`shape [V, M]`) or
-    :func:`simulate_scaled_batch` (`[B, V, M]`, `batched=True`) to a rung
-    (the JAX package's `planner.resolve_scaled_engine` with the numeric
-    gates of `fused_scan_eligible`). `auto` runs the scaled scan with the
-    VPU support ("fused_scan") on float32 CUDA tensors with at least one
-    epoch while the dyadic quantize grid fits int32, else "eager". Its
-    tensor-core spelling is bitwise the same and was not measurably faster
-    at 256 x 4096 on an NVIDIA H100 80GB HBM3 at 700 W: faster in 11 of
-    chip_smoke.py's 16 alternated pairs, short of the 13 fixed beforehand
-    (PERF.md). JAX's further gate
-    on Yuma 0 in x64 (`M * 2^iters >= 2^23`) guards its double-single
-    float64 emulation; the port divides in native float64 and drops it.
-    JAX's VMEM admission does not carry over: K5's state lives in device
-    memory. `consensus_impl` is validated on every rung; the fused rungs
-    bisect in-kernel and do not read it."""
-    resolve_consensus_impl(consensus_impl, *shape[-2:])
-    impls = SCALED_BATCH_IMPLS if batched else SCALED_IMPLS
-    if epoch_impl not in impls:
-        name = "simulate_scaled_batch" if batched else "simulate_scaled"
-        raise ValueError(
-            f"unknown epoch_impl {epoch_impl!r} for {name}; expected one of {impls}"
-        )
-    if epoch_impl != "auto":
-        return epoch_impl
-    M = shape[-1]
-    if (
-        device.type != "cuda"
-        or dtype != torch.float32
-        or num_epochs < 1
-        or not dyadic_grid_fits_int32(M, bisection_iterations(precision))
-    ):
-        return "eager"
-    return "fused_scan"
+    reset_bonds_index: Optional[int] = None,
+    reset_bonds_epoch: Optional[int] = None,
+    save_bonds: bool = False,
+    save_incentives: bool = False,
+    save_consensus: bool = False,
+    consensus_impl: str = "bisect",
+    epoch_impl: str = "auto",
+    dtype: torch.dtype = torch.float32,
+    retry_policy=None,
+    initial_state: Optional[dict] = None,
+    epoch_offset: int = 0,
+    return_state: bool = False,
+    device="cuda",
+    x64: bool = False,
+) -> SimulationResult:
+    """A run of per-epoch weights longer than the card holds, slab by slab.
 
+    `chunks` is any iterable of `(W [Ec, V, M], S [Ec, V])` slabs (numpy
+    arrays, CPU tensors, or tensors already on `device`). Each slab runs on
+    one rung with the `(bonds, consensus[, w_prev])` carry threaded between
+    slabs and the global epoch index driving first-epoch adoption and the
+    bond reset, so the result is bitwise the monolithic run of the
+    concatenated stack on the same rung. The rung is planned once, on the
+    first slab (:func:`..planner.plan_dispatch` with `streaming=True`:
+    "auto" is the varying scan on the card, which takes every slab at its
+    own epoch tile), and pinned; slabs longer than the plan's
+    `memory.chunk_epochs` are cut to it.
+
+    On the card the copies are double-buffered: a host slab is staged into
+    one of :data:`..planner.STREAM_BUFFERS` pinned buffers (allocated once
+    per stream), copied without blocking on a side stream into one of two
+    device slabs, and the scan waits for that copy on the card, not on the
+    host; the outputs come back through pinned buffers, and a slab's are
+    read on the host after the next slab is dispatched. Two slabs are on the
+    card at a time. Nothing continues on the CPU: a failed pinned allocation
+    or copy raises.
+
+    Defaults save only the `[E, V]` dividends; the save flags must be bools
+    (the stream's length is unknown here, so "auto" cannot be sized).
+    `initial_state` / `epoch_offset` / `return_state`: the suffix-resume
+    contract of :func:`simulate`. `retry_policy` (the JAX package's
+    demotion ladder over the stream) is not ported yet and raises.
+    """
+    for name, flag in (("save_bonds", save_bonds), ("save_incentives", save_incentives),
+                       ("save_consensus", save_consensus)):
+        if not isinstance(flag, bool):
+            raise ValueError(
+                f"simulate_streamed {name} must be True or False, got {flag!r}: the "
+                "total stream length is unknown up front, so 'auto' cannot be sized "
+                "here (resolve it against the full shape via simulate(), or pass an "
+                "explicit bool)"
+            )
+    _refuse_resilience(retry_policy, None, "simulate_streamed")
+    config = config if config is not None else YumaConfig()
+    spec = variant_for_version(yuma_version)
+    if epoch_offset < 0:
+        raise ValueError(f"epoch_offset must be >= 0, got {epoch_offset}")
+    return _simulate_streamed_attempt(
+        iter(chunks), yuma_version, config, spec,
+        reset_bonds_index=reset_bonds_index, reset_bonds_epoch=reset_bonds_epoch,
+        save_bonds=save_bonds, save_incentives=save_incentives,
+        save_consensus=save_consensus, consensus_impl=consensus_impl,
+        epoch_impl=epoch_impl, dtype=dtype, initial_state=initial_state,
+        epoch_offset=epoch_offset, return_state=return_state,
+        device=resolve_device(device), x64=x64,
+    )
+
+
+class _HostSlabs:
+    """The staging of a stream's slabs off the card: each slab becomes a
+    tensor of the stream's dtype, outputs are read back as they are."""
+
+    def __init__(self, dev, dtype):
+        self.dev, self.dtype = dev, dtype
+
+    def stage(self, Wc, Sc):
+        return tuple(torch.as_tensor(x, dtype=self.dtype).to(self.dev) for x in (Wc, Sc))
+
+    def scan_begins(self) -> None:
+        pass
+
+    def dispatched(self, slot) -> None:
+        pass
+
+    def fetch(self, ys: dict):
+        return ys
+
+    def flush(self, pending) -> dict:
+        return {k: v.cpu().numpy() for k, v in pending.items()}
+
+
+@dataclass
+class StreamTimeline:
+    """The timeline of the streams run on the card inside
+    :func:`stream_timeline`: CUDA events around each slab's copy on the
+    side stream and each scan on the compute stream, and the host's time
+    in staging (waiting for a pinned buffer's last copy, and allocating
+    the buffers on first use; then filling it). `hidden[k]` is whether
+    slab k's copy and scan had both ended by the time the host finished
+    filling slab k+1's buffer, that is whether the card's work on slab k
+    ran behind the host's staging. For slabs staged from the host."""
+
+    fill_s: float = 0.0
+    wait_s: float = 0.0
+    copies: list = field(default_factory=list)  # (start, end) events, side stream
+    scans: list = field(default_factory=list)  # (start, end) events, compute stream
+    hidden: list = field(default_factory=list)  # per slab but the last
+
+    def summary(self) -> dict:
+        """Milliseconds from the events (call after the card is synchronized):
+        the copies' and scans' sums, the time copies ran while a scan ran
+        (``copy_scan_overlap_ms``), the card's busy time (their union) and
+        span, and the copy + scan time of the slabs hidden behind staging."""
+        if not self.copies:
+            return {}
+        t0 = self.copies[0][0]
+
+        def spans(pairs):
+            return [(t0.elapsed_time(a), t0.elapsed_time(b)) for a, b in pairs]
+
+        copies, scans = spans(self.copies), spans(self.scans)
+        copy_ms = sum(b - a for a, b in copies)
+        scan_ms = sum(b - a for a, b in scans)
+        overlap = sum(max(0.0, min(c1, s1) - max(c0, s0))
+                      for c0, c1 in copies for s0, s1 in scans)
+        hidden = sum((c1 - c0) + (s1 - s0)
+                     for h, (c0, c1), (s0, s1) in zip(self.hidden, copies, scans) if h)
+        return dict(
+            slabs=len(scans), fill_s=self.fill_s, wait_s=self.wait_s, copy_ms=copy_ms,
+            scan_ms=scan_ms, copy_scan_overlap_ms=overlap,
+            busy_ms=copy_ms + scan_ms - overlap,
+            span_ms=max(e for _, e in copies + scans),
+            hidden_slabs=sum(self.hidden), hidden_behind_staging_ms=hidden,
+        )
+
+
+_TIMELINE: Optional[StreamTimeline] = None
+
+
+@contextlib.contextmanager
+def stream_timeline():
+    """Record a :class:`StreamTimeline` of the streams run on the card in
+    this block (one timeline across them: use one stream per block)."""
+    global _TIMELINE
+    previous, _TIMELINE = _TIMELINE, StreamTimeline()
+    try:
+        yield _TIMELINE
+    finally:
+        _TIMELINE = previous
+
+
+class _CudaSlabs:
+    """The double buffer of a stream on the card.
+
+    Host slabs are staged into :data:`STREAM_BUFFERS` pinned buffers and
+    copied without blocking, on a side stream, into as many device slabs;
+    the compute stream waits for a slab's copy event before its scan, and
+    the copy into a device slab waits, on the card, for the scan that last
+    read it. A pinned buffer is refilled only after its previous copy's
+    event has completed. Outputs go back without blocking into pinned
+    buffers, one set per slot, read after the next slab is dispatched.
+    The buffers are allocated once per stream (again only for a longer
+    slab) and reused."""
+
+    def __init__(self, dev, dtype, timeline: Optional[StreamTimeline] = None):
+        self.dev, self.dtype = dev, dtype
+        self.timeline = timeline
+        self.compute = torch.cuda.current_stream(dev)
+        self.side = torch.cuda.Stream(dev)
+        self.pinned: list = [None] * STREAM_BUFFERS  # (W, S) pinned, per slot
+        self.slabs: list = [None] * STREAM_BUFFERS  # (W, S) on the card, per slot
+        self.copied: list = [None] * STREAM_BUFFERS  # event: the slot's copy is done
+        self.read: list = [None] * STREAM_BUFFERS  # event: the slot's scan is done
+        self.outs: list = [dict() for _ in range(STREAM_BUFFERS)]  # pinned outputs
+        self.staged = self.fetched = 0
+
+    def _buffers(self, j: int, n: int, V: int, M: int):
+        have = self.slabs[j]
+        if have is None or have[0].shape[0] < n or have[0].shape[1:] != (V, M):
+            if self.read[j] is not None:
+                self.read[j].synchronize()  # the scan that read the old slab
+            shapes = ((n, V, M), (n, V))
+            self.pinned[j] = tuple(
+                torch.empty(sh, dtype=self.dtype, pin_memory=True) for sh in shapes
+            )
+            with torch.cuda.stream(self.side):
+                self.slabs[j] = tuple(
+                    torch.empty(sh, dtype=self.dtype, device=self.dev) for sh in shapes
+                )
+            for x in self.slabs[j]:
+                # Written on the side stream, read on the compute stream.
+                x.record_stream(self.compute)
+        return self.pinned[j], self.slabs[j]
+
+    def stage(self, Wc, Sc):
+        if isinstance(Wc, torch.Tensor) and Wc.is_cuda:  # already on a card
+            return Wc.to(self.dev, self.dtype), torch.as_tensor(Sc).to(self.dev, self.dtype)
+        j = self.staged % STREAM_BUFFERS
+        self.staged += 1
+        n, V, M = np.shape(Wc)
+        tl = self.timeline
+        t0 = time.perf_counter()
+        if self.copied[j] is not None:
+            self.copied[j].synchronize()  # the pinned buffer's last copy
+        (pW, pS), (dW, dS) = self._buffers(j, n, V, M)
+        t1 = time.perf_counter()
+        pW[:n].numpy()[...] = Wc
+        pS[:n].numpy()[...] = Sc
+        if tl is not None:
+            tl.wait_s += t1 - t0
+            tl.fill_s += time.perf_counter() - t1
+            if tl.scans:
+                tl.hidden.append(tl.scans[-1][1].query())
+        with torch.cuda.stream(self.side):
+            if self.read[j] is not None:
+                self.side.wait_event(self.read[j])
+            if tl is not None:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record(self.side)
+            dW[:n].copy_(pW[:n], non_blocking=True)
+            dS[:n].copy_(pS[:n], non_blocking=True)
+            self.copied[j] = torch.cuda.Event(enable_timing=tl is not None)
+            self.copied[j].record(self.side)
+            if tl is not None:
+                tl.copies.append((start, self.copied[j]))
+        self.compute.wait_event(self.copied[j])
+        return _Slot(dW[:n], dS[:n], j)
+
+    def scan_begins(self) -> None:
+        if self.timeline is not None:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(self.compute)
+            self.timeline.scans.append((start, None))
+
+    def dispatched(self, slot) -> None:
+        """After the scan over `slot` is queued: the next copy into its
+        device slab waits for this point of the compute stream."""
+        tl = self.timeline
+        if tl is None and not isinstance(slot, _Slot):
+            return
+        end = torch.cuda.Event(enable_timing=tl is not None)
+        end.record(self.compute)
+        if isinstance(slot, _Slot):
+            self.read[slot.j] = end
+        if tl is not None:
+            tl.scans[-1] = (tl.scans[-1][0], end)
+
+    def fetch(self, ys: dict):
+        bufs = self.outs[self.fetched % STREAM_BUFFERS]
+        self.fetched += 1
+        out = {}
+        for k, v in ys.items():
+            buf = bufs.get(k)
+            if buf is None or buf.shape[0] < v.shape[0] or buf.shape[1:] != v.shape[1:]:
+                buf = bufs[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            out[k] = buf[: v.shape[0]]
+            out[k].copy_(v, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(self.compute)
+        return out, done
+
+    def flush(self, pending) -> dict:
+        out, done = pending
+        done.synchronize()
+        return {k: v.numpy().copy() for k, v in out.items()}
+
+
+@dataclass
+class _Slot:
+    """A staged slab on the card and the slot of its buffers."""
+
+    W: torch.Tensor
+    S: torch.Tensor
+    j: int
+
+    def __iter__(self):
+        return iter((self.W, self.S))
+
+
+def _simulate_streamed_attempt(
+    chunks, yuma_version: str, config: YumaConfig, spec: VariantSpec, *,
+    reset_bonds_index, reset_bonds_epoch, save_bonds: bool, save_incentives: bool,
+    save_consensus: bool, consensus_impl: str, epoch_impl: str, dtype,
+    initial_state=None, epoch_offset: int = 0, return_state: bool = False,
+    device: torch.device, x64: bool = False,
+) -> SimulationResult:
+    """One rung-pinned, double-buffered pass over the stream: slab k is
+    dispatched, then slab k+1 is taken from the source and staged (its
+    copy overlapping the scan over slab k), then slab k-1's outputs are
+    read on the host."""
+    ri, re_ = _reset_int(reset_bonds_index), _reset_int(reset_bonds_epoch)
+    state: dict = {}  # "plan", set on the first slab
+    saves = dict(save_bonds=save_bonds, save_incentives=save_incentives,
+                 save_consensus=save_consensus)
+
+    def slabs():
+        for Wc, Sc in chunks:
+            if len(np.shape(Wc)) != 3:
+                raise ValueError(f"streamed chunks must be [E_chunk, V, M], got {np.shape(Wc)}")
+            if "plan" not in state:
+                # Planned once and pinned: a rung switched mid-stream would
+                # break the bitwise equality with the monolithic run.
+                plan = plan_dispatch(
+                    f"streamed:{yuma_version}", np.shape(Wc), spec, config, dtype,
+                    epoch_impl=epoch_impl, consensus_impl=consensus_impl, **saves,
+                    streaming=True, device=device,
+                )
+                plan.record()
+                state["plan"] = plan
+            cap = state["plan"].memory.chunk_epochs
+            n = int(np.shape(Wc)[0])
+            if cap is None or n <= cap:
+                yield Wc, Sc
+            else:
+                for lo in range(0, n, cap):
+                    yield Wc[lo : lo + cap], Sc[lo : lo + cap]
+
+    pipe = (_CudaSlabs(device, dtype, _TIMELINE) if device.type == "cuda"
+            else _HostSlabs(device, dtype))
+    it = slabs()
+    cur = next(it, None)
+    if cur is None:
+        raise ValueError("simulate_streamed received no chunks")
+    V, M = np.shape(cur[0])[-2:]
+    if initial_state is not None:
+        validate_initial_state(initial_state, spec, V, M)
+        carry = {
+            k: torch.as_tensor(np.array(v), dtype=dtype).to(device)
+            for k, v in initial_state.items()
+        }
+    else:
+        carry = zero_carry(spec, V, M, dtype, device=device)
+    cur = pipe.stage(*cur)
+    offset = epoch_offset
+    host: dict = {}
+    pending = None
+    while cur is not None:
+        Wc, Sc = cur
+        n_epochs = int(Wc.shape[0])
+        pipe.scan_begins()
+        ys, carry = _dispatch_case(
+            state["plan"], Wc, Sc, ri, re_, config, spec, carry=carry, epoch_offset=offset,
+            return_carry=True, x64=x64, **saves,
+        )
+        pipe.dispatched(cur)
+        fetched = pipe.fetch(ys)
+        del ys
+        offset += n_epochs
+        nxt = next(it, None)
+        cur = None if nxt is None else pipe.stage(*nxt)
+        if pending is not None:
+            for k, v in pipe.flush(pending).items():
+                host.setdefault(k, []).append(v)
+        pending = fetched
+    for k, v in pipe.flush(pending).items():
+        host.setdefault(k, []).append(v)
+    cat = {k: np.concatenate(v) for k, v in host.items()}
+    return SimulationResult(
+        dividends=cat["dividends"],
+        bonds=cat.get("bonds"),
+        incentives=cat.get("incentives"),
+        consensus=cat.get("consensus"),
+        final_state={k: v.cpu().numpy() for k, v in carry.items()} if return_state else None,
+        engine=state["plan"].engine,
+    )
+
+
+def simulate_generated(
+    gen_fn,
+    num_chunks: int,
+    yuma_version: str,
+    config: Optional[YumaConfig] = None,
+    *,
+    epoch_impl: str = "auto",
+    consensus_impl: str = "bisect",
+    x64: bool = False,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Chunked streaming of generated weights: `gen_fn(i)` returns chunk
+    `i`'s `(W [CH, V, M], S [CH, V])` tensors, built on the device the run
+    goes on (on the card: no host round trip). A host loop runs each chunk
+    through the same carry-threaded dispatch as :func:`simulate_streamed`,
+    one scan a chunk, the dividends gathered on the device; only one chunk
+    needs to be alive at a time. No bond reset fires. Bitwise the
+    monolithic run of the concatenated chunks on the same rung.
+
+    The JAX package unrolls this loop into one compiled program (a
+    `lax.fori_loop` around its Pallas scan compiled for minutes); a host
+    loop over kernel launches has no such cost, so the note does not apply.
+
+    Returns `(dividends [num_chunks * CH, V], final_bonds [V, M])` as host
+    arrays."""
+    config = config if config is not None else YumaConfig()
+    spec = variant_for_version(yuma_version)
+    if num_chunks < 1:
+        raise ValueError(f"num_chunks must be >= 1, got {num_chunks}")
+    W0, S0 = gen_fn(0)
+    dev = resolve_device(W0.device)
+    CH, V, M = W0.shape
+    # check_memory=False: one generated chunk lives at a time, whatever
+    # num_chunks is; the epoch-stack model of the preflight does not apply.
+    plan = plan_dispatch(
+        f"generated:{yuma_version}", tuple(W0.shape), spec, config, W0.dtype,
+        epoch_impl=epoch_impl, consensus_impl=consensus_impl, streaming=True,
+        check_memory=False, device=dev,
+    )
+    plan.record()
+    carry = zero_carry(spec, V, M, W0.dtype, device=dev)
+    D = torch.empty((num_chunks * CH, V), dtype=W0.dtype, device=dev)
+    for i in range(num_chunks):
+        W, S = (W0, S0) if i == 0 else gen_fn(i)
+        if tuple(W.shape) != (CH, V, M):
+            raise ValueError(f"gen_fn({i}) gave weights {tuple(W.shape)}, expected {(CH, V, M)}")
+        ys, carry = _dispatch_case(
+            plan, W, S, -1, -1, config, spec, carry=carry, epoch_offset=i * CH,
+            return_carry=True, save_bonds=False, save_incentives=False,
+            save_consensus=False, x64=x64,
+        )
+        D[i * CH : (i + 1) * CH] = ys["dividends"]
+        W0 = S0 = None
+    return D.cpu().numpy(), carry["bonds"].cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# the throughput paths: totals and final bonds, no per-epoch outputs
 
 def _check_scalar_config(config: YumaConfig, name: str) -> None:
     """The single-scenario entry points take scalar configs only; a
@@ -698,8 +1114,8 @@ def simulate_scaled(
     neutral (row normalization divides it out) but makes every epoch do
     its full work.
 
-    `epoch_impl`: "auto" (see :func:`plan_scaled_engine`), "eager" (the
-    loop over :func:`yuma_epoch`, JAX's "xla"), "fused_scan" /
+    `epoch_impl`: "auto" (see :func:`..planner.resolve_scaled_engine`),
+    "eager" (the loop over :func:`yuma_epoch`; "xla", JAX's name, runs it), "fused_scan" /
     "fused_scan_mxu" (the whole scan in K5, all five bond models; with
     the support on the tensor cores, bitwise the same), "fused" /
     "fused_mxu" (K6 once per epoch; EMA family, no liquid alpha).
@@ -717,9 +1133,9 @@ def simulate_scaled(
     dev, (S, scales) = _throughput_inputs(W, S, scales)
     V, M = W.shape
     consensus_impl = resolve_consensus_impl(consensus_impl, V, M)
-    engine = plan_scaled_engine(
-        epoch_impl, consensus_impl, (V, M), W.dtype, dev, scales.shape[0],
-        config.consensus_precision,
+    engine = resolve_scaled_engine(
+        (V, M), spec.bonds_mode, config, W.dtype, scales.shape[0], device=dev,
+        epoch_impl=epoch_impl, consensus_impl=consensus_impl,
     )
     if engine in ("fused_scan", "fused_scan_mxu"):
         return _scaled_scan(W, S, scales, config, spec, engine, x64)
@@ -790,9 +1206,9 @@ def simulate_scaled_batch(
     config_lanes(config, W.shape[0])
     dev, (S, scales) = _throughput_inputs(W, S, scales)
     consensus_impl = resolve_consensus_impl(consensus_impl, *W.shape[-2:])
-    engine = plan_scaled_engine(
-        epoch_impl, consensus_impl, tuple(W.shape), W.dtype, dev, scales.shape[0],
-        config.consensus_precision, batched=True,
+    engine = resolve_scaled_engine(
+        tuple(W.shape), spec.bonds_mode, config, W.dtype, scales.shape[0], device=dev,
+        epoch_impl=epoch_impl, consensus_impl=consensus_impl, batched=True,
     )
     if engine == "eager":
         return _scaled_eager(W, S, scales, config, spec, consensus_impl, x64)

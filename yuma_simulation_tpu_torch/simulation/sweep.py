@@ -12,8 +12,9 @@ a scalar config.
 The grid sweeps: :func:`sweep_hyperparams` (one scenario over a config
 grid, on the case scans), :func:`sweep_scaled_fused` (the scaled workload
 over a grid, on the scaled scan) and :func:`total_dividends_batch`. A suite
-of mixed shapes is padded to one shape by :func:`pad_scenarios`, with a
-per-scenario miner mask that :func:`simulate_batch` takes.
+of mixed shapes is padded to one shape by :func:`pad_scenarios` (donor-packed
+to the planner's bucket by :func:`pack_scenarios`), with a per-scenario miner
+mask that :func:`simulate_batch` takes.
 """
 
 from __future__ import annotations
@@ -31,19 +32,15 @@ from yuma_simulation_tpu_torch.models.config import (
     YumaParams,
 )
 from yuma_simulation_tpu_torch.models.variants import VariantSpec, variant_for_version
-from yuma_simulation_tpu_torch.ops.consensus import resolve_consensus_impl
 from yuma_simulation_tpu_torch.scenarios.base import Scenario
 from yuma_simulation_tpu_torch.simulation.engine import (
-    FUSED_RUNGS,
-    MXU_RUNGS,
-    _simulate_case_fused,
-    _simulate_scan,
+    _dispatch_case,
     config_lanes,
-    plan_engine,
     resolve_device,
     simulate_scaled_batch,
     validate_initial_state,
 )
+from yuma_simulation_tpu_torch.simulation.planner import bucket_shape, plan_dispatch
 
 
 def _reset_metadata(scenarios: Sequence[Scenario], device):
@@ -73,20 +70,21 @@ def pad_scenarios(
     and a 0 in the returned per-scenario miner mask, which keeps them out
     of the u16 quantize and the liquid-alpha quantiles.
 
+    `pack_tiles=True` is donor packing (:func:`pack_scenarios`): the shared
+    `[V, M]` is rounded up to the planner's (8, 128) bucket
+    (:func:`..planner.bucket_shape`), the extra rows and columns padded by
+    the same inert mechanism.
+
     Returns `(W [B, E, V, M], S [B, E, V], reset_index [B], reset_epoch
-    [B], miner_mask [B, M])` on `device`. `pack_tiles=True` (the JAX
-    package's donor packing to the planner's tile buckets) is not ported
-    yet (ROADMAP queue A, part 3e: the planner)."""
-    if pack_tiles:
-        raise NotImplementedError(
-            "pad_scenarios(pack_tiles=True) packs to the planner's shape buckets, "
-            "which are not ported yet (ROADMAP queue A, part 3e: the planner)"
-        )
+    [B], miner_mask [B, M])` on `device`."""
     dev = resolve_device(device)
     E = max(s.weights.shape[0] for s in scenarios)
     V = max(s.weights.shape[1] for s in scenarios)
     M = max(s.weights.shape[2] for s in scenarios)
     B = len(scenarios)
+    if pack_tiles:
+        bucket = bucket_shape(V, M, epochs=E, batch=B)
+        V, M = bucket.padded_V, bucket.padded_M
     W = np.zeros((B, E, V, M), np.float32)
     S = np.zeros((B, E, V), np.float32)
     mask = np.zeros((B, M), np.float32)
@@ -105,6 +103,15 @@ def pad_scenarios(
     )
 
 
+def pack_scenarios(scenarios: Sequence[Scenario], dtype: torch.dtype = torch.float32, *,
+                   device="cuda"):
+    """Donor packing: a mixed suite as one padded batch on the planner's
+    (8, 128) bucket, :func:`pad_scenarios` with `pack_tiles=True`; the
+    tensors are the JAX package's `pack_scenarios`'. It runs on the eager
+    rung, the one that takes the miner mask."""
+    return pad_scenarios(scenarios, dtype, pack_tiles=True, device=device)
+
+
 def stack_scenarios(
     scenarios: Sequence[Scenario], dtype: torch.dtype = torch.float32, device="cuda"
 ):
@@ -118,22 +125,6 @@ def stack_scenarios(
     S = torch.as_tensor(np.stack([s.stakes for s in scenarios]), dtype=dtype).to(dev)
     r_idx, r_epoch = _reset_metadata(scenarios, dev)
     return W, S, r_idx, r_epoch
-
-
-def _run_batch(weights, stakes, reset_index, reset_epoch, config, spec, *, engine,
-               consensus_impl, carry=None, miner_mask=None, **common):
-    """One batch on the rung `engine`; `carry` (leading batch dim) resumes
-    every lane; `miner_mask` (eager rung only) marks padded miners."""
-    if engine in FUSED_RUNGS:
-        return _simulate_case_fused(
-            weights, stakes, reset_index, reset_epoch, config, spec,
-            varying=engine.startswith("fused_varying"), mxu=engine in MXU_RUNGS,
-            carry=carry, **common,
-        )
-    V, M = weights.shape[-2:]
-    return _simulate_scan(weights, stakes, reset_index, reset_epoch, config, spec,
-                          consensus_impl=resolve_consensus_impl(consensus_impl, V, M),
-                          miner_mask=miner_mask, carry=carry, **common)
 
 
 def simulate_batch(
@@ -162,13 +153,17 @@ def simulate_batch(
         raise ValueError(f"weights must be [B, E, V, M], got {tuple(weights.shape)}")
     config_lanes(config, weights.shape[0])
     dev = resolve_device(weights.device)
-    engine = plan_engine(
-        epoch_impl, consensus_impl, weights.shape, weights.dtype, dev,
-        config.consensus_precision, has_miner_mask=miner_mask is not None,
+    # check_memory=False: the tensors are already placed.
+    plan = plan_dispatch(
+        "simulate_batch", weights.shape, spec, config, weights.dtype,
+        epoch_impl=epoch_impl, consensus_impl=consensus_impl, save_bonds=save_bonds,
+        save_incentives=save_incentives, has_miner_mask=miner_mask is not None,
+        check_memory=False, device=dev,
     )
-    return _run_batch(
-        weights, stakes, reset_index, reset_epoch, config, spec, engine=engine,
-        consensus_impl=consensus_impl, miner_mask=miner_mask, save_bonds=save_bonds,
+    plan.record()
+    return _dispatch_case(
+        plan, weights, stakes, reset_index, reset_epoch, config, spec,
+        miner_mask=miner_mask, save_bonds=save_bonds,
         save_incentives=save_incentives, save_consensus=False, x64=x64,
     )
 
@@ -215,11 +210,14 @@ def sweep_hyperparams(
             k: torch.as_tensor(np.asarray(v), dtype=dtype).to(dev).expand((G,) + np.shape(v))
             for k, v in initial_state.items()
         }
-    engine = plan_engine(epoch_impl, "bisect", (G, E, V, M), dtype, dev,
-                         configs.consensus_precision)
-    return _run_batch(
-        W.expand(G, E, V, M), S.expand(G, E, V), ri, re_, configs, spec, engine=engine,
-        consensus_impl="bisect", carry=carry, epoch_offset=epoch_offset,
+    plan = plan_dispatch(
+        "sweep_hyperparams", (G, E, V, M), spec, configs, dtype, epoch_impl=epoch_impl,
+        save_bonds=save_bonds, check_memory=False, device=dev,
+    )
+    plan.record()
+    return _dispatch_case(
+        plan, W.expand(G, E, V, M), S.expand(G, E, V), ri, re_, configs, spec,
+        carry=carry, epoch_offset=epoch_offset,
         save_bonds=save_bonds, save_incentives=False, save_consensus=False, x64=x64,
     )
 
@@ -317,19 +315,18 @@ def total_dividends_batch(
     device="cuda",
     x64: bool = False,
 ) -> np.ndarray:
-    """`[B, V]` total dividends of a suite of same-shaped scenarios: the
-    per-epoch dividends of one :func:`simulate_batch`, summed over epochs
-    on the device. Suites of mixed shapes need the JAX package's donor
-    packing (`pack_scenarios`: :func:`pad_scenarios` to the planner's tile
-    buckets), which is not ported yet (ROADMAP queue A, part 3e)."""
+    """`[B, V]` total dividends of a suite: the per-epoch dividends of one
+    :func:`simulate_batch`, summed over epochs on the device. A same-shaped
+    suite runs unpadded ("auto": K3 or K2 on the card); a suite of mixed
+    shapes is donor-packed (:func:`pack_scenarios`) and runs with its miner
+    masks on the eager rung, its rows then as wide as the packed validator
+    count (entries past a scenario's own validators are zero)."""
     config = config if config is not None else YumaConfig()
     spec = variant_for_version(yuma_version)
-    if len({np.shape(s.weights) for s in scenarios}) != 1:
-        raise NotImplementedError(
-            "total_dividends_batch: scenarios of different shapes need "
-            "pack_scenarios (padding to the planner's tile buckets), which is "
-            "not ported yet (ROADMAP queue A, part 3e: the planner)"
-        )
-    W, S, ri, re_ = stack_scenarios(scenarios, dtype, device)
-    ys = simulate_batch(W, S, ri, re_, config, spec, x64=x64)
+    if len({np.shape(s.weights) for s in scenarios}) == 1:
+        W, S, ri, re_ = stack_scenarios(scenarios, dtype, device)
+        ys = simulate_batch(W, S, ri, re_, config, spec, x64=x64)
+    else:
+        W, S, ri, re_, mask = pack_scenarios(scenarios, dtype, device=device)
+        ys = simulate_batch(W, S, ri, re_, config, spec, miner_mask=mask, x64=x64)
     return ys["dividends"].sum(dim=1).cpu().numpy()
