@@ -52,7 +52,16 @@ process per source, on first use), then:
    8.6 GB run with its peak allocation within the plan's two-slab
    estimate, the HBM preflight refusing a (20000, 256, 4096) stack with
    nothing allocated, `simulate_generated` over chunks drawn on the card,
-   and a donor-packed mixed suite through `total_dividends_batch`;
+   and a donor-packed mixed suite through `total_dividends_batch`; then the
+   Monte-Carlo (mc_phase): K7, the weight slab, bitwise its plain version
+   on PRNGKey(5)'s [8, 16, 256, 4096] slabs from epochs 0 and 70000 and
+   held to values JAX made, `montecarlo_per_epoch_batched` over 8 x 64
+   epochs at 256 x 4096 in K7 slabs of 16 (4 K7 and 4 K3 launches) within
+   ATOL / RTOL of the same run on the plain versions and of chunks of 32,
+   `montecarlo_total_dividends` over the one-device mesh bitwise that run,
+   the constant-weights Monte-Carlo (64 x 500 epochs of 16 x 256) against
+   the same on the CPU (within 500 float32 roundings of the totals), and `simulate_batch_sharded` over the one-device
+   mesh bitwise `simulate_batch`;
 6. holds K4 (the bisection's support on the tensor cores) against its
    plain version at 256 x 4096 bitwise, timed as K1 at one slab and 16,
    and K2, K3 and K5 with `mxu=True`
@@ -83,8 +92,10 @@ process per source, on first use), then:
    beta, the padded suite's seconds and errors), one `{"cli": ...,
    "sweeps": ..., "fma_helper": ...}` line, one `{"streams": {...}}` line
    (the long stream's epochs/s, peak bytes and its parts timed alone; the
-   preflight's message; the sync-debug warnings), and one `{"kernels": [...]}`
-   line for K1-K6 (launches on the
+   preflight's message; the sync-debug warnings), one `{"mc": {...}}` line
+   (the Monte-Carlo's scenario-epochs/s, K7's ms per slab and its bound,
+   the constant run's seconds and errors), and one `{"kernels": [...]}`
+   line for K1-K7 (launches on the
    main paths, max |kernel - plain|, kernel and plain times from CUDA
    events, the roofline bound, and a library call's time where one
    exists), the card line, and last `{"ok": true, "device": {...}}`.
@@ -1026,6 +1037,264 @@ def streams_phase(torch, dev, W_np, S_np, quiet_miner, launches, report):
     report["streams"] = rec
 
 
+#: The Monte-Carlo phase (BASELINE config 5 as the JAX package's bench.py
+#: runs it: 8 scenarios x 64 epochs at 256 x 4096, fresh weights every
+#: epoch), in K7 slabs of 16 epochs: 4 K7 and 4 K3 launches.
+MC_B, MC_E, MC_CHUNK, MC_SEED, MC_P = 8, 64, 16, 5, 0.05
+#: Timed runs of it (host clock, synchronized); the median is reported.
+MC_REPS = 3
+#: JAX's own `_montecarlo_weight_slab` at these (scenario, epoch, validator,
+#: miner) of PRNGKey(5)'s [8, 16, 256, 4096] slabs of ones, epochs from 0
+#: and from 70000, p = 0.05 (made on the CPU with jax 0.9; the card's
+#: machine has no JAX): K7 and its plain version are held to them bitwise.
+K7_GOLDEN_INDEX = [(0, 0, 0, 0), (0, 0, 0, 1), (1, 3, 17, 2049), (3, 7, 100, 2000),
+                   (5, 0, 255, 4095), (7, 15, 128, 7), (7, 15, 255, 4095)]
+K7_GOLDEN = {
+    0: ["0x1.144a32p+0", "0x1.f85228p-1", "0x1.00a798p+0", "0x1.f41f62p-1",
+        "0x1.186948p+0", "0x1.fc6bdap-1", "0x1.0a32c6p+0"],
+    70000: ["0x1.092726p+0", "0x1.fb3c0cp-1", "0x1.fa0816p-1", "0x1.08dab0p+0",
+            "0x1.f24388p-1", "0x1.0831e2p+0", "0x1.0cb6fcp+0"],
+}
+#: K7's operations an element, as csrc/mc_weights.cu spells them: the
+#: threefry block (20 rounds of add / rotate / xor, 5 key injections of 3
+#: adds, 2 initial adds, the xor of the words: 78), the uniform (shift, or,
+#: subtract, FMA, max: 5), `-x*x` and the negation of log1p (2), the
+#: erf_inv polynomial (a compare, the shift of w, 8 FMAs, the |x| test and
+#: the product: 12) and the weight (FMA, max: 2); plus log1p's branch:
+#: the rational form (19) where |x*x| < sqrt(2) - 1, else log(1 + x) (31).
+#: The epoch key (one threefry block a slab) is left out.
+K7_OPS_COMMON, K7_OPS_LOG1P_SMALL, K7_OPS_LOG1P_LARGE = 99, 19, 31
+#: The constant-weights Monte-Carlo: 64 scenarios of one 16 x 256
+#: perturbation each, 500 epochs (the hoisted constant scan, no kernel).
+CONST_B, CONST_E, CONST_V, CONST_M = 64, 500, 16, 256
+
+
+def mc_profile(torch, smi, fn) -> dict:
+    """Where one Monte-Carlo run's time goes, from torch.profiler (CUPTI):
+    device ms of K7 (`k_mc_weights`), of K3's phase kernels (the other
+    `k_*`), of PyTorch's own kernels and of copies; the card's busy ms (the
+    union of every device interval: K7 runs on a side stream, beside the
+    scans), the run's host wall ms, and the card's idle share over it. The
+    profiler's table is appended to build/chip_smoke/chip_smoke_profile.txt."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    with open(os.path.join(OUT_DIR, "chip_smoke_profile.txt"), "a") as f:
+        f.write(f"== montecarlo_per_epoch_batched [{MC_B}, {MC_E}, {V}, {M}], chunks of "
+                f"{MC_CHUNK}, one call, {smi}\n")
+        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25))
+        f.write("\n")
+    ms = {"k_mc_weights": 0.0, "scan_kernels": 0.0, "torch_kernels": 0.0, "copies": 0.0}
+    spans = []
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        start, end = evt.time_range.start, evt.time_range.end
+        spans.append((start, end))
+        kernel = re.search(r"\bk_[a-z_]+", evt.name)
+        if kernel and kernel.group(0) == "k_mc_weights":
+            key = "k_mc_weights"
+        elif kernel:
+            key = "scan_kernels"
+        elif evt.name.startswith("Memcpy") or evt.name.startswith("Memset"):
+            key = "copies"
+        else:
+            key = "torch_kernels"
+        ms[key] += (end - start) / 1e3
+    assert ms["k_mc_weights"] > 0 and ms["scan_kernels"] > 0, ms  # the profiler saw the card
+    busy, last = 0.0, None
+    for start, end in sorted(spans):
+        if last is None or start > last:
+            busy += end - start
+            last = end
+        elif end > last:
+            busy += end - last
+            last = end
+    ms["busy_ms"] = busy / 1e3
+    ms["wall_ms"] = wall_ms
+    ms["idle_share"] = max(0.0, 1.0 - ms["busy_ms"] / wall_ms)
+    return ms
+
+
+def mc_phase(torch, dev, launches, measured, report):
+    """The Monte-Carlo drivers (parallel/sharded.py) and K7. K7 against
+    its plain version (random.py::perturbed_weights) on PRNGKey(5)'s
+    [8, 16, 256, 4096] slabs from epochs 0 and 70000, bitwise, and both
+    against JAX's golden values; `montecarlo_per_epoch_batched` (K7 + K3,
+    chunks of 16) with its launches counted, within ATOL / RTOL of the same
+    run on the plain versions, chunks of 32 against 16 within the same
+    class, and `montecarlo_total_dividends` over the card's one-device mesh
+    bitwise; the constant-weights Monte-Carlo on the card against the same
+    on the CPU; `simulate_batch_sharded` over the one-device mesh bitwise
+    `simulate_batch`."""
+    import contextlib
+
+    from yuma_simulation_tpu_torch import random as R
+    from yuma_simulation_tpu_torch.models.config import YumaConfig
+    from yuma_simulation_tpu_torch.models.variants import variant_for_version
+    from yuma_simulation_tpu_torch.ops.cuda_epoch import fused_varying_scan_plain
+    from yuma_simulation_tpu_torch.ops.cuda_random import mc_weights
+    from yuma_simulation_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from yuma_simulation_tpu_torch.parallel import (
+        make_mesh,
+        montecarlo_per_epoch_batched,
+        montecarlo_total_dividends,
+        sharded,
+        simulate_batch_sharded,
+    )
+    from yuma_simulation_tpu_torch.scenarios import get_cases
+    from yuma_simulation_tpu_torch.simulation import engine
+    from yuma_simulation_tpu_torch.simulation.sweep import simulate_batch, stack_scenarios
+
+    rec: dict = {}
+    keys = R.split(R.split(R.PRNGKey(MC_SEED), 1)[0], MC_B).to(dev)
+    base = torch.ones((V, M), device=dev)
+    plain_ms = []
+    for lo in (0, 70000):
+        got = mc_weights(keys, lo, MC_CHUNK, base, MC_P)
+        plain, ms = timed_once(
+            torch, lambda: R.perturbed_weights(keys, lo, MC_CHUNK, base, MC_P))
+        plain_ms.append(ms)
+        check_equal(f"K7 vs its plain version, epochs from {lo}", got, plain)
+        for idx, want in zip(K7_GOLDEN_INDEX, K7_GOLDEN[lo]):
+            for label, x in (("K7", got), ("plain", plain)):
+                assert float(x[idx]) == float.fromhex(want), (label, lo, idx, float(x[idx]))
+        assert torch.isfinite(got).all() and bool((got >= 0).all())
+        del plain
+    out = torch.empty((MC_B, MC_CHUNK, V, M), device=dev)
+    k7_ms = cuda_ms(torch, lambda: mc_weights(keys, 0, MC_CHUNK, base, MC_P, out=out), 20)
+    # The operations this slab's draws need: log1p's branch, element by element.
+    small = 0
+    for b in range(MC_B):
+        u = R.uniform(R.fold_in(keys[b], torch.arange(MC_CHUNK, device=dev)), (V, M),
+                      R.NORMAL_LO, 1.0)
+        small += int(((u * -u).abs() < R._LOG1P_SMALL).sum())
+    n = MC_B * MC_CHUNK * V * M
+    ops = n * K7_OPS_COMMON + small * K7_OPS_LOG1P_SMALL + (n - small) * K7_OPS_LOG1P_LARGE
+    k7 = dict(max_abs_err=0.0, ms=k7_ms, plain_ms=sum(plain_ms) / len(plain_ms),
+              library_ms=None)
+    k7["bound_ms"], k7["bound_by"] = bound_ms(4 * n + 4 * V * M + 8 * MC_B, ops)
+    measured["mc_weights"] = k7
+    del out
+    print(f"K7 ok: [{MC_B}, {MC_CHUNK}, {V}, {M}] slabs from epochs 0 and 70000 bitwise its "
+          f"plain version and JAX's golden; {k7} ({ops / n:.1f} operations an element)",
+          flush=True)
+
+    def mc_run(**kw):
+        return montecarlo_per_epoch_batched(R.PRNGKey(MC_SEED), MC_B, MC_E, V, M,
+                                            "Yuma 1 (paper)", consensus_impl="bisect", **kw)
+
+    mc_run(chunk_epochs=MC_CHUNK)  # warm-up
+    runs = []
+    for _ in range(MC_REPS):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        tot = mc_run(chunk_epochs=MC_CHUNK)
+        runs.append(time.perf_counter() - t0)
+        counts = launch_counts()
+        if len(runs) > 1:
+            _np_equal("montecarlo_per_epoch_batched run to run", tot, tot16)
+        tot16 = tot
+    seconds = sorted(runs)[len(runs) // 2]
+    chunks = MC_E // MC_CHUNK
+    assert counts["varying_scan"] == chunks and counts["mc_weights"] == chunks, counts
+    assert tot16.shape == (MC_B, V) and np.isfinite(tot16).all()
+    launches["varying_scan"] = launches.get("varying_scan", 0) + chunks
+    launches["mc_weights"] = launches.get("mc_weights", 0) + chunks
+    tot32 = mc_run(chunk_epochs=2 * MC_CHUNK)
+    np.testing.assert_allclose(tot32, tot16, atol=ATOL, rtol=RTOL)
+    mesh_tot = montecarlo_total_dividends(
+        R.PRNGKey(MC_SEED), MC_B, MC_E, V, M, "Yuma 1 (paper)", mesh=make_mesh(),
+        weights_mode="per_epoch", consensus_impl="bisect")
+    _np_equal("montecarlo_total_dividends(mesh=make_mesh()) vs the batched driver",
+              mesh_tot, tot16)
+
+    @contextlib.contextmanager
+    def plain_versions():
+        """K7 and K3 swapped for their plain versions, on the card."""
+        def plain_k7(keys, lo, n, base, p, *, out=None):
+            w = R.perturbed_weights(keys, lo, n, base, p)
+            return w if out is None else out.copy_(w)
+
+        saved = sharded.mc_weights, engine.fused_varying_scan
+        sharded.mc_weights, engine.fused_varying_scan = plain_k7, fused_varying_scan_plain
+        try:
+            yield
+        finally:
+            sharded.mc_weights, engine.fused_varying_scan = saved
+
+    rec["profile"] = mc_profile(torch, report["card"], lambda: mc_run(chunk_epochs=MC_CHUNK))
+    print(f"montecarlo profile (one run, torch.profiler): {rec['profile']}", flush=True)
+
+    with plain_versions():
+        reset_launch_counts()
+        plain_tot, plain_run_ms = timed_once(torch, lambda: mc_run(chunk_epochs=MC_CHUNK))
+        assert not any(launch_counts().values()), launch_counts()
+    np.testing.assert_allclose(tot16, plain_tot, atol=ATOL, rtol=RTOL)
+    rec["per_epoch"] = dict(
+        scenarios=MC_B, epochs=MC_E, chunk_epochs=MC_CHUNK, seconds=seconds, runs_s=runs,
+        scenario_epochs_per_s=MC_B * MC_E / seconds, launches=counts,
+        max_abs_vs_plain=float(np.abs(tot16 - plain_tot).max()), plain_s=plain_run_ms / 1e3,
+        chunk32_max_abs=float(np.abs(tot32 - tot16).max()),
+        k7_ms_per_slab=k7_ms, k7_bound_ms=k7["bound_ms"], k7_bound_by=k7["bound_by"],
+    )
+    print(f"montecarlo_per_epoch_batched ok: {MC_B} x {MC_E} epochs of [{V}, {M}] in chunks "
+          f"of {MC_CHUNK} (K7 + K3, launches {counts}): {MC_B * MC_E / seconds:.1f} "
+          f"scenario-epochs/s; {rec['per_epoch']}", flush=True)
+
+    const_kw = dict(weights_mode="constant", consensus_impl="bisect")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = montecarlo_total_dividends(R.PRNGKey(7), CONST_B, CONST_E, CONST_V, CONST_M,
+                                      "Yuma 1 (paper)", mesh=make_mesh(), **const_kw)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = montecarlo_total_dividends(R.PRNGKey(7), CONST_B, CONST_E, CONST_V, CONST_M,
+                                     "Yuma 1 (paper)", mesh=make_mesh(devices=["cpu"]),
+                                     **const_kw)
+    cpu_s = time.perf_counter() - t0
+    assert card.shape == (CONST_B, CONST_V) and np.isfinite(card).all()
+    # The card's and the CPU's reductions (outside xla_chains at M = 256) round
+    # in other orders, so their per-epoch dividends differ by an ulp and the
+    # float32 running sums of 500 of them round apart: bounded by the worst
+    # case of such a sum, E float32 roundings of the total.
+    np.testing.assert_allclose(card, cpu, atol=0, rtol=CONST_E * 2.0**-24)
+    rec["constant"] = dict(scenarios=CONST_B, epochs=CONST_E, V=CONST_V, M=CONST_M,
+                           seconds=card_s, cpu_seconds=cpu_s,
+                           max_abs_vs_cpu=float(np.abs(card - cpu).max()),
+                           max_rel_vs_cpu=float((np.abs(card - cpu) / np.abs(cpu)).max()))
+    print(f"constant Monte-Carlo ok: {CONST_B} x {CONST_E} epochs of [{CONST_V}, {CONST_M}] "
+          f"(hoisted) on the card against the CPU: {rec['constant']}", flush=True)
+
+    cases = get_cases()
+    reset_launch_counts()
+    sharded_out = simulate_batch_sharded(cases, "Yuma 1 (paper)", mesh=make_mesh(),
+                                         save_bonds=True, x64=True)
+    counts = launch_counts()
+    assert counts["varying_scan"] == 1, counts
+    launches["varying_scan"] += 1
+    Wc, Sc, ri, re_ = stack_scenarios(cases)
+    ref = simulate_batch(Wc, Sc, ri, re_, YumaConfig(), variant_for_version("Yuma 1 (paper)"),
+                         save_bonds=True, x64=True)
+    for key in ("dividends", "bonds"):
+        _np_equal(f"simulate_batch_sharded {key} vs simulate_batch", sharded_out[key],
+                  ref[key].cpu().numpy())
+    rec["sharded_batch"] = dict(cases=len(cases), mesh=make_mesh().shape, launches=counts)
+    report["mc"] = rec
+    print(f"simulate_batch_sharded ok: {len(cases)} cases over the one-device mesh bitwise "
+          f"simulate_batch; launches {counts}", flush=True)
+
+
 def scaled_phases(torch, dev, measured, launches, report):
     """K5 and K6 against their plain versions, then the scaled throughput
     path through its entry points."""
@@ -1435,8 +1704,9 @@ def main() -> int:
     sweep_phase(torch, dev, W_np, S_np, quiet_miner, launches, report)
     streams_phase(torch, dev, W_np, S_np, quiet_miner, launches, report)
 
-    # ---- K4, K5, K6 and the scaled throughput path.
+    # ---- K4, K5, K6, the scaled throughput path, and the Monte-Carlo (K7).
     measured = {"consensus_bisect": k1, **scans}
+    mc_phase(torch, dev, launches, measured, report)
     k4_phase(torch, dev, W, S, measured, errs)
     scaled_phases(torch, dev, measured, launches, report)
 
@@ -1447,6 +1717,8 @@ def main() -> int:
         "support_mma": "yuma_simulation_tpu/ops/pallas_epoch.py:160",
         "ema_scan": "yuma_simulation_tpu/ops/pallas_epoch.py:1026",
         "ema_epoch": "yuma_simulation_tpu/ops/pallas_epoch.py:2512",
+        # Not a TPU kernel: the JAX package makes this slab in XLA.
+        "mc_weights": "none (XLA: yuma_simulation_tpu/parallel/sharded.py:714)",
     }
     sources = {
         "consensus_bisect": "yuma_simulation_tpu_torch/csrc/consensus.cu",
@@ -1455,6 +1727,7 @@ def main() -> int:
         "support_mma": "yuma_simulation_tpu_torch/csrc/common.cuh",
         "ema_scan": "yuma_simulation_tpu_torch/csrc/ema_scan.cu",
         "ema_epoch": "yuma_simulation_tpu_torch/csrc/ema_scan.cu",
+        "mc_weights": "yuma_simulation_tpu_torch/csrc/mc_weights.cu",
     }
     kernels = []
     for name in replaces:
@@ -1483,6 +1756,7 @@ def main() -> int:
     print(json.dumps({"cli": report["cli"], "sweeps": report["sweeps"],
                       "fma_helper": report["fma_helper"]}))
     print(json.dumps({"streams": report["streams"]}))
+    print(json.dumps({"mc": report["mc"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

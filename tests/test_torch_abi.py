@@ -95,3 +95,45 @@ def test_bisect_argtypes_match_source():
         else:
             want.append(_SCALARS[param.split()[-2]])
     assert cuda_consensus.BISECT_ARGTYPES == want
+
+
+def test_mc_weights_argtypes_match_source():
+    """`yuma_mc_weights`'s C parameters (csrc/mc_weights.cu) against the
+    argtypes K7's wrapper sets (ops/cuda_random.py): the epoch as a
+    32-bit unsigned int, the element count as 64 bits, the scale as a
+    float."""
+    from yuma_simulation_tpu_torch.ops import cuda_random
+
+    types = {"int": ctypes.c_int, "float": ctypes.c_float, "long long": ctypes.c_longlong,
+             "unsigned int": ctypes.c_uint}
+    source = HEADER.with_name("mc_weights.cu").read_text()
+    m = re.search(r'extern "C" int yuma_mc_weights\((.*?)\)', source, re.S)
+    assert m, "yuma_mc_weights not found in mc_weights.cu"
+    want = []
+    for param in m.group(1).split(","):
+        param = " ".join(param.split())
+        want.append(ctypes.c_void_p if "*" in param else types[param.rsplit(" ", 1)[0]])
+    assert cuda_random.MC_WEIGHTS_ARGTYPES == want
+
+
+def test_new_modules_import_without_jax():
+    """The Monte-Carlo slice's modules (random, K7's wrapper, the meshes and
+    the sharded drivers, the synthetic perturbations) import with `jax`
+    made unimportable and pull in nothing of the JAX package."""
+    import subprocess
+    import sys
+
+    mods = ["yuma_simulation_tpu_torch.random", "yuma_simulation_tpu_torch.ops.cuda_random",
+            "yuma_simulation_tpu_torch.parallel", "yuma_simulation_tpu_torch.parallel.mesh",
+            "yuma_simulation_tpu_torch.parallel.sharded",
+            "yuma_simulation_tpu_torch.scenarios.synthetic"]
+    code = (
+        "import sys\nsys.modules['jax'] = None\nimport importlib\n"
+        f"for m in {mods!r}:\n    importlib.import_module(m)\n"
+        "assert not any(k.split('.')[0] == 'yuma_simulation_tpu' for k in sys.modules)\n"
+        "print('OK')\n"
+    )
+    repo = HEADER.parents[2]
+    out = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and "OK" in out.stdout, out.stderr[-3000:]

@@ -11,7 +11,10 @@ at the edges of their layouts, the scaled scan (K5) and the single fused
 epoch (K6) with their options, K6 called back to back without a
 synchronization, the refusals on CUDA tensors, and the chart path: the
 chart table's suite through K3, a padded suite with miner masks on the
-eager rung, and the chart CLI (skipped where matplotlib is missing).
+eager rung, and the chart CLI (skipped where matplotlib is missing); the
+long runs; and the Monte-Carlo path: K7 (the weight slab) bitwise its
+plain version, the per-epoch Monte-Carlo through K7 + K3 chunk-invariant,
+and the sharded batch over the card's one-device mesh.
 
 Every test is marked `cuda` and takes the `cuda` fixture, which skips it
 where no CUDA device is present. The JAX package is not needed (the card's
@@ -213,7 +216,8 @@ def test_scans_match_plain(cuda, version, params, V, M, B):
         for key in ("dividends_normalized", "bonds", "final_bonds"):
             torch.testing.assert_close(k3[key], k2[key], rtol=0, atol=1e-6)
     assert launch_counts() == {"consensus_bisect": 0, "case_scan": 1, "varying_scan": 2,
-                               "support_mma": 0, "ema_scan": 0, "ema_epoch": 0}
+                               "support_mma": 0, "ema_scan": 0, "ema_epoch": 0,
+                               "mc_weights": 0}
 
 
 def _case_scan_at(W, S, tile, **kw):
@@ -1079,3 +1083,77 @@ def test_stream_under_tiny_device_spec_reslices_bitwise(cuda, monkeypatch):
                             reset_bonds_epoch=10)
     assert launch_counts()["varying_scan"] == 8, launch_counts()
     np.testing.assert_array_equal(got.dividends, mono.dividends)
+
+
+# ---------------------------------------------------------------------------
+# the Monte-Carlo path: K7, the batched driver, the one-device mesh
+
+
+@pytest.mark.parametrize("B,CH,V,M,lo", [(3, 6, 4, 8, 0), (2, 5, 7, 33, 70000),
+                                        (4, 16, 16, 300, 2**16 + 5)])
+def test_k7_bitwise_plain(cuda, B, CH, V, M, lo):
+    """K7 (csrc/mc_weights.cu) bitwise its plain version
+    (random.py::perturbed_weights), epochs past 2^16 included, base
+    weights with zeros (the relu clips), one launch a call."""
+    from yuma_simulation_tpu_torch import random as R
+    from yuma_simulation_tpu_torch.ops.cuda_random import mc_weights
+
+    g = torch.Generator().manual_seed(B * V + M)
+    base = torch.rand((V, M), generator=g)
+    base[base < 0.2] = 0.0
+    keys = R.split(R.split(R.PRNGKey(5), 1)[0], B)
+    reset_launch_counts()
+    got = mc_weights(keys.to(cuda), lo, CH, base.to(cuda), 0.3)
+    assert launch_counts()["mc_weights"] == 1
+    ref = R.perturbed_weights(keys, lo, CH, base, 0.3)
+    assert torch.equal(got.cpu(), ref)
+    out = torch.empty((B, CH, V, M), device=cuda)
+    assert mc_weights(keys.to(cuda), lo, CH, base.to(cuda), 0.3, out=out) is out
+    assert torch.equal(out.cpu(), ref)
+
+
+@pytest.mark.parametrize("version", ["Yuma 1 (paper)", "Yuma 2 (Adrian-Fish)",
+                                     "Yuma 3.1 (Rhef+reset)"])
+def test_montecarlo_per_epoch_chunk_invariant_on_card(cuda, version):
+    """The per-epoch Monte-Carlo through K7 + K3 (auto): one launch of each
+    a chunk, chunks of 4 and 8 bitwise a single chunk of 16 (K3 composes
+    across calls), and within the class of the plain versions on the CPU."""
+    from yuma_simulation_tpu_torch import random as R
+    from yuma_simulation_tpu_torch.parallel import montecarlo_per_epoch_batched
+
+    g = torch.Generator().manual_seed(4)
+    base, stakes = torch.rand((8, 64), generator=g), torch.rand((8,), generator=g) + 0.1
+    kw = dict(base_weights=base, base_stakes=stakes, consensus_impl="bisect")
+    runs = {}
+    for chunk in (16, 8, 4):
+        reset_launch_counts()
+        runs[chunk] = montecarlo_per_epoch_batched(R.PRNGKey(9), 3, 16, 8, 64, version,
+                                                   chunk_epochs=chunk, **kw)
+        counts = launch_counts()
+        assert counts["varying_scan"] == 16 // chunk == counts["mc_weights"], counts
+    np.testing.assert_array_equal(runs[8], runs[16])
+    np.testing.assert_array_equal(runs[4], runs[16])
+    cpu = montecarlo_per_epoch_batched(R.PRNGKey(9), 3, 16, 8, 64, version, chunk_epochs=16,
+                                       epoch_impl="fused_varying", device="cpu", **kw)
+    np.testing.assert_allclose(runs[16], cpu, atol=ATOL, rtol=RTOL)
+
+
+def test_sharded_batch_one_device_mesh_bitwise(cuda):
+    """`simulate_batch_sharded` over the card's one-device mesh is its
+    `simulate_batch`, bitwise (K3, one launch)."""
+    from yuma_simulation_tpu_torch.parallel import make_mesh, simulate_batch_sharded
+    from yuma_simulation_tpu_torch.scenarios import get_cases
+    from yuma_simulation_tpu_torch.simulation.sweep import simulate_batch, stack_scenarios
+
+    cases = get_cases()[:5]
+    mesh = make_mesh()
+    assert mesh.size == torch.cuda.device_count()
+    reset_launch_counts()
+    out = simulate_batch_sharded(cases, "Yuma 2 (Adrian-Fish)", mesh=make_mesh(1, devices=[cuda]),
+                                 save_bonds=True)
+    assert launch_counts()["varying_scan"] == 1
+    W, S, ri, re_ = stack_scenarios(cases)
+    ref = simulate_batch(W, S, ri, re_, YumaConfig(), variant_for_version("Yuma 2 (Adrian-Fish)"),
+                         save_bonds=True)
+    for key in ("dividends", "bonds"):
+        np.testing.assert_array_equal(out[key], ref[key].cpu().numpy(), err_msg=key)

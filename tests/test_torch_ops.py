@@ -208,12 +208,14 @@ def test_u16_grid_divide_rounds_as_compiled_jax():
 
 
 @pytest.mark.parametrize("B,V,M", [(3, 3, 2), (14, 3, 2), (2, 8, 2), (3, 7, 2), (1, 5, 2),
-                                   (3, 2, 2), (3, 6, 5), (14, 4, 8)])
+                                   (3, 2, 2), (3, 6, 5), (14, 4, 8), (3, 9, 2), (14, 9, 2),
+                                   (2, 12, 2), (3, 16, 2), (1, 12, 2)])
 def test_rank_sum_bitwise_jax_batched_dot(B, V, M):
     """The rank's sum over validators bitwise XLA:CPU's batched dot (the
     JAX package's `einsum("v,vm->m")` under vmap, jitted) on random rows:
-    an FMA chain, except at M = 2 with 3 <= V <= 8 over two or more lanes,
-    where the dot sums its first miner column plainly (ROADMAP §C, C2)."""
+    an FMA chain, except at M = 2 with 3 <= V <= 16 over two or more lanes,
+    where the dot adds its first miner column's first 8 products plainly
+    and chains the rest (ROADMAP §C, C2)."""
     from yuma_simulation_tpu_torch.ops.normalize import rank_sum
 
     rng = np.random.default_rng(B * 100 + V * 10 + M)

@@ -626,6 +626,16 @@ __device__ __forceinline__ bool take_ticket(int* ticket, int members, BondShared
   return sh.last;
 }
 
+// ops/normalize.py::ema_target_columns: at V = 8 with M <= 8 and a rate
+// shared by the miners, XLA:CPU fuses rate * B_t into the EMA's add in these
+// columns (four at a time, then the first two of a remainder of three), and
+// keep * old everywhere else.
+__device__ __forceinline__ bool ema_fuses_target(int V, int M, int m) {
+  if (V != 8 || M > 8) return false;
+  const int q = M / 4 * 4;
+  return m < q || (M - q == 3 && m < q + 2);
+}
+
 // Phase 7 for bond model MODE: the bond update of slot t / epoch e of the
 // tile for the block's (scenario b, kBondTM-miner tile), old bonds from
 // `bin` (a.bonds but at a call's first epoch), new ones to a.bonds; and the
@@ -662,9 +672,10 @@ __device__ __forceinline__ bool bond_tile(const ScanArgs& a, const float* bin, i
   float* bout = a.bonds_out ? a.bonds_out + ((size_t)b * a.E + e) * vm + mc : nullptr;
   const float c = a.C[(size_t)s * M + mc];
   const float inc = a.inc[(size_t)s * M + mc];
-  const float rate =
-      (a.liquid && MODE != CAPACITY) ? a.rate[(size_t)s * M + mc] : hparam(a, b, ALPHA);
+  const bool per_miner = a.liquid && MODE != CAPACITY;  // liquid alpha's rate
+  const float rate = per_miner ? a.rate[(size_t)s * M + mc] : hparam(a, b, ALPHA);
   const float keep = 1.0f - rate;
+  const bool fuse_target = !per_miner && ema_fuses_target(V, M, mc);
   const bool first = eg == 0;
   const float beta = hparam(a, b, BETA), omb = 1.0f - beta;
   const float omd = 1.0f - hparam(a, b, DECAY), cap_alpha = hparam(a, b, CAP_ALPHA);
@@ -702,8 +713,10 @@ __device__ __forceinline__ bool bond_tile(const ScanArgs& a, const float* bin, i
   float den = 0.0f, den2 = 0.0f;
   auto next = [&](float tg, float old) {
     const float bt = nan_to_num(tg / den);
-    // XLA's CPU backend contracts keep * old into the add (ops/fma.py).
-    const float ema = __fmaf_rn(keep, old, rate * bt);
+    // XLA's CPU backend contracts one product into the add
+    // (ops/normalize.py::ema_blend).
+    const float ema =
+        fuse_target ? __fmaf_rn(rate, bt, keep * old) : __fmaf_rn(keep, old, rate * bt);
     return first ? bt : ema;  // a select, never a blend
   };
   if (kEma) {

@@ -36,6 +36,7 @@ from yuma_simulation_tpu_torch.ops.fma import fma, fma_chain
 from yuma_simulation_tpu_torch.ops.liquid import liquid_alpha_rate
 from yuma_simulation_tpu_torch.ops.normalize import (
     FOLD_VALIDATORS,
+    ema_blend,
     fold_sum,
     miner_sum,
     normalize_stake,
@@ -120,15 +121,14 @@ def ema_bonds_update(B_target, B_old, rate, first_epoch, renormalize: bool):
     """EMA toward the target; the first epoch adopts the target outright
     (yumas.py:145), as a select; Yuma 0 re-normalizes (yumas.py:147-149).
 
-    The EMA is `fma(1 - rate, B_old, rate * B_target)`: XLA's CPU backend
-    contracts the `(1 - rate) * B_old` product of JAX's
-    `rate * B_target + (1 - rate) * B_old` into the add, and the port
-    rounds as it does."""
+    The EMA fuses one of the products of JAX's `rate * B_target + (1 -
+    rate) * B_old` into the add, as XLA's CPU backend does
+    (:func:`..ops.normalize.ema_blend`), and the port rounds as it does."""
     first = None
     if B_old is None:
         B_ema = B_target
     else:
-        B_ema = fma(1.0 - rate, B_old, rate * B_target)
+        B_ema = ema_blend(rate, B_old, B_target)
         if first_epoch is not None:
             first = torch.as_tensor(first_epoch, device=B_ema.device)
             B_ema = torch.where(first, B_target, B_ema)

@@ -23,7 +23,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("consensus.cu", "case_scan.cu", "ema_scan.cu")
+SOURCES = ("consensus.cu", "case_scan.cu", "ema_scan.cu", "mc_weights.cu")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

@@ -66,6 +66,7 @@ from yuma_simulation_tpu_torch.ops.cuda_consensus import MMA_LAUNCHES, check_cud
 from yuma_simulation_tpu_torch.ops.fma import fma, fma64
 from yuma_simulation_tpu_torch.ops.launches import COUNTERS
 from yuma_simulation_tpu_torch.ops.normalize import (
+    ema_blend,
     miner_sum,
     rank_sum,
     sequential_sum,
@@ -278,7 +279,7 @@ def _bond_phase(
             W_b = fma(1.0 - beta, bond_base, beta * W_clipped)
             B_t = torch.nan_to_num(S * W_b / validator_dot(S, W_b))
         # First-epoch adoption is a select, never a blend.
-        B_next = B_t if first else fma(1.0 - rate, B_old, rate * B_t)
+        B_next = B_t if first else ema_blend(rate, B_old, B_t)
         if mode is BondsMode.EMA_RUST:
             colsum = ema_column_sum(B_next, B_t, None if first else B_old, rate)
             B_next = torch.nan_to_num(B_next / (colsum + 1e-6))

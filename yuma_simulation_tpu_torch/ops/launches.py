@@ -26,7 +26,7 @@ COUNTERS: dict[str, LaunchCounter] = {
     name: LaunchCounter(name)
     for name in (
         "consensus_bisect", "case_scan", "varying_scan", "support_mma", "ema_scan",
-        "ema_epoch",
+        "ema_epoch", "mc_weights",
     )
 }
 

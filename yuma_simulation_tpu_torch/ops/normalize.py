@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from yuma_simulation_tpu_torch.ops.fma import fma_chain
+from yuma_simulation_tpu_torch.ops.fma import fma, fma_chain
 
 WEIGHT_EPS = 1e-6
 
@@ -103,20 +103,65 @@ def fold_sum(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+#: Validators whose products the rank's first column adds plainly at M = 2
+#: (:func:`rank_sum`): one 8-lane register's worth.
+RANK_PLAIN_HEAD = 8
+
+
 def rank_sum(S: torch.Tensor, W_clipped: torch.Tensor, lanes: int) -> torch.Tensor:
     """The rank `R = sum(S * W_clipped)` over validators, kept, as XLA's
     CPU backend compiles the JAX package's `einsum("v,vm->m")` (a batched
     dot over `lanes` scenarios under `vmap`): :func:`validator_dot`, except
-    at M = 2 with 3 <= V <= 8 and two or more lanes, where the dot's first
-    miner column is a plain left-to-right sum and only the second a chain
-    of FMAs (a probe of the jitted einsum, ROADMAP §C, C2)."""
+    at M = 2 with 3 <= V <= 16 and two or more lanes, where the dot's first
+    miner column adds the products of its first 8 validators plainly, left
+    to right, and chains the rest as FMAs; the second column is a chain of
+    FMAs (probes of the jitted einsum, ROADMAP §C, C2)."""
     R = validator_dot(S, W_clipped)
     V, M = W_clipped.shape[-2:]
-    if M == 2 and 3 <= V <= 8 and lanes >= 2:
+    if M == 2 and 3 <= V <= XLA_CHAIN_MAX and lanes >= 2:
         x, y = torch.broadcast_tensors(S, W_clipped)
-        first = sequential_sum(x[..., 0] * y[..., 0], -1, keepdim=True).unsqueeze(-1)
-        R = torch.cat([first, R[..., 1:]], dim=-1)
+        head = min(V, RANK_PLAIN_HEAD)
+        first = sequential_sum(x[..., :head, 0] * y[..., :head, 0], -1)
+        for v in range(head, V):
+            first = fma(x[..., v, 0], y[..., v, 0], first)
+        R = torch.cat([first.unsqueeze(-1).unsqueeze(-1), R[..., 1:]], dim=-1)
     return R
+
+
+#: The validator count at which XLA:CPU's vector code holds a column of
+#: the EMA's `[V, M]` operands in one 8-lane register (see :func:`ema_blend`).
+EMA_REGISTER_VALIDATORS = 8
+
+
+def ema_target_columns(V: int, M: int) -> list:
+    """The miner columns in which XLA:CPU's EMA with a rate shared by the
+    miners fuses `rate * B_target` into its add instead of `(1 - rate) *
+    B_old`: at V = 8 with M <= 8 its vector code takes the columns four at
+    a time (two 16-lane registers of two columns each) and fuses the
+    target's product there, and of a remainder of three columns the first
+    two; a remainder of one or two fuses the old bonds' product. Empty at
+    every other shape (a dump of JAX's XLA rung at [8, 5] and a probe of
+    every spelling per column at M = 2 to 8, ROADMAP §C, C2)."""
+    if V != EMA_REGISTER_VALIDATORS or M > EMA_REGISTER_VALIDATORS:
+        return []
+    q = M // 4 * 4
+    return list(range(q)) + ([q, q + 1] if M - q == 3 else [])
+
+
+def ema_blend(rate, B_old: torch.Tensor, B_target: torch.Tensor) -> torch.Tensor:
+    """The EMA `rate * B_target + (1 - rate) * B_old` `[..., V, M]` with
+    one product fused into the add, as XLA:CPU compiles the JAX package's
+    bond update: `fma(1 - rate, B_old, rate * B_target)`, except, for a
+    rate shared by the miners (a scalar, or `[..., 1]`), in the columns of
+    :func:`ema_target_columns`, which fuse `rate * B_target`."""
+    keep = fma(1.0 - rate, B_old, rate * B_target)
+    cols = ema_target_columns(*B_target.shape[-2:])
+    r = torch.as_tensor(rate)
+    if not cols or (r.ndim and r.shape[-1] != 1):  # none here, or a per-miner rate
+        return keep
+    mask = torch.zeros(B_target.shape[-1], dtype=torch.bool, device=B_target.device)
+    mask[cols] = True
+    return torch.where(mask, fma(rate, B_target, (1.0 - rate) * B_old), keep)
 
 
 def normalize_weight_rows(W: torch.Tensor, eps: float = WEIGHT_EPS) -> torch.Tensor:

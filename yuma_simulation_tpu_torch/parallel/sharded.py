@@ -1,0 +1,414 @@
+"""Scenario-batch sharding and the Monte-Carlo drivers, the counterpart of
+the JAX package's `parallel/sharded.py`.
+
+- :func:`simulate_batch_sharded`: a scenario suite split over the mesh's
+  ``data`` axis, one :func:`..simulation.sweep.simulate_batch` per data
+  shard on that shard's device. Scenarios are independent: no collective
+  runs, and the outputs are gathered on the host.
+- :func:`montecarlo_per_epoch_batched`: the weight-perturbation study with
+  fresh weights every epoch (BASELINE config 5) as one batched ride. On
+  the card the planner takes the varying scan (K3); each chunk's weights
+  are a `[B, CH, V, M]` slab drawn on the card by K7
+  (:func:`..ops.cuda_random.mc_weights`), double-buffered: the next slab is
+  drawn on a side stream while the current chunk's scan runs, and the bond
+  carry is threaded between chunks. The eager rung (the CPU's, JAX's XLA
+  rung) draws each epoch's weights inside its loop, as JAX's scan does.
+- :func:`montecarlo_total_dividends`: the same study sharded over a mesh,
+  with weights constant per scenario (the hoisted constant scan) or fresh
+  per epoch.
+
+Every draw is JAX's threefry (:mod:`..random`): the same key gives the same
+scenarios as the JAX package. Not ported yet: the elastic walk
+(`elastic=`), `quarantine=` and `deadline=` (ROADMAP queue A, slice 7) and
+miner-axis sharding, `shard_epoch_over_miners` (slice 4b).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from yuma_simulation_tpu_torch import random as jrandom
+from yuma_simulation_tpu_torch.models.config import YumaConfig
+from yuma_simulation_tpu_torch.models.epoch import BondsMode, yuma_epoch
+from yuma_simulation_tpu_torch.models.variants import VariantSpec, variant_for_version
+from yuma_simulation_tpu_torch.ops.consensus import resolve_consensus_impl
+from yuma_simulation_tpu_torch.ops.cuda_epoch import VARYING_EPOCH_TILE_MAX
+from yuma_simulation_tpu_torch.ops.cuda_random import mc_weights
+from yuma_simulation_tpu_torch.ops.normalize import normalize_weight_rows
+from yuma_simulation_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
+from yuma_simulation_tpu_torch.scenarios.base import Scenario
+from yuma_simulation_tpu_torch.simulation.carry import TotalsCarry
+from yuma_simulation_tpu_torch.simulation.engine import (
+    _constant_run,
+    _dispatch_case,
+    _dividends_per_1k,
+    _tensor_config,
+    resolve_device,
+)
+from yuma_simulation_tpu_torch.simulation.planner import (
+    FUSED_CASE_RUNGS,
+    STREAM_BUFFERS,
+    plan_dispatch,
+    resolve_montecarlo_engine,
+)
+from yuma_simulation_tpu_torch.simulation.sweep import simulate_batch, stack_scenarios
+
+
+def _refuse_slice7(**given) -> None:
+    named = [k for k, v in given.items() if v]
+    if named:
+        raise NotImplementedError(
+            f"simulate_batch_sharded({', '.join(f'{k}=' for k in named)}) arms the elastic "
+            "mesh walk, the quarantine guard and the watchdog, which are not ported yet "
+            "(ROADMAP queue A, slice 7: resilience)"
+        )
+
+
+def _pad_batch(n: int, shards: int) -> int:
+    """Scenarios to add so the batch divides evenly over the data axis."""
+    return (-n) % shards
+
+
+def _unpad_outputs(ys: dict, n: int) -> dict:
+    """The gathered outputs as numpy, padded lanes dropped."""
+    return {k: np.asarray(v)[:n] for k, v in ys.items()}
+
+
+def simulate_batch_sharded(
+    scenarios: Sequence[Scenario],
+    yuma_version: str,
+    config: Optional[YumaConfig] = None,
+    *,
+    mesh: Mesh,
+    save_bonds: bool = False,
+    quarantine: bool = False,
+    dtype: torch.dtype = torch.float32,
+    elastic: bool = False,
+    deadline=None,
+    x64: bool = False,
+) -> dict:
+    """A scenario suite sharded over the mesh's data axis: the batch is
+    padded to a multiple of the axis with copies of the last scenario,
+    each shard's lanes run as one `simulate_batch` ("auto": K3 on the card)
+    on the shard's device, and the per-epoch dividends `[B, E, V]` (and
+    bonds with `save_bonds`) come back as numpy with the padding dropped.
+    Each lane is bitwise its unsharded `simulate_batch` lane on the same
+    rung. `quarantine=`, `elastic=` and `deadline=` raise (slice 7)."""
+    _refuse_slice7(quarantine=quarantine, elastic=elastic, deadline=deadline is not None)
+    config = config if config is not None else YumaConfig()
+    spec = variant_for_version(yuma_version)
+    n = len(scenarios)
+    if n < 1:
+        raise ValueError("simulate_batch_sharded needs at least one scenario")
+    devices = mesh.data_devices()
+    shards = len(devices)
+    pad = _pad_batch(n, shards)
+    padded = list(scenarios) + [scenarios[-1]] * pad
+    E, V, M = np.shape(scenarios[0].weights)
+    lanes = (n + pad) // shards
+    W, S, ri, re_ = stack_scenarios(padded, dtype, device="cpu")
+    outs = []
+    for s, dev in enumerate(devices):
+        dev = resolve_device(dev)
+        # Each device holds `lanes` scenarios: preflighted per shard.
+        plan_dispatch(
+            f"sharded_batch:{shards}dev", (lanes, E, V, M), spec, config, dtype,
+            save_bonds=save_bonds, device=dev,
+        ).record()
+        lane = slice(s * lanes, (s + 1) * lanes)
+        outs.append(simulate_batch(
+            W[lane].to(dev), S[lane].to(dev), ri[lane].to(dev), re_[lane].to(dev), config,
+            spec, save_bonds=save_bonds, save_incentives=False, x64=x64,
+        ))
+    gathered = {k: np.concatenate([o[k].cpu().numpy() for o in outs]) for k in outs[0]}
+    return _unpad_outputs(gathered, n)
+
+
+# ---------------------------------------------------------------------------
+# the Monte-Carlo drivers
+
+
+def _base_tensors(V: int, M: int, base_weights, base_stakes, dtype, dev):
+    W = torch.ones((V, M)) if base_weights is None else torch.as_tensor(base_weights)
+    S = torch.ones((V,)) if base_stakes is None else torch.as_tensor(base_stakes)
+    return W.to(dev, dtype).contiguous(), S.to(dev, dtype).contiguous()
+
+
+def _scenario_keys(key, num: int, dev) -> torch.Tensor:
+    """The scenario keys of a single-device run, `split(split(key, 1)[0],
+    num)`: the keys of :func:`montecarlo_total_dividends` on a mesh of
+    one device."""
+    return jrandom.split(jrandom.split(jrandom.as_key(key), 1)[0], num).to(dev)
+
+
+def _mc_zero_carry(B: int, V: int, M: int, dtype, dev) -> TotalsCarry:
+    z = torch.zeros((B, V, M), dtype=dtype, device=dev)
+    return TotalsCarry(bonds=z, w_prev=z, consensus=torch.zeros((B, M), dtype=dtype, device=dev),
+                       acc=torch.zeros((B, V), dtype=dtype, device=dev))
+
+
+def _mc_varying_step(carry: TotalsCarry, keys, epoch: int, spec: VariantSpec, cfg, base, S,
+                     perturbation, consensus_impl: str, x64: bool) -> TotalsCarry:
+    """One epoch of the per-epoch Monte-Carlo on the eager rung (JAX's
+    `_mc_varying_step`, batched): fresh weights from `fold_in(key, epoch)`
+    (the GLOBAL epoch), the full epoch, dividends accumulated."""
+    W = jrandom.perturbed(jrandom.fold_in(keys, epoch), base, perturbation)
+    first = epoch == 0
+    kernel_prev = None
+    if spec.bonds_mode is BondsMode.EMA_PREV:
+        kernel_prev = normalize_weight_rows(W) if first else carry.w_prev
+    res = yuma_epoch(W, S, carry.bonds, cfg, bonds_mode=spec.bonds_mode, W_prev=kernel_prev,
+                     first_epoch=first, consensus_impl=consensus_impl, x64=x64)
+    return TotalsCarry(
+        bonds=res[spec.bond_state_key],
+        w_prev=res["weight"] if spec.carries_prev_weights else carry.w_prev,
+        consensus=res["server_consensus_weight"],
+        acc=carry.acc + _dividends_per_1k(res["validator_reward_normalized"], S, cfg),
+    )
+
+
+def _montecarlo_varying_chunk(keys, carry: TotalsCarry, epoch_lo: int, chunk_epochs: int, *,
+                              spec, cfg, base, S, perturbation, consensus_impl,
+                              x64) -> TotalsCarry:
+    """`chunk_epochs` global epochs from `epoch_lo` for every scenario, the
+    carry threaded: chunked is bitwise the monolithic run."""
+    for epoch in range(epoch_lo, epoch_lo + chunk_epochs):
+        carry = _mc_varying_step(carry, keys, epoch, spec, cfg, base, S, perturbation,
+                                 consensus_impl, x64)
+    return carry
+
+
+def _mc_epoch_sum(totals: torch.Tensor, dividends: torch.Tensor) -> torch.Tensor:
+    """`totals` plus `dividends [B, CH, V]` summed over the epoch axis
+    strictly in epoch order, so the chunk length never changes the sum."""
+    for e in range(dividends.shape[1]):
+        totals = totals + dividends[:, e]
+    return totals
+
+
+class _SlabPair:
+    """The double buffer of the fused Monte-Carlo on the card: two device
+    slabs, allocated once; K7 draws into one on a side stream while the
+    scan reads the other, the compute stream waiting for a slab's draw
+    event and a draw into a slab waiting, on the card, for the scan that
+    last read it."""
+
+    def __init__(self, B: int, CH: int, V: int, M: int, dev):
+        self.dev = dev
+        self.compute = torch.cuda.current_stream(dev)
+        self.side = torch.cuda.Stream(dev)
+        self.side.wait_stream(self.compute)  # keys and base were made on the compute stream
+        self.flat = [torch.empty(B * CH * V * M, dtype=torch.float32, device=dev)
+                     for _ in range(STREAM_BUFFERS)]
+        self.drawn: list = [None] * STREAM_BUFFERS
+        self.read: list = [None] * STREAM_BUFFERS
+
+    def draw(self, j: int, keys, lo: int, n: int, base, perturbation) -> None:
+        B, (V, M) = keys.shape[0], base.shape
+        with torch.cuda.stream(self.side):
+            if self.read[j] is not None:
+                self.side.wait_event(self.read[j])
+            slab = self.flat[j][: B * n * V * M].view(B, n, V, M)
+            mc_weights(keys, lo, n, base, perturbation, out=slab)
+            self.drawn[j] = torch.cuda.Event()
+            self.drawn[j].record(self.side)
+
+    def take(self, j: int, B: int, n: int, V: int, M: int) -> torch.Tensor:
+        self.compute.wait_event(self.drawn[j])
+        return self.flat[j][: B * n * V * M].view(B, n, V, M)
+
+    def release(self, j: int) -> None:
+        self.read[j] = torch.cuda.Event()
+        self.read[j].record(self.compute)
+
+
+def _montecarlo_fused(plan, keys, E: int, chunk: int, base, S, perturbation, config, spec,
+                      x64: bool) -> torch.Tensor:
+    """The fused rungs: each chunk's `[B, CH, V, M]` slab from K7 (its plain
+    version on CPU tensors), the scan over it with the carry threaded, the
+    per-epoch dividends summed in epoch order."""
+    B, (V, M), dev = keys.shape[0], base.shape, base.device
+    carry = {"bonds": torch.zeros((B, V, M), device=dev),
+             "consensus": torch.zeros((B, M), device=dev)}
+    if spec.carries_prev_weights:
+        carry["w_prev"] = torch.zeros((B, V, M), device=dev)
+    totals = torch.zeros((B, V), device=dev)
+    S_chunk = S.expand(B, chunk, V)
+    pair = _SlabPair(B, chunk, V, M, dev) if dev.type == "cuda" else None
+    starts = list(range(0, E, chunk))
+
+    def draw(k: int):
+        """Chunk k's slab: on the card drawn into slot k % 2 on the side
+        stream (taken later), elsewhere drawn and returned."""
+        lo = starts[k]
+        n = min(chunk, E - lo)
+        if pair is None:
+            return mc_weights(keys, lo, n, base, perturbation)
+        pair.draw(k % STREAM_BUFFERS, keys, lo, n, base, perturbation)
+        return None
+
+    staged = draw(0)
+    for k, lo in enumerate(starts):
+        n = min(chunk, E - lo)
+        W = staged if pair is None else pair.take(k % STREAM_BUFFERS, B, n, V, M)
+        if k + 1 < len(starts):
+            staged = draw(k + 1)  # the next slab, on the card while this scan runs
+        ys, carry = _dispatch_case(
+            plan, W, S_chunk[:, :n], -1, -1, config, spec, carry=carry, epoch_offset=lo,
+            return_carry=True, save_bonds=False, save_incentives=False,
+            save_consensus=False, x64=x64,
+        )
+        if pair is not None:
+            pair.release(k % STREAM_BUFFERS)
+        totals = _mc_epoch_sum(totals, ys["dividends"])
+    return totals
+
+
+def montecarlo_per_epoch_batched(
+    key,
+    num_scenarios: int,
+    num_epochs: int,
+    num_validators: int,
+    num_miners: int,
+    yuma_version: str,
+    config: Optional[YumaConfig] = None,
+    *,
+    base_weights=None,
+    base_stakes=None,
+    perturbation: float = 0.05,
+    consensus_impl: str = "auto",
+    epoch_impl: str = "auto",
+    chunk_epochs: Optional[int] = None,
+    dtype: torch.dtype = torch.float32,
+    device="cuda",
+    x64: bool = False,
+) -> np.ndarray:
+    """The per-epoch-weights Monte-Carlo as one batched ride: `B` scenarios,
+    each epoch `e` of scenario `b` drawing `relu(base + p * normal(
+    fold_in(key_b, e)))` with the scenario keys `split(split(key, 1)[0],
+    B)` (those of :func:`montecarlo_total_dividends` on a one-device mesh).
+
+    The rung is planned by :func:`..simulation.planner.plan_dispatch` on
+    `[B, E, V, M]` as a stream: on the card "auto" is the varying scan
+    (K3), fed by K7 slabs of `chunk_epochs` epochs (default: the memory
+    plan's slab length, or the whole run), double-buffered, with the bond
+    carry threaded; on the varying rung the chunk is rounded down to a
+    multiple of 16 (its largest tile) once it is longer. The eager rung
+    (the CPU's "auto", JAX's XLA rung) draws each epoch inside its loop and
+    runs `chunk_epochs` epochs at a time (default all), bitwise the
+    monolithic run. `key` is a :mod:`..random` key (`[2]`, or anything
+    `jax.random.PRNGKey` returns). Returns `[B, V]` total dividends per
+    1000 tao."""
+    dev = resolve_device(device)
+    config = config if config is not None else YumaConfig()
+    spec = variant_for_version(yuma_version)
+    B, E, V, M = int(num_scenarios), int(num_epochs), int(num_validators), int(num_miners)
+    if E < 1:
+        raise ValueError(f"num_epochs must be >= 1, got {num_epochs}")
+    plan = plan_dispatch(
+        f"montecarlo_batched:{yuma_version}", (B, E, V, M), spec, config, dtype,
+        epoch_impl=epoch_impl, consensus_impl=consensus_impl, streaming=True, device=dev,
+    )
+    plan.record()
+    fused = plan.engine in FUSED_CASE_RUNGS
+    if chunk_epochs is None:
+        # Only the fused rungs hold a slab; the eager rung draws in its loop.
+        chunk_epochs = (plan.memory.chunk_epochs or E) if fused else E
+    chunk = max(1, min(int(chunk_epochs), E))
+    if plan.engine.startswith("fused_varying") and chunk > VARYING_EPOCH_TILE_MAX:
+        # The varying scan pads no epochs: every full chunk at its deepest tile.
+        chunk -= chunk % VARYING_EPOCH_TILE_MAX
+    base, S = _base_tensors(V, M, base_weights, base_stakes, dtype, dev)
+    keys = _scenario_keys(key, B, dev)
+    if fused:
+        totals = _montecarlo_fused(plan, keys, E, chunk, base, S, perturbation, config, spec,
+                                   x64)
+        return totals.cpu().numpy()
+    cfg = _tensor_config(config, dev)
+    carry = _mc_zero_carry(B, V, M, dtype, dev)
+    for lo in range(0, E, chunk):
+        carry = _montecarlo_varying_chunk(
+            keys, carry, lo, min(chunk, E - lo), spec=spec, cfg=cfg, base=base, S=S,
+            perturbation=perturbation, consensus_impl=plan.fallback_consensus, x64=x64,
+        )
+    return carry.acc.cpu().numpy()
+
+
+def montecarlo_total_dividends(
+    key,
+    num_scenarios: int,
+    num_epochs: int,
+    num_validators: int,
+    num_miners: int,
+    yuma_version: str,
+    config: Optional[YumaConfig] = None,
+    *,
+    mesh: Mesh,
+    base_weights=None,
+    base_stakes=None,
+    perturbation: float = 0.05,
+    weights_mode: str = "constant",
+    consensus_impl: str = "auto",
+    epoch_impl: str = "auto",
+    dtype: torch.dtype = torch.float32,
+    x64: bool = False,
+) -> np.ndarray:
+    """The weight-perturbation study (BASELINE config 5) sharded over the
+    mesh's data axis: `[num_scenarios, V]` total dividends.
+
+    `weights_mode` "constant" (default): one perturbation per scenario,
+    `relu(base + p * normal(key_b, (V, M)))`, its epochs run by the
+    constant scan ("auto": "hoisted", consensus once; "eager"/"xla": the
+    full epoch each time), the shard's scenarios as one batch on its
+    device. "per_epoch": fresh weights every epoch (`fold_in(key_b,
+    epoch)`); on a one-device mesh with "auto" this is
+    :func:`montecarlo_per_epoch_batched` (K7 and K3 on the card), with the
+    same scenario keys; otherwise each shard runs the eager rung.
+    "hoisted" with "per_epoch" raises. Scenario keys are `split(key,
+    shards)` per shard, each split into the shard's scenarios; the batch
+    is padded to a multiple of the data axis and trimmed.
+    `consensus_impl="auto"` takes "sorted" below the shape threshold and
+    "bisect" at or above it, as the JAX package's shape gate does."""
+    config = config if config is not None else YumaConfig()
+    spec = variant_for_version(yuma_version)
+    V, M = int(num_validators), int(num_miners)
+    consensus_impl = resolve_consensus_impl(consensus_impl, V, M)
+    if weights_mode not in ("constant", "per_epoch"):
+        raise ValueError(
+            f"unknown weights_mode {weights_mode!r}; expected 'constant' or 'per_epoch'"
+        )
+    varying = weights_mode == "per_epoch"
+    devices = mesh.data_devices()
+    if varying and epoch_impl == "auto" and mesh.size == 1:
+        return montecarlo_per_epoch_batched(
+            key, num_scenarios, num_epochs, V, M, yuma_version, config,
+            base_weights=base_weights, base_stakes=base_stakes, perturbation=perturbation,
+            consensus_impl=consensus_impl, epoch_impl="auto", dtype=dtype,
+            device=devices[0], x64=x64,
+        )
+    engine = resolve_montecarlo_engine(epoch_impl, varying)
+    shards = mesh.shape[DATA_AXIS]
+    per_shard = (num_scenarios + _pad_batch(num_scenarios, shards)) // shards
+    shard_keys = jrandom.split(jrandom.as_key(key), shards)
+    outs = []
+    for s, dev in enumerate(devices):
+        dev = resolve_device(dev)
+        base, S = _base_tensors(V, M, base_weights, base_stakes, dtype, dev)
+        keys = jrandom.split(shard_keys[s], per_shard).to(dev)
+        cfg = _tensor_config(config, dev)
+        if varying:
+            carry = _montecarlo_varying_chunk(
+                keys, _mc_zero_carry(per_shard, V, M, dtype, dev), 0, int(num_epochs),
+                spec=spec, cfg=cfg, base=base, S=S, perturbation=perturbation,
+                consensus_impl=consensus_impl, x64=x64,
+            )
+            outs.append(carry.acc)
+        else:
+            W = jrandom.perturbed(keys, base, perturbation)
+            total, _ = _constant_run(W, S, int(num_epochs), cfg, spec, consensus_impl,
+                                     engine == "hoisted", x64)
+            outs.append(total)
+    return np.concatenate([o.cpu().numpy() for o in outs])[:num_scenarios]

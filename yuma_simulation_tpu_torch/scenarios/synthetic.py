@@ -1,9 +1,8 @@
-"""Synthetic scenarios: random subnets.
+"""Synthetic scenarios: random subnets and Monte-Carlo perturbations.
 
 The counterpart of the JAX package's `scenarios/synthetic.py`, with the
-same numpy draws, so a seed gives both packages the same scenario.
-`weight_perturbation_batch` draws with JAX's threefry and waits for the
-decision of ROADMAP queue A, slice 4.
+same draws, so a seed gives both packages the same scenario: numpy's for
+the random subnet, JAX's threefry (:mod:`..random`) for the perturbations.
 """
 
 from __future__ import annotations
@@ -11,7 +10,9 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
+from yuma_simulation_tpu_torch import random as jrandom
 from yuma_simulation_tpu_torch.scenarios.base import Scenario
 
 
@@ -39,3 +40,19 @@ def random_subnet_scenario(
         num_epochs=num_epochs,
         servers=[f"Server {i + 1}" for i in range(num_miners)],
     )
+
+
+def weight_perturbation_batch(
+    key,
+    base_weights: torch.Tensor,
+    num_scenarios: int,
+    sigma: float = 0.05,
+) -> torch.Tensor:
+    """`[B, V, M]` multiplicative log-normal perturbations of one weight
+    matrix, `base * exp(sigma * normal(key, (B, V, M)))`, on the device
+    `base_weights` lives on; bitwise the JAX package's (its `exp` is
+    XLA:CPU's, :func:`..random.xla_exp`)."""
+    base = torch.as_tensor(base_weights, dtype=torch.float32)
+    noise = jrandom.normal(jrandom.as_key(key, base.device),
+                           (int(num_scenarios),) + tuple(base.shape))
+    return base * jrandom.xla_exp(np.float32(sigma) * noise)

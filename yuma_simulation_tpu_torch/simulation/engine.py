@@ -50,6 +50,7 @@ from yuma_simulation_tpu_torch.models.config import YumaConfig
 from yuma_simulation_tpu_torch.models.epoch import (
     EMA_MODES,
     BondsMode,
+    _per_lane,
     config_value,
     capacity_bonds_update,
     dividends,
@@ -474,13 +475,15 @@ def simulate(
     epoch count continues the trajectory over global epochs
     `[offset, offset + E)`.
 
-    `mesh` (slice 4), `retry_policy` and `deadline` (slice 7 of ROADMAP
-    queue A) are not ported yet and raise when given.
+    `mesh` (miner-axis sharding, slice 4b), `retry_policy` and `deadline`
+    (slice 7 of ROADMAP queue A) are not ported yet and raise when given;
+    the scenario batch shards through :mod:`..parallel.sharded`.
     """
     if mesh is not None:
         raise NotImplementedError(
             "simulate(mesh=) shards the miner axis over devices, which is not "
-            "ported yet (ROADMAP queue A, slice 4)"
+            "ported yet (ROADMAP queue A, slice 4b); a scenario batch shards over "
+            "a mesh's data axis through parallel.simulate_batch_sharded"
         )
     _refuse_resilience(retry_policy, deadline, "simulate")
     dev = resolve_device(device)
@@ -1235,8 +1238,8 @@ def simulate_constant(
     depends only on `(W, S)`) once and then only the bond recurrence and
     the dividends, with the same update helpers :func:`yuma_epoch` uses;
     it needs `num_epochs >= 1`. The constant path has no scenario, so no
-    bond reset fires. (JAX's `mesh=` and its HBM preflight are not ported
-    yet: ROADMAP queue A, slices 4 and 5.)
+    bond reset fires. (JAX's `mesh=` shards the miner axis, ROADMAP queue
+    A, slice 4b; its HBM preflight is slice 5's.)
 
     Returns `(total_dividends [V], final_bonds [V, M])`.
     """
@@ -1246,16 +1249,22 @@ def simulate_constant(
     if W.ndim != 2:
         raise ValueError(f"W must be [V, M], got {tuple(W.shape)}")
     dev, (S,) = _throughput_inputs(W, S)
-    V, M = W.shape
-    consensus_impl = resolve_consensus_impl(consensus_impl, V, M)
-    cfg = _tensor_config(config, dev)
+    consensus_impl = resolve_consensus_impl(consensus_impl, *W.shape)
+    return _constant_run(W, S, num_epochs, _tensor_config(config, dev), spec, consensus_impl,
+                         hoist_invariant, x64)
+
+
+def _constant_run(W, S, num_epochs, cfg, spec, consensus_impl, hoist_invariant, x64):
+    """:func:`simulate_constant`'s loops on `W [..., V, M]` and `S [..., V]`
+    (leading dims: a batch of scenarios, as the Monte-Carlo's constant
+    weights run them) with a tensor config."""
     if hoist_invariant:
         return _simulate_constant_hoisted(W, S, num_epochs, cfg, spec, consensus_impl, x64)
     zero_b = torch.zeros_like(W)
     carry = TotalsCarry(
         bonds=zero_b, w_prev=zero_b,
-        consensus=torch.zeros((M,), dtype=W.dtype, device=dev),
-        acc=torch.zeros((V,), dtype=W.dtype, device=dev),
+        consensus=torch.zeros(W.shape[:-2] + W.shape[-1:], dtype=W.dtype, device=W.device),
+        acc=torch.zeros(W.shape[:-1], dtype=W.dtype, device=W.device),
     )
     for epoch in range(num_epochs):
         first = epoch == 0
@@ -1294,7 +1303,8 @@ def _simulate_constant_hoisted(W, S, num_epochs, cfg, spec, consensus_impl, x64)
             override_consensus_low=cfg.override_consensus_low,
         )
     else:
-        rate = torch.as_tensor(cfg.bond_alpha, dtype=W.dtype, device=W.device)
+        rate = cfg.bond_alpha
+    rate = _per_lane(rate, W)
 
     def dividends_of(B):
         # D and its total as the full epoch rounds them.

@@ -35,7 +35,7 @@ for it, is accepted and resolves to "eager". Plans are frozen and
 deterministic: equal inputs give an equal plan. :meth:`DispatchPlan.record`
 logs one ``dispatch_planned`` record through `logging`. Not ported yet:
 spans (ROADMAP queue A, slice 6), `attach_cost` / `attach_executable`
-(slice 5), miner-sharding meshes (slice 4).
+(slice 5), miner-sharding meshes (slice 4b).
 """
 
 from __future__ import annotations
@@ -426,7 +426,7 @@ def plan_dispatch(
     plan (the batched entry points: the arrays are already placed)."""
     if mesh is not None:
         raise NotImplementedError(
-            "miner-sharding meshes are not ported yet (ROADMAP queue A, slice 4)"
+            "miner-sharding meshes are not ported yet (ROADMAP queue A, slice 4b)"
         )
     shape = tuple(int(d) for d in shape)
     if len(shape) == 3:
