@@ -23,7 +23,15 @@ process per source, on first use), then:
 4. drives the main path through the entry points a user calls, with the
    launch counts zeroed before and read after each: `simulate` with default
    arguments (auto -> K3), `simulate(epoch_impl="fused_scan")` (K2), and
-   `simulate(epoch_impl="eager", consensus_impl="kernel")` (K1);
+   `simulate(epoch_impl="eager", consensus_impl="kernel")` (K1); then the
+   telemetry core on the same workload (telemetry_phase): every run's
+   numerics sketches (K3 with and without the consensus saved, K2, the
+   eager rung with K1) bitwise the CPU sketches of its outputs, a one-ulp
+   flip moving one epoch's fingerprint by exactly 1, a streamed run's
+   numerics bitwise the monolithic run's, the runs' span tree, the
+   `simulate:fused_varying` profiler range holding K3's phase kernels, the
+   metrics, the dispatch table and the device sample, and `simulate`'s
+   epochs/s with numerics capture off and on in alternating pairs;
 5. runs the reference surface: `simulate_batch` over the 14 built-in cases
    x 9 versions at beta=1.0 through `auto`, held to the golden CSV within
    1.5e-6;
@@ -94,7 +102,9 @@ process per source, on first use), then:
    (the long stream's epochs/s, peak bytes and its parts timed alone; the
    preflight's message; the sync-debug warnings), one `{"mc": {...}}` line
    (the Monte-Carlo's scenario-epochs/s, K7's ms per slab and its bound,
-   the constant run's seconds and errors), and one `{"kernels": [...]}`
+   the constant run's seconds and errors), one `{"telemetry": {...}}` line
+   (the stream sets, the capture's ms, the profile windows, the metrics,
+   the numerics on / off epochs/s), and one `{"kernels": [...]}`
    line for K1-K7 (launches on the
    main paths, max |kernel - plain|, kernel and plain times from CUDA
    events, the roofline bound, and a library call's time where one
@@ -1495,6 +1505,187 @@ def scaled_phases(torch, dev, measured, launches, report):
     ), mode="a"))
 
 
+#: Pairs of `simulate` runs, numerics capture off and on in alternating
+#: order, that time the capture's cost (telemetry_phase).
+NUMERICS_PAIRS = 16
+
+
+def _sketch_equal(label, got: dict, ref: dict) -> None:
+    """Two host sketch sets bitwise equal."""
+    from yuma_simulation_tpu_torch.telemetry.numerics import sketch_mismatches
+
+    bad = sketch_mismatches(got, ref)
+    assert not bad, (label, bad)
+
+
+def telemetry_phase(torch, dev, scenario, main_run, smi, launches, report):
+    """The telemetry core on the main path's workload (256 x 4096 x 64):
+    every run's numerics sketches (K3 with and without the consensus saved,
+    K2, the eager rung with K1) are bitwise the port's CPU sketches of the
+    same outputs; a one-ulp flip of one dividend cell moves its epoch's
+    fingerprint by exactly 1; a streamed run's numerics are bitwise the
+    monolithic run's; the runs nest in spans; under `profile_trace` the
+    trace holds the `simulate:fused_varying` range and K3's phase kernels
+    fall inside it; the metrics, the dispatch table and the device sample
+    have their entries; and the capture's cost, `simulate`'s epochs/s with
+    YUMA_NUMERICS=0 and =1 in NUMERICS_PAIRS alternating pairs."""
+    from yuma_simulation_tpu_torch.ops.fingerprint import flip_ulp, ulp_delta
+    from yuma_simulation_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from yuma_simulation_tpu_torch.scenarios.base import Scenario
+    from yuma_simulation_tpu_torch.simulation.engine import simulate
+    from yuma_simulation_tpu_torch.simulation.planner import bucket_shape
+    from yuma_simulation_tpu_torch.telemetry import (
+        LatencySketch,
+        dispatch_snapshot,
+        ensure_run,
+        get_registry,
+        record_device_telemetry,
+        span,
+    )
+    from yuma_simulation_tpu_torch.telemetry.numerics import (
+        capture_streams,
+        host_sketches,
+        sketch_over_epochs,
+        to_host,
+    )
+    from yuma_simulation_tpu_torch.utils.profiling import (
+        profile_trace,
+        trace_range_windows,
+        within,
+    )
+
+    version = "Yuma 1 (paper)"
+    out: dict = {}
+    assert main_run.numerics is not None, "the main path returned no numerics"
+    _sketch_equal("main path", main_run.numerics, host_sketches({"dividends": main_run.dividends}))
+    reset_launch_counts()
+    with ensure_run() as run, span("telemetry_phase", shape=f"{E}x{V}x{M}"):
+        # ---- The stream set of each rung, each sketch bitwise the port's CPU
+        # sketch of the same outputs copied to the host.
+        with span("sketches"):
+            k3 = simulate(scenario, version, save_consensus=True)
+            assert k3.engine == "fused_varying", k3.engine
+            _sketch_equal("K3, consensus saved", k3.numerics, host_sketches(
+                {"dividends": k3.dividends, "consensus": k3.consensus}))
+            k2 = simulate(scenario, version, epoch_impl="fused_scan")
+            _sketch_equal("K2", k2.numerics, host_sketches({"dividends": k2.dividends}))
+            short = Scenario(
+                name="synthetic 256x4096, 4 epochs", validators=scenario.validators,
+                base_validator="v0", weights=scenario.weights[:4], stakes=scenario.stakes[:4],
+                num_epochs=4,
+            )
+            k1 = simulate(short, version, epoch_impl="eager", consensus_impl="kernel")
+            k1c = simulate(short, version, epoch_impl="eager", consensus_impl="kernel",
+                           save_consensus=True)
+            # The eager rung sketches the consensus whether or not it is saved.
+            _sketch_equal("K1 eager, consensus unsaved vs saved", k1.numerics, k1c.numerics)
+            _sketch_equal("K1 eager", k1c.numerics, host_sketches(
+                {"dividends": k1c.dividends, "consensus": k1c.consensus}))
+        counts = launch_counts()
+        assert counts["varying_scan"] >= 1 and counts["case_scan"] >= 1, counts
+        assert counts["consensus_bisect"] == 8, counts
+        out["stream_sets"] = {"fused_varying": sorted(main_run.numerics),
+                              "fused_varying+consensus": sorted(k3.numerics),
+                              "fused_scan": sorted(k2.numerics), "eager": sorted(k1.numerics)}
+        # ---- One dividend cell one ulp up: its epoch's fingerprint moves by 1.
+        D = torch.tensor(main_run.dividends, device=dev)
+        e, v = E // 2, int(torch.argmax(D[E // 2]))
+        D_flip = D.clone()
+        D_flip[e, v] = flip_ulp(D_flip[e, v])
+        base = to_host({"d": sketch_over_epochs(D, 0)})["d"].fingerprint
+        moved = to_host({"d": sketch_over_epochs(D_flip, 0)})["d"].fingerprint
+        deltas = [ulp_delta(a, b) for a, b in zip(base, moved)]
+        assert deltas[e] == 1 and sum(abs(d) for d in deltas) == 1, deltas
+        out["flip_ulp_delta"] = deltas[e]
+        # The capture's own cost on the card: the main path's one stream.
+        out["capture_ms"] = cuda_ms(
+            torch, lambda: capture_streams({"dividends": D}, epoch_axis=0), 20)
+        out["capture_host_ms"] = host_ms(
+            torch, lambda: capture_streams({"dividends": D}, epoch_axis=0))
+        # ---- Streaming: 16-epoch slabs, numerics bitwise the monolithic run's.
+        with span("streamed"):
+            streamed = simulate(scenario, version, max_resident_epochs=16)
+        assert streamed.engine == "fused_varying", streamed.engine
+        _sketch_equal("streamed vs monolithic", streamed.numerics, main_run.numerics)
+        # ---- The profiler: the dispatch's range, and K3's kernels inside it.
+        trace_dir = os.path.join(OUT_DIR, "trace")
+        with span("profiled"), profile_trace(trace_dir):
+            for _ in range(2):
+                simulate(scenario, version)
+            torch.cuda.synchronize()
+        win = trace_range_windows(os.path.join(trace_dir, "trace.json"), "simulate:fused_varying")
+        assert win["cpu"] and win["kernels"], (len(win["cpu"]), len(win["kernels"]))
+        by_launch = all(within(launch, win["cpu"]) for _, _, launch in win["kernels"])
+        assert by_launch, "a K3 kernel was launched outside the simulate:fused_varying range"
+        on_card = all(within(k, win["gpu"]) for _, k, _ in win["kernels"]) if win["gpu"] else None
+        assert on_card is not False, "a K3 kernel ran outside the range's window on the card"
+        out["profile"] = dict(
+            ranges_host=len(win["cpu"]), ranges_card=len(win["gpu"]),
+            kernels=len(win["kernels"]), launched_inside=by_launch, ran_inside=on_card,
+        )
+    counts = launch_counts()
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+    out["launches"] = counts
+    records = run.span_records()
+    names = {r["span_id"]: r["name"] for r in records}
+    print("span tree (telemetry phase):", flush=True)
+    for r in records:
+        print(f"  {r['span_id']} <- {r['parent_id'] or '-':6s} {r['name']:18s} "
+              f"{(r['t_end'] - r['t_start']) * 1e3:9.2f} ms steps={r.get('attrs', {}).get('steps')}",
+              flush=True)
+    assert all(r["parent_id"] in names for r in records if r["name"] != "telemetry_phase"), records
+    out["spans"] = [r["name"] for r in records]
+    # ---- Metrics, the dispatch table, the device sample.
+    snap = get_registry().snapshot()
+    assert snap["counters"].get("epochs_total", 0) > 0, snap
+    assert snap["gauges"].get("epochs_per_sec", 0) > 0, snap
+    bucket = bucket_shape(V, M, epochs=E).key
+    keys = [k for k, rec in dispatch_snapshot().items()
+            if (rec["engine"], rec["bucket"], rec["backend"]) == ("fused_varying", bucket, "gpu")]
+    assert len(keys) == 1, (keys, sorted(dispatch_snapshot()))
+    table = dispatch_snapshot()[keys[0]]
+    sample = record_device_telemetry()
+    assert sample["backend"] == "gpu" and sample["device_peak_bytes"], sample
+    out["metrics"] = dict(
+        epochs_total=snap["counters"]["epochs_total"], epochs_per_sec=snap["gauges"]["epochs_per_sec"],
+        dispatch_key=keys[0], dispatches=table["dispatches"],
+        dispatch_p50_s=LatencySketch.from_json(table["sketch"]).quantile(0.5),
+        device=sample,
+    )
+    # ---- The capture's cost: epochs/s with numerics off and on, in turns.
+    rates: dict = {"0": [], "1": []}
+    previous = os.environ.get("YUMA_NUMERICS")
+    reset_launch_counts()
+    try:
+        for i in range(NUMERICS_PAIRS):
+            for flag in (("0", "1") if i % 2 == 0 else ("1", "0")):
+                os.environ["YUMA_NUMERICS"] = flag
+                t0 = time.perf_counter()
+                r = simulate(scenario, version)
+                rates[flag].append(E / (time.perf_counter() - t0))
+                assert (r.numerics is None) == (flag == "0"), flag
+    finally:
+        if previous is None:
+            os.environ.pop("YUMA_NUMERICS", None)
+        else:
+            os.environ["YUMA_NUMERICS"] = previous
+    pair_counts = launch_counts()
+    assert pair_counts["varying_scan"] == 2 * NUMERICS_PAIRS, pair_counts
+    assert not any(n for name, n in pair_counts.items() if name != "varying_scan"), pair_counts
+    launches["varying_scan"] += pair_counts["varying_scan"]
+    out["launches_pairs"] = pair_counts
+    out["numerics_cost"] = dict(
+        card=smi, pairs=NUMERICS_PAIRS, off_epochs_per_s=float(np.median(rates["0"])),
+        on_epochs_per_s=float(np.median(rates["1"])), off=rates["0"], on=rates["1"],
+    )
+    print(f"numerics capture cost ({smi}): simulate {E} epochs, median epochs/s off "
+          f"{out['numerics_cost']['off_epochs_per_s']:.1f}, on "
+          f"{out['numerics_cost']['on_epochs_per_s']:.1f} ({NUMERICS_PAIRS} pairs)", flush=True)
+    report["telemetry"] = out
+    print(f"telemetry ok: stream sets {out['stream_sets']}; profile {out['profile']}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1674,6 +1865,9 @@ def main() -> int:
     print(f"main path: simulate eager + consensus kernel; launches {counts}; "
           f"max |eager - fused| dividends {eager_gap:.3g}", flush=True)
 
+    # ---- The telemetry core on the main path's workload.
+    telemetry_phase(torch, dev, scenario, main_run, smi, launches, report)
+
     # ---- The reference surface: 14 cases x 9 versions vs the golden CSV.
     golden_path = os.path.join("tests", "golden", "total_dividends_b1.0_full.csv")
     with open(golden_path) as f:
@@ -1757,6 +1951,7 @@ def main() -> int:
                       "fma_helper": report["fma_helper"]}))
     print(json.dumps({"streams": report["streams"]}))
     print(json.dumps({"mc": report["mc"]}))
+    print(json.dumps({"telemetry": report["telemetry"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -28,8 +28,24 @@ all at chip_smoke.py's 256 x 4096 (Yuma 1, save flags off, 64 epochs):
   hoisted, host clock, synchronized, best of 3;
 - `plain_ms`: CUDA-event ms of one call of the plain versions of K2 and
   K3 (after one warm-up call);
+- `simulate_epochs_per_s`: the main path, `simulate` with default
+  arguments on chip_smoke.py's 64-epoch scenario (its reset included),
+  host clock around each call (the copies and the host fetch included),
+  the median of SIMULATE_RUNS after one warm-up, with numerics capture as
+  the tree does it by default (`"on"`) and with ``YUMA_NUMERICS=0``
+  (`"off"`; a tree without the capture runs the same path twice), the two
+  alternating run by run;
+- `simulate_host_profile`: the 16 functions with the most cumulative host
+  time over PROFILED_CALLS `simulate` calls with ``YUMA_NUMERICS=0``
+  under cProfile, per call; `weights_upload_ms`: the median host ms of the
+  scenario's `[64, 256, 4096]` weights copied to the card from pageable
+  memory, as `simulate` copies them;
+- `k2_probe`: K2 called back to back (event ms a call, each call's
+  unsynchronized host ms, the allocator's device allocations and frees)
+  before and after the entry points' modules are imported;
 - `phases`: device ms per phase kernel (torch.profiler) over one call of
-  K2, K2 with liquid alpha, K3, K5, and the fused rung's 16 epochs.
+  K2, K2 with liquid alpha, K3, K5, the fused rung's 16 epochs, and
+  `simulate` with default arguments (its copies included).
 
 Prints one JSON line per run and writes them all to FILE (default
 build/tree_compare.json). Exits non-zero without CUDA.
@@ -38,11 +54,17 @@ build/tree_compare.json). Exits non-zero without CUDA.
 from __future__ import annotations
 
 import argparse
+import cProfile
 import json
 import os
 import subprocess
 import sys
 import time
+
+#: Timed `simulate` calls a setting in `simulate_epochs_per_s`.
+SIMULATE_RUNS = 9
+#: `simulate` calls under cProfile in `simulate_host_profile`.
+PROFILED_CALLS = 5
 
 
 def one(root: str) -> dict:
@@ -64,7 +86,6 @@ def one(root: str) -> dict:
         fused_varying_scan,
         fused_varying_scan_plain,
     )
-    from yuma_simulation_tpu_torch.simulation.engine import simulate_constant, simulate_scaled
 
     assert _build.CSRC.is_relative_to(root), (_build.CSRC, root)
     smi = subprocess.run(
@@ -74,14 +95,26 @@ def one(root: str) -> dict:
     for src in _build.SOURCES:
         _build.load(src)
     dev = torch.device("cuda")
-    W_np, S_np, _ = cs.workload(0, cs.E)
+    W_np, S_np, quiet_miner = cs.workload(0, cs.E)
     W, S = torch.tensor(W_np, device=dev), torch.tensor(S_np, device=dev)
+    quiet = dict(save_bonds=False, save_incentives=False)
+    # K2 before and after the entry points' modules (and with them the
+    # telemetry) are imported.
+    k2_probe = {"before_entry_imports": probe_k2(torch, cs, lambda: fused_case_scan(W, S, **quiet)),
+                "telemetry_imported_before": "yuma_simulation_tpu_torch.telemetry.runctx" in sys.modules}
+    from yuma_simulation_tpu_torch.scenarios.base import Scenario
+    from yuma_simulation_tpu_torch.simulation.engine import (
+        simulate,
+        simulate_constant,
+        simulate_scaled,
+    )
+
+    k2_probe["after_entry_imports"] = probe_k2(torch, cs, lambda: fused_case_scan(W, S, **quiet))
     W1, S1 = W[0].contiguous(), S[0].contiguous()
     Sn1 = (S1 / S1.sum()).contiguous()
     sc = (1.0 + 1e-7 * torch.arange(cs.E, dtype=torch.float32, device=dev)).contiguous()
     B_old = torch.rand((cs.V, cs.M), device=dev, generator=torch.Generator(dev).manual_seed(5))
     B_old *= 1e-3
-    quiet = dict(save_bonds=False, save_incentives=False)
     config, spec = YumaConfig(), variant_for_version("Yuma 1 (paper)")
     runs = {
         "case_scan": lambda: fused_case_scan(W, S, **quiet),
@@ -134,6 +167,37 @@ def one(root: str) -> dict:
         ("case_scan", lambda: fused_case_scan_plain(W, S, **quiet)),
         ("varying_scan", lambda: fused_varying_scan_plain(W, S, epoch_tile=16, **quiet)),
     )}
+    scenario = Scenario(
+        name="synthetic", validators=[f"v{i}" for i in range(cs.V)], base_validator="v0",
+        weights=W_np, stakes=S_np, num_epochs=cs.E, reset_bonds_index=quiet_miner,
+        reset_bonds_epoch=cs.E // 2,
+    )
+    simulate(scenario, "Yuma 1 (paper)")
+    rates = {"on": [], "off": []}
+    for i in range(SIMULATE_RUNS):
+        for flag in (("on", "off") if i % 2 == 0 else ("off", "on")):
+            os.environ["YUMA_NUMERICS"] = "1" if flag == "on" else "0"
+            t0 = time.perf_counter()
+            simulate(scenario, "Yuma 1 (paper)")
+            rates[flag].append(cs.E / (time.perf_counter() - t0))
+    simulate_rate = {k: sorted(v)[len(v) // 2] for k, v in rates.items()}
+    # Where a `simulate` call's host time goes, numerics off: cProfile over
+    # PROFILED_CALLS calls, and the weights' upload alone.
+    os.environ["YUMA_NUMERICS"] = "0"
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(PROFILED_CALLS):
+        simulate(scenario, "Yuma 1 (paper)")
+    prof.disable()
+    os.environ.pop("YUMA_NUMERICS")
+    host_profile = top_functions(prof, PROFILED_CALLS)
+    upload = []
+    for _ in range(SIMULATE_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.as_tensor(W_np).to(dev)
+        torch.cuda.synchronize()
+        upload.append((time.perf_counter() - t0) * 1e3)
     os.makedirs(cs.OUT_DIR, exist_ok=True)
     phases = cs.phase_profile(torch, smi, (
         ("case_scan", runs["case_scan"]),
@@ -141,9 +205,44 @@ def one(root: str) -> dict:
         ("varying_scan", runs["varying_scan"]),
         ("ema_scan", runs["ema_scan"]),
         ("ema_epoch_x16", fused),
+        ("simulate", lambda: simulate(scenario, "Yuma 1 (paper)")),
     ))
     return dict(tree=root, card=smi, ms=ms, host_ms=host, fused_epochs_per_s=16 / best,
-                constant_s=constant_s, plain_ms=plain_ms, phases=phases)
+                constant_s=constant_s, plain_ms=plain_ms, simulate_epochs_per_s=simulate_rate,
+                simulate_host_profile=host_profile,
+                weights_upload_ms=sorted(upload)[len(upload) // 2], k2_probe=k2_probe,
+                phases=phases)
+
+
+def probe_k2(torch, cs, call) -> dict:
+    """K2 called back to back: CUDA-event ms a call over 5 calls (after one
+    warm-up), the host ms of each of 5 more calls that are not
+    synchronized (a call that blocks on the card reads ~its device time),
+    and how many of the caching allocator's device allocations, frees and
+    retries those 10 calls made."""
+    keys = ("num_device_alloc", "num_device_free", "num_alloc_retries", "num_sync_all_streams")
+    before = torch.cuda.memory_stats()
+    event_ms = cs.cuda_ms(torch, call, 5)
+    host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        call()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_stats()
+    return dict(event_ms=event_ms, call_host_ms=host,
+                allocator={k: after.get(k, 0) - before.get(k, 0) for k in keys})
+
+
+def top_functions(prof, calls: int, n: int = 16) -> list:
+    """The `n` functions of a cProfile run with the most cumulative time:
+    `[name, calls a run, own ms a run, cumulative ms a run]`."""
+    import pstats
+
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: kv[1][3], reverse=True)[:n]
+    return [[f"{os.path.basename(fn)}:{line}({name})", nc / calls, tt / calls * 1e3,
+             ct / calls * 1e3] for (fn, line, name), (_, nc, tt, ct, _) in rows]
 
 
 def main() -> int:

@@ -118,15 +118,35 @@ def test_mc_weights_argtypes_match_source():
 
 def test_new_modules_import_without_jax():
     """The Monte-Carlo slice's modules (random, K7's wrapper, the meshes and
-    the sharded drivers, the synthetic perturbations) import with `jax`
-    made unimportable and pull in nothing of the JAX package."""
+    the sharded drivers, the synthetic perturbations) and the telemetry
+    slice's (the fingerprint, the numerics sketches, spans, logging, the
+    registry, metrics, SLOs, propagation, timing, profiling, the device
+    sample, and the packages that re-export them) import with `jax` made
+    unimportable and pull in nothing of the JAX package."""
     import subprocess
     import sys
 
-    mods = ["yuma_simulation_tpu_torch.random", "yuma_simulation_tpu_torch.ops.cuda_random",
+    # The numerics module first: it imports simulation.carry, whose package
+    # imports the engines, which import it back.
+    mods = ["yuma_simulation_tpu_torch.telemetry.numerics",
+            "yuma_simulation_tpu_torch.random", "yuma_simulation_tpu_torch.ops.cuda_random",
             "yuma_simulation_tpu_torch.parallel", "yuma_simulation_tpu_torch.parallel.mesh",
             "yuma_simulation_tpu_torch.parallel.sharded",
-            "yuma_simulation_tpu_torch.scenarios.synthetic"]
+            "yuma_simulation_tpu_torch.scenarios.synthetic",
+            "yuma_simulation_tpu_torch.ops.fingerprint",
+            "yuma_simulation_tpu_torch.simulation.carry",
+            "yuma_simulation_tpu_torch.telemetry",
+            "yuma_simulation_tpu_torch.telemetry.runctx",
+            "yuma_simulation_tpu_torch.telemetry.registry",
+            "yuma_simulation_tpu_torch.telemetry.metrics",
+            "yuma_simulation_tpu_torch.telemetry.slo",
+            "yuma_simulation_tpu_torch.telemetry.propagation",
+            "yuma_simulation_tpu_torch.telemetry.device",
+            "yuma_simulation_tpu_torch.utils",
+            "yuma_simulation_tpu_torch.utils.logging",
+            "yuma_simulation_tpu_torch.utils.checkpoint",
+            "yuma_simulation_tpu_torch.utils.timing",
+            "yuma_simulation_tpu_torch.utils.profiling"]
     code = (
         "import sys\nsys.modules['jax'] = None\nimport importlib\n"
         f"for m in {mods!r}:\n    importlib.import_module(m)\n"

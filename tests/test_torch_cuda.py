@@ -60,6 +60,7 @@ from yuma_simulation_tpu_torch.simulation.engine import (
     simulate_scaled,
     simulate_scaled_batch,
 )
+from yuma_simulation_tpu_torch.telemetry.numerics import host_sketches, sketch_mismatches
 
 pytestmark = pytest.mark.cuda
 
@@ -1157,3 +1158,96 @@ def test_sharded_batch_one_device_mesh_bitwise(cuda):
                          save_bonds=True)
     for key in ("dividends", "bonds"):
         np.testing.assert_array_equal(out[key], ref[key].cpu().numpy(), err_msg=key)
+
+
+# ---------------------------------------------------------------------------
+# telemetry: numerics sketches, the profiler range, the device sample
+
+
+def _sketches_bitwise(got: dict, ref: dict, label: str):
+    bad = sketch_mismatches(got, ref)
+    assert not bad, (label, bad)
+
+
+@pytest.mark.parametrize("save_consensus", [False, True], ids=["dividends", "with-consensus"])
+@pytest.mark.parametrize("impl,counter", [("auto", "varying_scan"), ("fused_scan", "case_scan")],
+                         ids=["K3", "K2"])
+def test_numerics_on_card_bitwise_host_sketch(cuda, impl, counter, save_consensus):
+    """The sketches a run on the card returns (computed on the card from
+    the rung's outputs) are bitwise the CPU sketches of the same outputs
+    copied to the host; the stream set is JAX's fused rungs' (the
+    consensus only when saved); a one-ulp flip of one dividend cell moves
+    its epoch's fingerprint by exactly one."""
+    from yuma_simulation_tpu_torch.ops.fingerprint import flip_ulp, ulp_delta
+    from yuma_simulation_tpu_torch.telemetry.numerics import sketch_over_epochs, to_host
+
+    scen = _stream_scenario()
+    reset_launch_counts()
+    r = simulate(scen, "Yuma 1 (paper)", epoch_impl=impl, save_consensus=save_consensus)
+    assert launch_counts()[counter] == 1, launch_counts()
+    streams = {"dividends": r.dividends}
+    if save_consensus:
+        streams["consensus"] = r.consensus
+    _sketches_bitwise(r.numerics, host_sketches(streams), impl)
+    D = torch.tensor(r.dividends, device=cuda)
+    e, v = 5, int(torch.argmax(D[5]))
+    flipped = D.clone()
+    flipped[e, v] = flip_ulp(flipped[e, v])
+    a = to_host({"d": sketch_over_epochs(D, 0)})["d"].fingerprint
+    b = to_host({"d": sketch_over_epochs(flipped, 0)})["d"].fingerprint
+    assert [ulp_delta(x, y) for x, y in zip(a, b)] == [int(i == e) for i in range(len(a))]
+
+
+def test_streamed_numerics_bitwise_monolithic_on_card(cuda):
+    """K3 in slabs of 7 (ragged) through `max_resident_epochs`: the
+    numerics are bitwise the monolithic run's; the eager rung with K1 sketches
+    the consensus too, bitwise the CPU sketch of its saved consensus."""
+    scen = _stream_scenario()
+    mono = simulate(scen, "Yuma 2 (Adrian-Fish)")
+    reset_launch_counts()
+    stream = simulate(scen, "Yuma 2 (Adrian-Fish)", max_resident_epochs=7)
+    assert launch_counts()["varying_scan"] == 4, launch_counts()
+    _sketches_bitwise(stream.numerics, mono.numerics, "streamed")
+    eager = simulate(scen, "Yuma 1 (paper)", epoch_impl="eager", consensus_impl="kernel",
+                     save_consensus=True)
+    _sketches_bitwise(eager.numerics, host_sketches(
+        {"dividends": eager.dividends, "consensus": eager.consensus}), "eager")
+
+
+def test_profile_trace_range_holds_k3_kernels(cuda, tmp_path):
+    """Under `profile_trace`, inside a span: the Chrome trace holds the
+    `simulate:fused_varying` range, every K3 phase kernel was launched
+    inside it and (where the trace has the range on the card) ran inside
+    it; the dispatch's step number is on the span; the dispatch table has
+    the run's (rung, bucket, "gpu") key; the device sample has a peak."""
+    from yuma_simulation_tpu_torch.simulation.planner import bucket_shape
+    from yuma_simulation_tpu_torch.telemetry import (
+        dispatch_snapshot,
+        ensure_run,
+        sample_device_telemetry,
+        span,
+    )
+    from yuma_simulation_tpu_torch.utils.profiling import (
+        profile_trace,
+        trace_range_windows,
+        within,
+    )
+
+    scen = _stream_scenario()
+    simulate(scen, "Yuma 1 (paper)")
+    with ensure_run() as run, span("profiled") as s, profile_trace(str(tmp_path)):
+        r = simulate(scen, "Yuma 1 (paper)")
+        torch.cuda.synchronize()
+    assert r.engine == "fused_varying" and s.attrs["steps"] and s.attrs["plan"]["engine"] == r.engine
+    assert [rec["name"] for rec in run.span_records()] == ["profiled"]
+    win = trace_range_windows(str(tmp_path / "trace.json"), "simulate:fused_varying")
+    assert win["cpu"] and win["kernels"]
+    for name, on_card, launch in win["kernels"]:
+        assert within(launch, win["cpu"]), name
+        if win["gpu"]:
+            assert within(on_card, win["gpu"]), name
+    E, V, M = scen.weights.shape
+    key = f"fused_varying|{bucket_shape(V, M, epochs=E).key}|gpu"
+    assert dispatch_snapshot()[key]["dispatches"] >= 2
+    sample = sample_device_telemetry()
+    assert sample["backend"] == "gpu" and sample["device_peak_bytes"] > 0

@@ -48,6 +48,7 @@ from yuma_simulation_tpu_torch.parallel import (
 )
 from yuma_simulation_tpu_torch.scenarios import get_cases
 from yuma_simulation_tpu_torch.simulation.sweep import simulate_batch, stack_scenarios
+from yuma_simulation_tpu_torch.telemetry.numerics import SKETCH_FIELDS, to_host
 
 IDS = [v for v, _ in canonical_versions()]
 ATOL = 2e-6  # the JAX package's reduction-order class against its XLA rung
@@ -144,7 +145,14 @@ def test_sharded_batch_lanes_bitwise_unsharded(mesh8, version):
     W, S, ri, re_ = stack_scenarios(cases, device="cpu")
     ref = simulate_batch(W, S, ri, re_, YumaConfig(), variant_for_version(version),
                          save_bonds=True, x64=True)
-    assert set(out) == {"dividends", "bonds"}
+    assert set(out) == {"dividends", "bonds", "numerics"}
+    # The per-epoch numerics sketches, trimmed to the 5 lanes: bitwise the
+    # unsharded run's.
+    ref_sketches = to_host(ref.pop("numerics"))
+    for stream, sk in out.pop("numerics").items():
+        for f in SKETCH_FIELDS:
+            assert getattr(sk, f).shape[0] == 5
+            np.testing.assert_array_equal(getattr(sk, f), getattr(ref_sketches[stream], f))
     for key in out:
         assert out[key].shape[0] == 5
         np.testing.assert_array_equal(out[key], ref[key].numpy(), err_msg=key)

@@ -14,6 +14,10 @@ weight slab (:mod:`.ops.cuda_random`). The entry points are in
 :mod:`.random`). They run on the card unless the caller passes
 `device="cpu"` (or, for the tensor entry points, CPU tensors); on CPU
 tensors every kernel wrapper runs its plain PyTorch version instead.
+Each case-scan result carries per-epoch numerics sketches, bitwise the JAX
+package's (:mod:`.telemetry.numerics`), and the JAX package's telemetry
+core (spans, records, metrics, profiler ranges) is in :mod:`.telemetry`
+and :mod:`.utils`.
 """
 
 __version__ = "0.1.0"

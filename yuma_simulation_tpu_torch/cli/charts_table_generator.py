@@ -10,7 +10,10 @@ written as it completes. The suite is simulated on the card unless
 
     python -m yuma_simulation_tpu_torch.cli.charts_table_generator \
         [--bond-penalty 0 0.5 0.99 1.0] [--cases "Case 3" ...] \
-        [--out-dir DIR] [--no-draggable] [--device cuda|cpu]
+        [--out-dir DIR] [--no-draggable] [--device cuda|cpu] [--profile-dir DIR]
+
+The invocation is one telemetry run; `--profile-dir` writes a
+`torch.profiler` Chrome trace of it.
 """
 
 from __future__ import annotations
@@ -23,6 +26,9 @@ from yuma_simulation_tpu_torch.models.config import SimulationHyperparameters
 from yuma_simulation_tpu_torch.models.variants import canonical_versions
 from yuma_simulation_tpu_torch.scenarios import create_case, get_cases
 from yuma_simulation_tpu_torch.simulation.engine import resolve_device
+from yuma_simulation_tpu_torch.telemetry.runctx import RunContext
+from yuma_simulation_tpu_torch.utils.logging import setup_logging
+from yuma_simulation_tpu_torch.utils.profiling import profile_trace
 from yuma_simulation_tpu_torch.v1.api import generate_chart_table
 
 
@@ -56,6 +62,11 @@ def main(argv: list[str] | None = None) -> dict[str, float]:
         help="the device to simulate on (default: the card; without CUDA "
         "this raises: pass --device cpu to run on the CPU)",
     )
+    parser.add_argument(
+        "--profile-dir",
+        default=None,
+        help="write a torch.profiler trace of the run to DIR/trace.json",
+    )
     args = parser.parse_args(argv)
     try:
         import matplotlib  # noqa: F401
@@ -65,21 +76,25 @@ def main(argv: list[str] | None = None) -> dict[str, float]:
             "not installed; the simulation itself does not need it "
             "(yuma_simulation_tpu_torch.v1.api._simulate_suite)"
         ) from exc
+    setup_logging()
     device = resolve_device(args.device)
     cases = [create_case(name) for name in args.cases] if args.cases else get_cases()
     args.out_dir.mkdir(parents=True, exist_ok=True)
     seconds = {}
-    for bond_penalty in args.bond_penalty:
-        t0 = time.perf_counter()
-        hp = SimulationHyperparameters(bond_penalty=float(bond_penalty))
-        table = generate_chart_table(
-            cases, canonical_versions(), hp,
-            draggable_table=not args.no_draggable, device=device,
-        )
-        file_name = args.out_dir / f"simulation_results_b{bond_penalty}.html"
-        file_name.write_bytes(table.data.encode("utf-8"))
-        seconds[bond_penalty] = time.perf_counter() - t0
-        print(f"HTML saved to {file_name} ({seconds[bond_penalty]:.3f} s)")
+    # One telemetry run for the invocation; each table's suite is a
+    # "chart_suite" span under it (v1.api._simulate_suite).
+    with RunContext(), profile_trace(args.profile_dir):
+        for bond_penalty in args.bond_penalty:
+            t0 = time.perf_counter()
+            hp = SimulationHyperparameters(bond_penalty=float(bond_penalty))
+            table = generate_chart_table(
+                cases, canonical_versions(), hp,
+                draggable_table=not args.no_draggable, device=device,
+            )
+            file_name = args.out_dir / f"simulation_results_b{bond_penalty}.html"
+            file_name.write_bytes(table.data.encode("utf-8"))
+            seconds[bond_penalty] = time.perf_counter() - t0
+            print(f"HTML saved to {file_name} ({seconds[bond_penalty]:.3f} s)")
     return seconds
 
 

@@ -8,7 +8,11 @@ check, each version's 14-case suite simulated as one batched call, on the
 card unless `--device cpu` is given:
 
     python -m yuma_simulation_tpu_torch.cli.total_dividends_sheet_generator \
-        [--bond-penalty 0 0.5 0.99 1.0] [--out-dir DIR] [--device cuda|cpu]
+        [--bond-penalty 0 0.5 0.99 1.0] [--out-dir DIR] [--device cuda|cpu] \
+        [--profile-dir DIR]
+
+The invocation is one telemetry run, each sheet a span under it;
+`--profile-dir` writes a `torch.profiler` Chrome trace of the whole run.
 """
 
 from __future__ import annotations
@@ -22,6 +26,9 @@ from yuma_simulation_tpu_torch.models.variants import canonical_versions
 from yuma_simulation_tpu_torch.reporting.tables import generate_total_dividends_table
 from yuma_simulation_tpu_torch.scenarios import get_cases
 from yuma_simulation_tpu_torch.simulation.engine import resolve_device
+from yuma_simulation_tpu_torch.telemetry.runctx import RunContext, span
+from yuma_simulation_tpu_torch.utils.logging import setup_logging
+from yuma_simulation_tpu_torch.utils.profiling import profile_trace
 
 
 def main(argv: list[str] | None = None) -> dict[str, float]:
@@ -42,22 +49,32 @@ def main(argv: list[str] | None = None) -> dict[str, float]:
         help="the device to simulate on (default: the card; without CUDA "
         "this raises: pass --device cpu to run on the CPU)",
     )
+    parser.add_argument(
+        "--profile-dir",
+        default=None,
+        help="write a torch.profiler trace of the run to DIR/trace.json",
+    )
     args = parser.parse_args(argv)
+    setup_logging()
     device = resolve_device(args.device)
     cases = get_cases()
     args.out_dir.mkdir(parents=True, exist_ok=True)
     seconds = {}
-    for bond_penalty in args.bond_penalty:
-        print(f"Generating total dividends sheet for bond_penalty={bond_penalty}")
-        t0 = time.perf_counter()
-        hp = SimulationHyperparameters(bond_penalty=float(bond_penalty))
-        table = generate_total_dividends_table(cases, canonical_versions(), hp, device=device)
-        if table.has_nan():
-            print("Warning: NaN values detected in the dividends table.")
-        file_name = args.out_dir / f"total_dividends_b{bond_penalty}.csv"
-        file_name.write_bytes(table.to_csv(float_format="%.6f").encode())
-        seconds[bond_penalty] = time.perf_counter() - t0
-        print(f"CSV saved to {file_name} ({seconds[bond_penalty]:.3f} s)")
+    with RunContext(), profile_trace(args.profile_dir):
+        for bond_penalty in args.bond_penalty:
+            print(f"Generating total dividends sheet for bond_penalty={bond_penalty}")
+            t0 = time.perf_counter()
+            hp = SimulationHyperparameters(bond_penalty=float(bond_penalty))
+            with span(f"sheet:b{bond_penalty}"):
+                table = generate_total_dividends_table(
+                    cases, canonical_versions(), hp, device=device
+                )
+            if table.has_nan():
+                print("Warning: NaN values detected in the dividends table.")
+            file_name = args.out_dir / f"total_dividends_b{bond_penalty}.csv"
+            file_name.write_bytes(table.to_csv(float_format="%.6f").encode())
+            seconds[bond_penalty] = time.perf_counter() - t0
+            print(f"CSV saved to {file_name} ({seconds[bond_penalty]:.3f} s)")
     return seconds
 
 

@@ -28,6 +28,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from yuma_simulation_tpu_torch.utils.logging import log_event
+
 logger = logging.getLogger(__name__)
 
 DATA_AXIS = "data"
@@ -203,13 +205,12 @@ def initialize_distributed(
                     dist.get_world_size(), kwargs["backend"])
     except (RuntimeError, ValueError) as e:
         if explicit:
-            logger.warning(
-                "event=distributed_init_failed coordinator=%s process=%s num_processes=%s "
-                "timeout_s=%s error=%s", coordinator_address,
-                "" if process_id is None else process_id,
-                "" if num_processes is None else num_processes,
-                "" if initialization_timeout is None else initialization_timeout,
-                type(e).__name__,
+            log_event(
+                logger, "distributed_init_failed", coordinator=coordinator_address,
+                process="" if process_id is None else process_id,
+                num_processes="" if num_processes is None else num_processes,
+                timeout_s="" if initialization_timeout is None else initialization_timeout,
+                error=type(e).__name__,
             )
             raise DistributedInitError(
                 f"distributed join failed for explicit coordinator {coordinator_address} "

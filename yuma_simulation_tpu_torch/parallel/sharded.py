@@ -40,7 +40,7 @@ from yuma_simulation_tpu_torch.ops.cuda_random import mc_weights
 from yuma_simulation_tpu_torch.ops.normalize import normalize_weight_rows
 from yuma_simulation_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
 from yuma_simulation_tpu_torch.scenarios.base import Scenario
-from yuma_simulation_tpu_torch.simulation.carry import TotalsCarry
+from yuma_simulation_tpu_torch.simulation.carry import NumericsSketch, TotalsCarry
 from yuma_simulation_tpu_torch.simulation.engine import (
     _constant_run,
     _dispatch_case,
@@ -55,6 +55,9 @@ from yuma_simulation_tpu_torch.simulation.planner import (
     resolve_montecarlo_engine,
 )
 from yuma_simulation_tpu_torch.simulation.sweep import simulate_batch, stack_scenarios
+from yuma_simulation_tpu_torch.telemetry.numerics import SKETCH_FIELDS, to_host
+from yuma_simulation_tpu_torch.telemetry.runctx import dispatch_annotation
+from yuma_simulation_tpu_torch.telemetry.runctx import span as telemetry_span
 
 
 def _refuse_slice7(**given) -> None:
@@ -73,8 +76,33 @@ def _pad_batch(n: int, shards: int) -> int:
 
 
 def _unpad_outputs(ys: dict, n: int) -> dict:
-    """The gathered outputs as numpy, padded lanes dropped."""
-    return {k: np.asarray(v)[:n] for k, v in ys.items()}
+    """The gathered outputs as numpy, padded lanes dropped; the per-epoch
+    numerics sketches (``{stream: NumericsSketch}``, `[B, E]` leaves) are
+    trimmed leaf by leaf."""
+    numerics = ys.pop("numerics", None)
+    out = {k: np.asarray(v)[:n] for k, v in ys.items()}
+    if numerics is not None:
+        out["numerics"] = {
+            stream: NumericsSketch(**{f: np.asarray(getattr(sk, f))[:n] for f in SKETCH_FIELDS})
+            for stream, sk in numerics.items()
+        }
+    return out
+
+
+def _gather_shards(outs: list) -> dict:
+    """The shards' outputs on the host, concatenated over the lane axis;
+    each shard's sketches come over in one copy."""
+    gathered = {k: np.concatenate([o[k].cpu().numpy() for o in outs])
+                for k in outs[0] if k != "numerics"}
+    if "numerics" in outs[0]:
+        host = [to_host(o["numerics"]) for o in outs]
+        gathered["numerics"] = {
+            stream: NumericsSketch(**{
+                f: np.concatenate([getattr(h[stream], f) for h in host]) for f in SKETCH_FIELDS
+            })
+            for stream in host[0]
+        }
+    return gathered
 
 
 def simulate_batch_sharded(
@@ -111,19 +139,21 @@ def simulate_batch_sharded(
     lanes = (n + pad) // shards
     W, S, ri, re_ = stack_scenarios(padded, dtype, device="cpu")
     outs = []
-    for s, dev in enumerate(devices):
-        dev = resolve_device(dev)
-        # Each device holds `lanes` scenarios: preflighted per shard.
-        plan_dispatch(
-            f"sharded_batch:{shards}dev", (lanes, E, V, M), spec, config, dtype,
-            save_bonds=save_bonds, device=dev,
-        ).record()
-        lane = slice(s * lanes, (s + 1) * lanes)
-        outs.append(simulate_batch(
-            W[lane].to(dev), S[lane].to(dev), ri[lane].to(dev), re_[lane].to(dev), config,
-            spec, save_bonds=save_bonds, save_incentives=False, x64=x64,
-        ))
-    gathered = {k: np.concatenate([o[k].cpu().numpy() for o in outs]) for k in outs[0]}
+    with telemetry_span(f"mesh:{shards}dev"):
+        for s, dev in enumerate(devices):
+            dev = resolve_device(dev)
+            # Each device holds `lanes` scenarios: preflighted per shard.
+            plan_dispatch(
+                f"sharded_batch:{shards}dev", (lanes, E, V, M), spec, config, dtype,
+                save_bonds=save_bonds, device=dev,
+            ).record()
+            lane = slice(s * lanes, (s + 1) * lanes)
+            with dispatch_annotation(f"sharded_batch:{shards}dev"):
+                outs.append(simulate_batch(
+                    W[lane].to(dev), S[lane].to(dev), ri[lane].to(dev), re_[lane].to(dev),
+                    config, spec, save_bonds=save_bonds, save_incentives=False, x64=x64,
+                ))
+        gathered = _gather_shards(outs)
     return _unpad_outputs(gathered, n)
 
 

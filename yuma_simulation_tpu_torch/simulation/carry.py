@@ -1,4 +1,5 @@
-"""The carries of the throughput loops, as small dataclasses of tensors.
+"""The carries of the throughput loops, and the numerics sketch, as small
+dataclasses of tensors.
 
 Each names the legs one loop carries from epoch to epoch, so a loop body
 reads `carry.bonds` rather than a tuple position (the JAX package's
@@ -8,7 +9,7 @@ reads `carry.bonds` rather than a tuple position (the JAX package's
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -61,3 +62,20 @@ class ScanCarry:
         if self.w_prev is not None:
             out["w_prev"] = self.w_prev
         return out
+
+
+@dataclass
+class NumericsSketch:
+    """The per-epoch numerics observable of one tensor stream
+    (:mod:`..telemetry.numerics`). Each field holds one value per epoch
+    (`[E]`, or `[B, E]` for a batch): tensors where the run computed them,
+    numpy arrays on the host. Every reduction is exact and
+    order-independent (integer counts, wrapping u32 bit sums, min / max), so
+    a sketch is bitwise invariant to streaming the epochs in slabs: merging
+    slab captures is concatenation along the epoch axis."""
+
+    finite_frac: Any  # exact finite count / size, in the stream's dtype
+    lo: Any  # min over the finite values (+inf when there are none)
+    hi: Any  # max over the finite values (-inf when there are none)
+    absmax: Any  # max |x| over the finite values (0 when there are none)
+    fingerprint: Any  # wrapping u32 sum of the raw bits (ops.fingerprint)

@@ -84,11 +84,17 @@ from yuma_simulation_tpu_torch.simulation.carry import (
 )
 from yuma_simulation_tpu_torch.simulation.planner import (
     FUSED_CASE_RUNGS,
-        STREAM_BUFFERS,
+    STREAM_BUFFERS,
     plan_dispatch,
     resolve_scaled_engine,
     rung_flags,
 )
+# The module, not its names: numerics imports simulation.carry, which
+# imports this package.
+from yuma_simulation_tpu_torch.telemetry import numerics as _numerics
+from yuma_simulation_tpu_torch.telemetry.runctx import dispatch_annotation
+from yuma_simulation_tpu_torch.telemetry.slo import observe_dispatch
+from yuma_simulation_tpu_torch.utils.profiling import timed
 
 #: Above this many bytes for one saved per-epoch stream, `save_bonds="auto"`
 #: / `save_incentives="auto"` resolve to False.
@@ -107,6 +113,10 @@ class SimulationResult:
     #: host arrays), only with ``return_state=True``; fed back as
     #: ``initial_state=`` with ``epoch_offset=`` it continues the run.
     final_state: Optional[dict] = None
+    #: Per-epoch numerics sketches of the output streams,
+    #: ``{stream: NumericsSketch}`` with `[E]` numpy leaves
+    #: (:mod:`..telemetry.numerics`); None when ``YUMA_NUMERICS=0``.
+    numerics: Optional[dict] = None
     #: The rung that ran (one of :data:`..planner.FUSED_CASE_RUNGS`, or "eager").
     engine: str = ""
 
@@ -123,6 +133,11 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def backend_name(dev: torch.device) -> str:
+    """The JAX package's platform name of a device: "gpu" for CUDA, "cpu"."""
+    return "gpu" if dev.type == "cuda" else dev.type
 
 
 def _dividends_per_1k(D_n, S, config):
@@ -264,12 +279,16 @@ def _simulate_scan(
     epoch_offset: int = 0,
     return_carry: bool = False,
     x64: bool = False,
+    capture_numerics: bool = False,
 ):
     """The eager rung: a Python loop over :func:`yuma_epoch`, threading a
     :class:`..carry.ScanCarry` (bonds, w_prev, consensus). Returns the
     per-epoch outputs stacked on the epoch axis (`dividends [(B,) E, V]`,
     ...), plus the final carry with `return_carry`. `miner_mask` marks a padded suite's real miner
-    columns, per scenario (`[B, M]`) or shared (`[M]`)."""
+    columns, per scenario (`[B, M]`) or shared (`[M]`). `capture_numerics`
+    adds ``ys["numerics"]``: the sketches of the dividends and of the
+    per-epoch consensus, saved or not, as the JAX package's XLA rung takes
+    them."""
     *lead, E, V, M = weights.shape
     dtype, dev = weights.dtype, weights.device
     cfg = _tensor_config(config, dev)
@@ -297,7 +316,7 @@ def _simulate_scan(
         ys["bonds"] = []
     if save_incentives:
         ys["incentives"] = []
-    if save_consensus:
+    if save_consensus or capture_numerics:
         ys["consensus"] = []
     for e in range(E):
         epoch = e + epoch_offset
@@ -332,10 +351,15 @@ def _simulate_scan(
             ys["bonds"].append(state.bonds)
         if save_incentives:
             ys["incentives"].append(res["server_incentive"])
-        if save_consensus:
+        if "consensus" in ys:
             ys["consensus"].append(state.consensus)
     axis = len(lead)
     ys = {k: torch.stack(v, dim=axis) for k, v in ys.items()}
+    if capture_numerics:
+        streams = {"dividends": ys["dividends"], "consensus": ys["consensus"]}
+        ys["numerics"] = _numerics.capture_streams(streams, epoch_axis=axis)
+    if not save_consensus:
+        ys.pop("consensus", None)
     if not return_carry:
         return ys
     return ys, state.to_dict()
@@ -359,11 +383,14 @@ def _simulate_case_fused(
     epoch_offset: int = 0,
     return_carry: bool = False,
     x64: bool = False,
+    capture_numerics: bool = False,
 ):
     """The fused rungs: the whole epoch loop in the case scan (K2) or the
     varying scan (K3, `varying=True`), with the support sum on the tensor
     cores (K4) under `mxu`; only the dividend-per-1000-tao conversion
-    happens out here. Returns the same ys dict as :func:`_simulate_scan`."""
+    happens out here. Returns the same ys dict as :func:`_simulate_scan`;
+    its numerics sketch the dividends, and the consensus only when it is
+    saved, as the JAX package's fused rungs do."""
     kwargs = dict(
         reset_index=reset_index,
         reset_epoch=reset_epoch,
@@ -387,6 +414,11 @@ def _simulate_case_fused(
     for key in ("bonds", "incentives", "consensus"):
         if key in res:
             ys[key] = res[key]
+    if capture_numerics:
+        streams = {k: ys[k] for k in ("dividends", "consensus") if k in ys}
+        ys["numerics"] = _numerics.capture_streams(
+            streams, epoch_axis=1 if weights.ndim == 4 else 0
+        )
     if not return_carry:
         return ys
     carry_out = {"bonds": res["final_bonds"], "consensus": res["final_consensus"]}
@@ -534,24 +566,44 @@ def simulate(
             k: torch.as_tensor(np.array(v), dtype=dtype).to(dev)
             for k, v in initial_state.items()
         }
-    out = _dispatch_case(
-        plan, weights, stakes, _reset_int(scenario.reset_bonds_index),
-        _reset_int(scenario.reset_bonds_epoch), config, spec,
-        save_bonds=save_bonds, save_incentives=save_incentives,
-        save_consensus=save_consensus, carry=carry, epoch_offset=epoch_offset,
-        return_carry=return_state, x64=x64,
+    # One epoch-rate record a run: the dispatch and the host fetch timed
+    # together, through the metrics registry (`epochs_total` /
+    # `epochs_per_sec`, one `event=epoch_rate` line).
+    t_dispatch = timed(f"simulate:{yuma_version}", epochs=E)
+    with t_dispatch:
+        with dispatch_annotation(f"simulate:{plan.engine}"):
+            out = _dispatch_case(
+                plan, weights, stakes, _reset_int(scenario.reset_bonds_index),
+                _reset_int(scenario.reset_bonds_epoch), config, spec,
+                save_bonds=save_bonds, save_incentives=save_incentives,
+                save_consensus=save_consensus, carry=carry, epoch_offset=epoch_offset,
+                return_carry=return_state, x64=x64,
+                capture_numerics=_numerics.numerics_enabled(),
+            )
+        state = None
+        if return_state:
+            out, carry_out = out
+        sketches = out.pop("numerics", None)
+        # The sketches' one copy rides the outputs' own: it is queued first
+        # and complete once they are on the host.
+        fetch = _numerics.HostFetch(sketches) if sketches is not None else None
+        if return_state:
+            state = {k: v.cpu().numpy() for k, v in carry_out.items()}
+        host = {k: v.cpu().numpy() for k, v in out.items()}
+        numerics = fetch.result() if fetch is not None else None
+    # The always-on dispatch timing seam: one observation a dispatched
+    # region, keyed by the rung, the plan's shape bucket and the backend.
+    observe_dispatch(
+        engine=plan.engine, bucket=plan.bucket.key, backend=backend_name(dev),
+        seconds=t_dispatch.seconds, epochs=E,
     )
-    state = None
-    if return_state:
-        out, carry_out = out
-        state = {k: v.cpu().numpy() for k, v in carry_out.items()}
-    host = {k: v.cpu().numpy() for k, v in out.items()}
     return SimulationResult(
         dividends=host["dividends"],
         bonds=host.get("bonds"),
         incentives=host.get("incentives"),
         consensus=host.get("consensus"),
         final_state=state,
+        numerics=numerics,
         engine=plan.engine,
     )
 
@@ -912,6 +964,11 @@ def _simulate_streamed_attempt(
     state: dict = {}  # "plan", set on the first slab
     saves = dict(save_bonds=save_bonds, save_incentives=save_incentives,
                  save_consensus=save_consensus)
+    capture = _numerics.numerics_enabled()
+    # Per-slab sketches ride the slab's output fetch as one packed byte
+    # tensor; their layouts wait here, in slab order.
+    layouts: list = []
+    sketches: list = []
 
     def slabs():
         for Wc, Sc in chunks:
@@ -960,20 +1017,21 @@ def _simulate_streamed_attempt(
         pipe.scan_begins()
         ys, carry = _dispatch_case(
             state["plan"], Wc, Sc, ri, re_, config, spec, carry=carry, epoch_offset=offset,
-            return_carry=True, x64=x64, **saves,
+            return_carry=True, x64=x64, capture_numerics=capture, **saves,
         )
         pipe.dispatched(cur)
+        if "numerics" in ys:
+            ys["numerics"], layout = _numerics.pack_sketches(ys["numerics"])
+            layouts.append(layout)
         fetched = pipe.fetch(ys)
         del ys
         offset += n_epochs
         nxt = next(it, None)
         cur = None if nxt is None else pipe.stage(*nxt)
         if pending is not None:
-            for k, v in pipe.flush(pending).items():
-                host.setdefault(k, []).append(v)
+            _collect(pipe.flush(pending), host, sketches, layouts)
         pending = fetched
-    for k, v in pipe.flush(pending).items():
-        host.setdefault(k, []).append(v)
+    _collect(pipe.flush(pending), host, sketches, layouts)
     cat = {k: np.concatenate(v) for k, v in host.items()}
     return SimulationResult(
         dividends=cat["dividends"],
@@ -981,8 +1039,19 @@ def _simulate_streamed_attempt(
         incentives=cat.get("incentives"),
         consensus=cat.get("consensus"),
         final_state={k: v.cpu().numpy() for k, v in carry.items()} if return_state else None,
+        numerics=_numerics.concat_sketches(sketches) if sketches else None,
         engine=state["plan"].engine,
     )
+
+
+def _collect(flushed: dict, host: dict, sketches: list, layouts: list) -> None:
+    """One slab's host outputs into the stream's lists: the packed sketches
+    unpacked with the oldest waiting layout."""
+    packed = flushed.pop("numerics", None)
+    if packed is not None:
+        sketches.append(_numerics.unpack_sketches(packed, layouts.pop(0)))
+    for k, v in flushed.items():
+        host.setdefault(k, []).append(v)
 
 
 def simulate_generated(

@@ -33,9 +33,9 @@ gets a frozen :class:`DispatchPlan`:
 The bottom rung is the port's "eager" loop; "xla", the JAX package's name
 for it, is accepted and resolves to "eager". Plans are frozen and
 deterministic: equal inputs give an equal plan. :meth:`DispatchPlan.record`
-logs one ``dispatch_planned`` record through `logging`. Not ported yet:
-spans (ROADMAP queue A, slice 6), `attach_cost` / `attach_executable`
-(slice 5), miner-sharding meshes (slice 4b).
+logs one ``event=dispatch_planned`` record and stamps the plan on the open
+telemetry span. Not ported yet: `attach_cost` / `attach_executable`
+(ROADMAP queue A, slice 5), miner-sharding meshes (slice 4b).
 """
 
 from __future__ import annotations
@@ -65,6 +65,8 @@ from yuma_simulation_tpu_torch.telemetry.cost import (
     preflight_hbm,
     resolve_device_spec,
 )
+from yuma_simulation_tpu_torch.telemetry.runctx import _tracing_now, current_span
+from yuma_simulation_tpu_torch.utils.logging import log_event
 
 logger = logging.getLogger(__name__)
 
@@ -214,13 +216,18 @@ class DispatchPlan:
         return attr
 
     def record(self) -> None:
-        """Log one ``event=dispatch_planned`` record (DEBUG)."""
-        if logger.isEnabledFor(logging.DEBUG):
-            attr = {k: v for k, v in self.span_attr().items() if v is not None}
-            logger.debug(
-                "event=dispatch_planned label=%s %s", self.label,
-                " ".join(f"{k}={v}" for k, v in attr.items()),
-            )
+        """Emit one ``event=dispatch_planned`` record (DEBUG) and stamp the
+        plan summary on the open telemetry span (``attrs["plan"]``)."""
+        if _tracing_now():
+            return
+        attr = self.span_attr()
+        s = current_span()
+        if s is not None:
+            s.attrs["plan"] = attr
+        log_event(
+            logger, "dispatch_planned", level=logging.DEBUG, label=self.label,
+            **{k: v for k, v in attr.items() if v is not None},
+        )
 
     def demoted(self, rung: str) -> "DispatchPlan":
         """This plan re-anchored at a lower rung of its ladder (never an

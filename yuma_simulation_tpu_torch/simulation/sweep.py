@@ -41,6 +41,10 @@ from yuma_simulation_tpu_torch.simulation.engine import (
     validate_initial_state,
 )
 from yuma_simulation_tpu_torch.simulation.planner import bucket_shape, plan_dispatch
+# The module, not its names: numerics imports simulation.carry, which
+# imports this package.
+from yuma_simulation_tpu_torch.telemetry import numerics as _numerics
+from yuma_simulation_tpu_torch.telemetry.runctx import dispatch_annotation
 
 
 def _reset_metadata(scenarios: Sequence[Scenario], device):
@@ -142,7 +146,11 @@ def simulate_batch(
     x64: bool = False,
 ) -> dict:
     """A scenario suite in one call, on the device the tensors live on.
-    Returns `{"dividends": [B, E, V], ...}` tensors. `epoch_impl` as in
+    Returns `{"dividends": [B, E, V], ...}` tensors, and under
+    ``"numerics"`` the per-lane, per-epoch sketches (``{stream:
+    NumericsSketch}`` with `[B, E]` tensor leaves; :func:`..telemetry.
+    numerics.to_host` brings them to the host) unless ``YUMA_NUMERICS=0``.
+    `epoch_impl` as in
     :func:`..engine.simulate` ("auto" is the varying or case scan on CUDA
     tensors, the eager rung on CPU tensors). `config` may carry `[B]`
     fields, one value per scenario (a :func:`config_grid` grid).
@@ -161,11 +169,13 @@ def simulate_batch(
         check_memory=False, device=dev,
     )
     plan.record()
-    return _dispatch_case(
-        plan, weights, stakes, reset_index, reset_epoch, config, spec,
-        miner_mask=miner_mask, save_bonds=save_bonds,
-        save_incentives=save_incentives, save_consensus=False, x64=x64,
-    )
+    with dispatch_annotation(f"simulate_batch:{plan.engine}"):
+        return _dispatch_case(
+            plan, weights, stakes, reset_index, reset_epoch, config, spec,
+            miner_mask=miner_mask, save_bonds=save_bonds,
+            save_incentives=save_incentives, save_consensus=False, x64=x64,
+            capture_numerics=_numerics.numerics_enabled(),
+        )
 
 
 def sweep_hyperparams(
@@ -186,8 +196,9 @@ def sweep_hyperparams(
     run as one batch, as :func:`simulate_batch` runs one (on the card the
     varying or the case scan, K3 or K2, with the grid as its `[G, 9]`
     hyperparameter table).
-    Returns `{"dividends": [G, E, V](, "bonds": [G, E, V, M])}`; each lane
-    is bitwise the same point run alone with a scalar config.
+    Returns `{"dividends": [G, E, V](, "bonds": [G, E, V, M])}` and the
+    `[G, E]` ``"numerics"`` sketches (as :func:`simulate_batch`'s); each
+    lane is bitwise the same point run alone with a scalar config.
 
     `initial_state` / `epoch_offset`: resume every lane from ONE shared
     carry (the `final_state` of a `return_state=True` run), with the
@@ -219,6 +230,7 @@ def sweep_hyperparams(
         plan, W.expand(G, E, V, M), S.expand(G, E, V), ri, re_, configs, spec,
         carry=carry, epoch_offset=epoch_offset,
         save_bonds=save_bonds, save_incentives=False, save_consensus=False, x64=x64,
+        capture_numerics=_numerics.numerics_enabled(),
     )
 
 

@@ -1,1 +1,71 @@
-"""Telemetry of the port: so far the analytic HBM preflight (:mod:`.cost`)."""
+"""Telemetry of the port: the JAX package's `telemetry/` as far as ported.
+
+- :mod:`.cost`: the HBM half (device specs, the analytic footprint and
+  the preflight every dispatch plan runs);
+- :mod:`.numerics`: the per-epoch numerics sketches every `simulate`,
+  `simulate_streamed`, `simulate_batch` and `sweep_hyperparams` result
+  carries (``YUMA_NUMERICS=0`` turns them off);
+- :mod:`.runctx`: `RunContext` and nested `span` timers; `log_event`
+  records carry ``run_id`` / ``span_id``, and `dispatch_annotation` names
+  each dispatch in a `torch.profiler` trace;
+- :mod:`.metrics`: the process registry of counters, gauges and
+  histograms, with JSONL and Prometheus sinks;
+- :mod:`.registry`: every event and metric name the port emits;
+- :mod:`.slo`: latency sketches, SLO burn rates, the dispatch timing table;
+- :mod:`.propagation`: cross-process trace continuation;
+- :mod:`.device`: the card's memory, sampled between dispatches.
+
+Host-side only: nothing here synchronizes the card on its own.
+"""
+
+from yuma_simulation_tpu_torch.telemetry.cost import (  # noqa: F401
+    DeviceSpec,
+    FootprintEstimate,
+    HBMPreflightError,
+    PreflightVerdict,
+    estimate_hbm_bytes,
+    preflight_hbm,
+    resolve_device_spec,
+)
+from yuma_simulation_tpu_torch.telemetry.device import (  # noqa: F401
+    record_device_telemetry,
+    sample_device_telemetry,
+)
+from yuma_simulation_tpu_torch.telemetry.metrics import (  # noqa: F401
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    get_registry,
+    record_epoch_rate,
+)
+from yuma_simulation_tpu_torch.telemetry.propagation import (  # noqa: F401
+    TraceContext,
+    child_run,
+    continue_trace,
+    current_trace_context,
+    span_prefix_for,
+)
+from yuma_simulation_tpu_torch.telemetry.runctx import (  # noqa: F401
+    RunContext,
+    Span,
+    current_fields,
+    current_run,
+    current_span,
+    dispatch_annotation,
+    ensure_run,
+    new_run_id,
+    span,
+)
+from yuma_simulation_tpu_torch.telemetry.slo import (  # noqa: F401
+    DEFAULT_SLO_SPECS,
+    LatencySketch,
+    SLOEngine,
+    SLOSpec,
+    dispatch_snapshot,
+    get_slo_engine,
+    observe_dispatch,
+    observe_duration,
+    observe_event,
+    set_slo_engine,
+)

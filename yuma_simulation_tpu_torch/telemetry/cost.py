@@ -32,6 +32,8 @@ from typing import Optional
 
 import torch
 
+from yuma_simulation_tpu_torch.utils.logging import log_event
+
 logger = logging.getLogger(__name__)
 
 #: Env var naming a JSON DeviceSpec override, e.g.
@@ -259,12 +261,13 @@ def preflight_hbm(
     if estimate.total_bytes <= budget:
         return verdict(True)
     rejected = verdict(False, _suggest(estimate, budget))
-    logger.warning(
-        "event=preflight_rejected label=%s V=%d M=%d resident_epochs=%d "
-        "batch_lanes=%d predicted_gib=%.2f capacity_gib=%.2f device=%s suggestion=%s",
-        label, estimate.V, estimate.M, estimate.resident_epochs, estimate.batch_lanes,
-        estimate.total_bytes / 2**30, spec.memory_bytes / 2**30, spec.name,
-        rejected.suggestion or "",
+    log_event(
+        logger, "preflight_rejected", label=label, V=estimate.V, M=estimate.M,
+        resident_epochs=estimate.resident_epochs, miner_shards=estimate.miner_shards,
+        batch_lanes=estimate.batch_lanes,
+        predicted_gib=round(estimate.total_bytes / 2**30, 2),
+        capacity_gib=round(spec.memory_bytes / 2**30, 2), device=spec.name,
+        suggestion=rejected.suggestion or "",
     )
     if raise_on_reject:
         raise HBMPreflightError(

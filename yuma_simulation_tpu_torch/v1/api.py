@@ -39,6 +39,8 @@ from yuma_simulation_tpu_torch.reporting.tables import (  # noqa: F401  (promote
     generate_total_dividends_table,
 )
 from yuma_simulation_tpu_torch.scenarios.base import Scenario
+from yuma_simulation_tpu_torch.telemetry.runctx import ensure_run as _ensure_run
+from yuma_simulation_tpu_torch.telemetry.runctx import span as _span
 from yuma_simulation_tpu_torch.simulation.engine import (  # noqa: F401
     resolve_device as _resolve_device,
     run_simulation,
@@ -134,25 +136,29 @@ def _simulate_suite(
     else:
         W, S, ri, re_, mask = _pad_scenarios(cases, device=dev)
     out = {}
-    for yuma_version, yuma_params in yuma_versions:
-        config = YumaConfig(simulation=yuma_hyperparameters, yuma_params=yuma_params)
-        ys = _simulate_batch(
-            W, S, ri, re_, config, _variant_for_version(yuma_version),
-            save_bonds=True, save_incentives=True, miner_mask=mask, x64=True,
-        )
-        div = ys["dividends"].cpu().numpy()  # [B, Ep, Vp]
-        bonds = ys["bonds"].cpu().numpy()  # [B, Ep, Vp, Mp]
-        inc = ys["incentives"].cpu().numpy()  # [B, Ep, Mp]
-        for i, case in enumerate(cases):
-            E, V, M = case.weights.shape
-            dividends = {
-                validator: [float(x) for x in div[i, :E, j]]
-                for j, validator in enumerate(case.validators)
-            }
-            out[(i, yuma_version)] = (
-                config,
-                (dividends, list(bonds[i, :E, :V, :M]), list(inc[i, :E, :M])),
-            )
+    # The whole suite is one run (joining a caller's RunContext when one is
+    # open) and each version's dispatch one span under it.
+    with _ensure_run(), _span("chart_suite", versions=len(yuma_versions)):
+        for yuma_version, yuma_params in yuma_versions:
+            config = YumaConfig(simulation=yuma_hyperparameters, yuma_params=yuma_params)
+            with _span(f"version:{yuma_version}"):
+                ys = _simulate_batch(
+                    W, S, ri, re_, config, _variant_for_version(yuma_version),
+                    save_bonds=True, save_incentives=True, miner_mask=mask, x64=True,
+                )
+            div = ys["dividends"].cpu().numpy()  # [B, Ep, Vp]
+            bonds = ys["bonds"].cpu().numpy()  # [B, Ep, Vp, Mp]
+            inc = ys["incentives"].cpu().numpy()  # [B, Ep, Mp]
+            for i, case in enumerate(cases):
+                E, V, M = case.weights.shape
+                dividends = {
+                    validator: [float(x) for x in div[i, :E, j]]
+                    for j, validator in enumerate(case.validators)
+                }
+                out[(i, yuma_version)] = (
+                    config,
+                    (dividends, list(bonds[i, :E, :V, :M]), list(inc[i, :E, :M])),
+                )
     return out
 
 
