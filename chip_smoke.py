@@ -69,7 +69,20 @@ process per source, on first use), then:
    `montecarlo_total_dividends` over the one-device mesh bitwise that run,
    the constant-weights Monte-Carlo (64 x 500 epochs of 16 x 256) against
    the same on the CPU (within 500 float32 roundings of the totals), and `simulate_batch_sharded` over the one-device
-   mesh bitwise `simulate_batch`;
+   mesh bitwise `simulate_batch`; and, last of all (after step 8), the
+   resilience tier (resilience_phase): `simulate` with the default ladder
+   and deadline bitwise the unsupervised main run (one K3 launch), one
+   injected fused fault retried and two demoting once to fused_scan_mxu
+   (K2, K4 once a tile, bitwise a direct call), a `StallFault` past a
+   0.5 s deadline killed and retried, a real `torch.cuda.OutOfMemoryError`
+   classified, a 4-lane quarantined batch with a NaN lane on the eager
+   rung (healthy lanes bitwise their solo runs, the report the CPU's), the
+   chart suite with `supervised=True` bitwise the unsupervised one, K3
+   against K2 + K4 (the canary pair) on the built-in suite and at
+   256 x 4096, a checkpointed `SweepSupervisor` over 16 scenarios with one
+   fault (its bundle checked, a resumed run launching nothing), and
+   `simulate` epochs/s supervised against unsupervised in alternating
+   pairs; no demotion but the injected ones;
 6. holds K4 (the bisection's support on the tensor cores) against its
    plain version at 256 x 4096 bitwise, timed as K1 at one slab and 16,
    and K2, K3 and K5 with `mxu=True`
@@ -104,7 +117,10 @@ process per source, on first use), then:
    (the Monte-Carlo's scenario-epochs/s, K7's ms per slab and its bound,
    the constant run's seconds and errors), one `{"telemetry": {...}}` line
    (the stream sets, the capture's ms, the profile windows, the metrics,
-   the numerics on / off epochs/s), and one `{"kernels": [...]}`
+   the numerics on / off epochs/s), one `{"resilience": {...}}` line (the
+   quarantine's and the supervised sweep's seconds, the canary pair's
+   first divergences, the supervised / unsupervised epochs/s), and one
+   `{"kernels": [...]}`
    line for K1-K7 (launches on the
    main paths, max |kernel - plain|, kernel and plain times from CUDA
    events, the roofline bound, and a library call's time where one
@@ -117,6 +133,7 @@ under build/chip_smoke/ (gitignored).
 
 from __future__ import annotations
 
+import collections
 import csv
 import json
 import os
@@ -159,8 +176,13 @@ ATOL, RTOL = 2e-6, 1e-5
 #: so a row sum, and through it a normalized weight, may move by an ulp.
 PAD_RTOL, PAD_ATOL = 2e-5, 2e-6
 OUT_DIR = os.path.join("build", "chip_smoke")
-#: Calls that open a profiled window and are not counted (kernel_device_ms).
-WINDOW_WARMUP = 5
+#: Calls that open a profiled window and are not counted (kernel_device_ms):
+#: late in the script the profiler dropped up to 8 of a window's first
+#: k_bisect_mma launches (PERF.md §6).
+WINDOW_WARMUP = 15
+#: What each profiled window of kernel_device_ms kept, and where its first
+#: kept launch fell (printed as `{"profiler_windows": [...]}`).
+PROFILER_WINDOWS: list = []
 
 
 def workload(seed: int, E: int, nnz: int = 48, strong: int = 64, shape=None):
@@ -250,14 +272,15 @@ def kernel_device_ms(torch, fn, kernel: str, reps: int) -> float:
     `k_*` name), from torch.profiler (CUPTI): the last `reps` of its
     launches in a window of WINDOW_WARMUP + `reps` calls of `fn` (each
     launching it once), after one call outside the window. The profiler
-    may drop the first launches of a window (PERF.md §7), so the window's
+    may drop the first launches of a window (PERF.md §6), so the window's
     first WINDOW_WARMUP calls are not counted; every call launches the
-    same kernel on the same inputs. A window that sees fewer than `reps`
-    launches is taken again, twice at most, and then the script fails."""
+    same kernel on the same inputs.
+    A window that sees fewer than `reps` launches is taken again, twice at
+    most, and then the script fails."""
     import re
 
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
     torch.cuda.synchronize()
@@ -266,19 +289,49 @@ def kernel_device_ms(torch, fn, kernel: str, reps: int) -> float:
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
-                fn()
+                with record_function("window_call"):
+                    fn()
             torch.cuda.synchronize()
-        spans = []
+        spans, marks, others = [], [], collections.Counter()
         for evt in prof.events():
+            if evt.device_type == DeviceType.CPU and evt.name == "window_call":
+                marks.append(evt.time_range.start)
+                continue
+            if evt.device_type != DeviceType.CUDA:
+                continue
             found = re.search(r"\bk_[a-z_]+", evt.name)
-            if evt.device_type == DeviceType.CUDA and found and found.group(0) == kernel:
+            if found and found.group(0) == kernel:
                 spans.append((evt.time_range.start, evt.time_range.end))
+            else:
+                others[evt.name[:80]] += 1
+        stats = window_stats(kernel, sorted(marks), sorted(spans))
+        stats["other_device_events"] = dict(others.most_common(6))
+        PROFILER_WINDOWS.append(stats)
         if len(spans) < calls:
-            print(f"{kernel}: the profiler kept {len(spans)} of {calls} launches", flush=True)
+            print(f"{kernel}: the profiler kept {len(spans)} of {calls} launches: {stats}",
+                  flush=True)
         if len(spans) >= reps:
             return sum(end - start for start, end in sorted(spans)[-reps:]) / 1e3 / reps
         seen.append(len(spans))
     raise AssertionError(f"{kernel}: the profiler kept {seen} of {calls} launches")
+
+
+def window_stats(kernel: str, marks: list, spans: list) -> dict:
+    """Where a profiled window's kernels fell against its calls (`marks`: the
+    host start of each call, `spans`: the device interval of each kernel
+    kept, both in us on the trace's clock). Kernels are paired with calls
+    from the end, so a window that lost launches loses its first ones:
+    `lost_us` is the host time from the first call to the first call whose
+    kernel was kept, `lead_us` the least time from a call's start to its
+    kernel's (below 0: the device's clock reads behind the host's)."""
+    kept, calls = len(spans), len(marks)
+    leads = [s - m for (s, _), m in zip(reversed(spans), reversed(marks))]
+    return dict(
+        kernel=kernel, calls=calls, kept=kept,
+        first_call_us=round(marks[0], 1) if marks else None,
+        lost_us=round(marks[calls - kept] - marks[0], 1) if 0 < kept <= calls else None,
+        lead_us=round(min(leads), 1) if leads else None,
+    )
 
 
 def bisect_phase(torch, W, S, mma: bool) -> dict:
@@ -1686,6 +1739,338 @@ def telemetry_phase(torch, dev, scenario, main_run, smi, launches, report):
     print(f"telemetry ok: stream sets {out['stream_sets']}; profile {out['profile']}", flush=True)
 
 
+#: The resilience phase's supervised / unsupervised `simulate` pairs.
+SUPERVISION_PAIRS = 10
+
+
+def ulp_gap(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Per element, the distance in float32 ulps between `a` and `b` (the
+    bit patterns mapped onto one ordered integer line)."""
+
+    def ordered(x):
+        i = np.ascontiguousarray(x, dtype=np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return np.abs(ordered(a) - ordered(b))
+
+
+def first_divergence(label: str, got: dict, ref: dict, epoch_axis: int) -> dict:
+    """Where two runs' outputs first differ: per key, the first divergent
+    epoch, the values that differ, the largest ulp and absolute gaps."""
+    out = {}
+    for key in ref:
+        a, b = np.asarray(got[key]), np.asarray(ref[key])
+        bad = a != b
+        if not bad.any():
+            out[key] = None
+            continue
+        per_epoch = np.moveaxis(bad, epoch_axis, 0).reshape(a.shape[epoch_axis], -1).any(1)
+        out[key] = dict(first_epoch=int(np.argmax(per_epoch)), values=int(bad.sum()),
+                        max_ulps=int(ulp_gap(a, b).max()),
+                        max_abs=float(np.abs(a.astype(np.float64) - b).max()))
+    print(f"{label}: {out}", flush=True)
+    return out
+
+
+def resilience_phase(torch, dev, W_np, S_np, quiet_miner, main_run, launches, report):
+    """The resilience tier on the card (PERF.md §3's supervision layer), at
+    256 x 4096 x 64:
+
+    - `simulate` with `default_retry_policy()` + `default_deadline()` and no
+      fault: fused_varying, no demotion, bitwise the unsupervised main run,
+      one K3 launch; one injected fused fault is retried on the same rung
+      (one K3 launch, `engine_retries` + 1); two demote once to
+      fused_scan_mxu (no K3 launch, one K2, K4 once a tile), bitwise a
+      direct `epoch_impl="fused_scan_mxu"` call;
+    - a `StallFault` of 1 s past a 0.5 s deadline: one `EngineStall`, the
+      retry's result bitwise, one K3 launch (the abandoned worker launches
+      nothing);
+    - `classify_failure` on a real `torch.cuda.OutOfMemoryError` (2^50
+      bytes asked for);
+    - a 4-lane quarantined batch (Yuma 2, lane 1's weights NaN from epoch 3)
+      on the eager rung: no launch, the healthy lanes bitwise their solo
+      runs, the report the CPU's (the same lanes' first 8 epochs);
+    - the chart suite with `supervised=True` (14 cases x 9 versions, beta
+      0.5): no demotion, bitwise the unsupervised suite, 9 K3 launches;
+    - `SweepSupervisor(engine="fused_varying", quarantine=False)` over 16
+      scenarios in 4 units with a checkpoint directory and one injected
+      fault (one-attempt policy): unit 0 demoted to fused_scan_mxu, the
+      bundle sound (`check_bundle`), and a resumed run reading every unit
+      from disk with no launch;
+    - the default `SweepSupervisor()` (the eager rung, quarantine on) and
+      the fused one over 4 of those scenarios, timed: no launch, and one
+      K3 launch;
+    - K3 against K2 + K4 (the canary pair one rung apart) at 256 x 4096 and
+      at the built-in [14, 40, 3, 2]: bitwise or the first divergence;
+    - `simulate`'s epochs/s unsupervised and supervised, medians of
+      SUPERVISION_PAIRS alternating pairs.
+
+    No demotion happens outside the injected ones."""
+    import shutil
+
+    from yuma_simulation_tpu_torch.models.config import SimulationHyperparameters, YumaConfig
+    from yuma_simulation_tpu_torch.models.variants import (
+        canonical_versions,
+        variant_for_version,
+    )
+    from yuma_simulation_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from yuma_simulation_tpu_torch.resilience import (
+        Deadline,
+        EngineResourceExhausted,
+        FaultPlan,
+        RetryPolicy,
+        StallFault,
+        SweepSupervisor,
+        build_quarantine_report,
+        classify_failure,
+        default_deadline,
+        default_retry_policy,
+        inject_faults,
+    )
+    from yuma_simulation_tpu_torch.scenarios import get_cases
+    from yuma_simulation_tpu_torch.scenarios.base import Scenario
+    from yuma_simulation_tpu_torch.simulation.engine import simulate
+    from yuma_simulation_tpu_torch.simulation.sweep import simulate_batch, stack_scenarios
+    from yuma_simulation_tpu_torch.telemetry.flight import check_bundle, load_bundle
+    from yuma_simulation_tpu_torch.telemetry.metrics import get_registry
+    from yuma_simulation_tpu_torch.v1.api import _simulate_suite
+
+    rec: dict = {}
+    registry = get_registry()
+
+    def counter(name):
+        return registry.counter(name).value
+
+    def run(fn, **want):
+        """`fn()` with the launch counts zeroed before and read after; every
+        kernel's count must be `want`'s (0 when not named)."""
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        expect = {k: want.get(k, 0) for k in counts}
+        assert counts == expect, (counts, expect)
+        for k, n in counts.items():
+            if n:
+                launches[k] = launches.get(k, 0) + n
+        return out
+
+    def same_run(label, got, ref):
+        for key in ("dividends", "bonds", "incentives"):
+            _np_equal(f"{label} {key}", getattr(got, key), getattr(ref, key))
+
+    scenario = Scenario(
+        name="synthetic 256x4096", validators=[f"v{i}" for i in range(V)],
+        base_validator="v0", weights=W_np, stakes=S_np, num_epochs=E,
+        reset_bonds_index=quiet_miner, reset_bonds_epoch=E // 2,
+    )
+    version = "Yuma 1 (paper)"
+    tiles = -(-E // 16)
+    demotions0 = counter("engine_demotions")
+
+    # -- the ladder and the watchdog through `simulate`
+    sup = dict(retry_policy=default_retry_policy(), deadline=default_deadline())
+    clean = run(lambda: simulate(scenario, version, **sup), varying_scan=1)
+    assert clean.engine == "fused_varying" and clean.demotions is None, clean.engine
+    same_run("supervised vs unsupervised simulate", clean, main_run)
+    retries = counter("engine_retries")
+    with inject_faults(FaultPlan(fused_oom_dispatches=1)):
+        retried = run(lambda: simulate(scenario, version, **sup), varying_scan=1)
+    assert retried.engine == "fused_varying" and retried.demotions is None
+    assert counter("engine_retries") == retries + 1
+    same_run("retried simulate", retried, main_run)
+    with inject_faults(FaultPlan(fused_oom_dispatches=2)):
+        demoted = run(lambda: simulate(scenario, version, **sup), case_scan=1,
+                      support_mma=tiles)
+    assert demoted.engine == "fused_scan_mxu", demoted.engine
+    assert [(d.from_engine, d.to_engine) for d in demoted.demotions] == [
+        ("fused_varying", "fused_scan_mxu")], demoted.demotions
+    direct = run(lambda: simulate(scenario, version, epoch_impl="fused_scan_mxu"),
+                 case_scan=1, support_mma=tiles)
+    same_run("demoted vs direct fused_scan_mxu", demoted, direct)
+    print(f"resilience: supervised simulate bitwise the unsupervised run (K3 x1); one fault "
+          f"retried on fused_varying; two demoted it to fused_scan_mxu (K2 x1, K4 x{tiles}), "
+          f"bitwise a direct call", flush=True)
+
+    killed = counter("stalls_killed")
+    stall_deadline = Deadline(budget_seconds=0.5, grace_seconds=60.0)
+    t0 = time.perf_counter()
+    with inject_faults(FaultPlan(stall=StallFault(seconds=1.0))) as state:
+        stalled = run(lambda: simulate(scenario, version, retry_policy=default_retry_policy(),
+                                       deadline=stall_deadline), varying_scan=1)
+    stall_s = time.perf_counter() - t0
+    reset_launch_counts()
+    time.sleep(max(0.0, 1.2 - stall_s))  # the abandoned worker wakes, launches nothing
+    torch.cuda.synchronize()
+    assert sum(launch_counts().values()) == 0, launch_counts()
+    assert state.stall_dispatches_fired == 1 and counter("stalls_killed") == killed + 1
+    same_run("stalled then retried simulate", stalled, main_run)
+    print(f"resilience: StallFault 1 s past a 0.5 s deadline: one EngineStall, the retry "
+          f"bitwise ({stall_s:.3f} s in all)", flush=True)
+
+    try:
+        torch.empty(1 << 50, dtype=torch.uint8, device=dev)
+        raise AssertionError("2^50 bytes were allocated")
+    except torch.cuda.OutOfMemoryError as exc:
+        typed = classify_failure(exc)
+        assert isinstance(typed, EngineResourceExhausted), typed
+        rec["oom_classified"] = type(typed).__name__
+    print(f"resilience: a real torch.cuda.OutOfMemoryError classifies as "
+          f"{rec['oom_classified']}", flush=True)
+
+    # -- the quarantine on the eager rung
+    qversion = "Yuma 2 (Adrian-Fish)"
+    spec = variant_for_version(qversion)
+    Wq = np.stack([W_np] * 4)
+    Sq = np.stack([np.roll(S_np, k, axis=1) for k in range(4)])
+    bad_miner = int(np.flatnonzero(W_np[3, 0])[0])
+    Wq[1, 3:, 0, bad_miner] = np.nan
+    ri = torch.full((4,), -1, dtype=torch.int32, device=dev)
+    Wd, Sd = torch.tensor(Wq, device=dev), torch.tensor(Sq, device=dev)
+    t0 = time.perf_counter()
+    qys = run(lambda: simulate_batch(Wd, Sd, ri, ri, YumaConfig(), spec, quarantine=True))
+    q_seconds = time.perf_counter() - t0
+    report_q = build_quarantine_report(qys["quarantine"])
+    assert [(e.case, e.epoch) for e in report_q.entries] == [(1, 3)], report_q
+    for lane in (0, 2, 3):
+        solo = run(lambda: simulate_batch(Wd[lane:lane + 1], Sd[lane:lane + 1], ri[:1], ri[:1],
+                                          YumaConfig(), spec, epoch_impl="eager"))
+        check_equal(f"quarantined batch lane {lane} vs solo", qys["dividends"][lane],
+                    solo["dividends"][0])
+    assert not qys["dividends"][1, 3:].any()
+    cpu = simulate_batch(torch.tensor(Wq[:, :8]), torch.tensor(Sq[:, :8]), ri.cpu(), ri.cpu(),
+                         YumaConfig(), spec, quarantine=True)
+    for key in ("bad", "first_bad_epoch", "tensor_code"):
+        check_equal(f"quarantine {key} vs the CPU's", qys["quarantine"][key].cpu(),
+                    cpu["quarantine"][key])
+    rec["quarantine"] = dict(lanes=4, epochs=E, seconds=q_seconds,
+                             entries=[[e.case, e.epoch, e.tensor] for e in report_q.entries])
+    print(f"resilience: quarantined batch [4, {E}, {V}, {M}] on the eager rung in "
+          f"{q_seconds:.2f} s: {report_q.entries}; healthy lanes bitwise their solo runs, "
+          f"the report the CPU's", flush=True)
+    del Wd, Sd, qys, Wq
+
+    # -- the chart suite, supervised
+    cases, versions = get_cases(), canonical_versions()
+    hp = SimulationHyperparameters(bond_penalty=0.5)
+    plain_suite = run(lambda: _simulate_suite(cases, versions, hp), varying_scan=len(versions))
+    super_suite = run(lambda: _simulate_suite(cases, versions, hp, supervised=True),
+                      varying_scan=len(versions))
+    for key, (_, (div, bonds, inc)) in super_suite.items():
+        _, (p_div, p_bonds, p_inc) = plain_suite[key]
+        assert div == p_div, key
+        for a, b in ((bonds, p_bonds), (inc, p_inc)):
+            _np_equal(f"supervised suite {key}", np.asarray(a), np.asarray(b))
+    print("resilience: chart suite supervised=True bitwise the unsupervised suite "
+          f"(14 cases x 9 versions, K3 x{len(versions)} each)", flush=True)
+
+    # -- the canary pair one rung apart: K3 against K2 + K4
+    Wc, Sc, ric, rec_ = stack_scenarios(cases)
+    builtin = {}
+    for v, params in versions:
+        cfg = YumaConfig(simulation=hp, yuma_params=params)
+        kw = dict(save_bonds=True, save_incentives=True, x64=True)
+        k3 = run(lambda: simulate_batch(Wc, Sc, ric, rec_, cfg, variant_for_version(v),
+                                        epoch_impl="fused_varying", **kw), varying_scan=1)
+        k2 = run(lambda: simulate_batch(Wc, Sc, ric, rec_, cfg, variant_for_version(v),
+                                        epoch_impl="fused_scan_mxu", **kw),
+                 case_scan=1, support_mma=-(-40 // 16))
+        builtin[v] = first_divergence(
+            f"canary pair K3 vs K2+K4, built-in [14, 40, 3, 2], {v}",
+            {k: k3[k].cpu().numpy() for k in ("dividends", "bonds", "incentives")},
+            {k: k2[k].cpu().numpy() for k in ("dividends", "bonds", "incentives")}, 1)
+    wide = first_divergence(
+        f"canary pair K3 vs K2+K4, [{E}, {V}, {M}], {version}",
+        {k: getattr(main_run, k) for k in ("dividends", "bonds", "incentives")},
+        {k: getattr(direct, k) for k in ("dividends", "bonds", "incentives")}, 0)
+    rec["canary_pair"] = {"builtin_14x40x3x2": builtin, f"{V}x{M}x{E}": wide}
+
+    # -- the supervised sweep with its checkpoints and flight bundle
+    directory = os.path.join(OUT_DIR, "supervised")
+    shutil.rmtree(directory, ignore_errors=True)
+    suite = [Scenario(name=f"s{k}", validators=scenario.validators, base_validator="v0",
+                      weights=W_np, stakes=np.roll(S_np, k, axis=1), num_epochs=E,
+                      reset_bonds_index=quiet_miner, reset_bonds_epoch=E // 2)
+             for k in range(16)]
+
+    def supervised_sweep():
+        return SweepSupervisor(directory=directory, unit_size=4, quarantine=False,
+                               engine="fused_varying",
+                               retry_policy=RetryPolicy(max_attempts_per_rung=1),
+                               deadline=default_deadline())
+
+    t0 = time.perf_counter()
+    with inject_faults(FaultPlan(fused_oom_dispatches=1)):
+        swept = run(lambda: supervised_sweep().run_batch(suite, version), varying_scan=3,
+                    case_scan=1, support_mma=tiles)
+    sweep_s = time.perf_counter() - t0
+    health = swept["report"]
+    assert health.engine_demotions == 1 and health.units_total == 4, health
+    assert health.engines_used == ("fused_scan_mxu", "fused_varying"), health
+    _np_equal("supervised sweep lane 0 vs the demoted simulate", swept["dividends"][0],
+              demoted.dividends)
+    problems = check_bundle(load_bundle(directory))
+    assert problems == [], problems
+    resumed = run(lambda: supervised_sweep().run_batch(suite, version))
+    assert resumed["report"].units_resumed == 4, resumed["report"]
+    _np_equal("resumed sweep vs first", resumed["dividends"], swept["dividends"])
+    rec["sweep"] = dict(scenarios=16, units=4, seconds=sweep_s,
+                        scenario_epochs_per_s=16 * E / sweep_s,
+                        report={k: v for k, v in health.__dict__.items() if k != "ledger_path"},
+                        bundle=sorted(os.listdir(directory)))
+    print(f"resilience: SweepSupervisor 16 x [{E}, {V}, {M}] in 4 units, one fault -> unit 0 "
+          f"on fused_scan_mxu, bundle sound, {sweep_s:.2f} s; resumed from disk with no "
+          f"launch", flush=True)
+
+    # -- the default SweepSupervisor() (quarantine on the eager rung, no
+    # kernel) against the fused sweep, on the same 4 scenarios, no fault
+    few = suite[:4]
+    t0 = time.perf_counter()
+    default = run(lambda: SweepSupervisor().run_batch(few, version))
+    default_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fused = run(lambda: SweepSupervisor(quarantine=False, engine="fused_varying")
+                .run_batch(few, version), varying_scan=1)
+    fused_s = time.perf_counter() - t0
+    for label, out, engine in (("default", default, "eager"), ("fused", fused, "fused_varying")):
+        health = out["report"]
+        assert health.engines_used == (engine,) and health.engine_demotions == 0, (label, health)
+        assert not out["quarantine"].entries, label
+        assert np.isfinite(np.asarray(out["dividends"])).all(), label
+    gap = float(np.abs(np.asarray(default["dividends"], np.float64)
+                       - np.asarray(fused["dividends"])).max())
+    rec["default_sweep"] = dict(scenarios=4, units=1, eager_quarantined_s=default_s,
+                                fused_varying_s=fused_s, max_abs_gap=gap)
+    print(f"resilience: SweepSupervisor() defaults, 4 x [{E}, {V}, {M}] on the eager rung "
+          f"with quarantine {default_s:.2f} s, no launch; fused_varying {fused_s:.2f} s (K3 x1); "
+          f"dividends apart by at most {gap:.3g}", flush=True)
+
+    # -- what the supervision costs: alternating pairs
+    plain_s, super_s = [], []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for _ in range(SUPERVISION_PAIRS):
+        for bucket, kw in ((plain_s, {}), (super_s, sup)):
+            t0 = time.perf_counter()
+            simulate(scenario, version, **kw)
+            bucket.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    assert counts["varying_scan"] == 2 * SUPERVISION_PAIRS and sum(counts.values()) == \
+        2 * SUPERVISION_PAIRS, counts
+    launches["varying_scan"] += counts["varying_scan"]
+    rec["epochs_per_s"] = dict(
+        pairs=SUPERVISION_PAIRS, unsupervised=E / float(np.median(plain_s)),
+        supervised=E / float(np.median(super_s)),
+        unsupervised_s=plain_s, supervised_s=super_s,
+    )
+    assert counter("engine_demotions") == demotions0 + 2, "a demotion nobody injected"
+    report["resilience"] = rec
+    print(f"resilience: simulate epochs/s unsupervised {rec['epochs_per_s']['unsupervised']:.1f}"
+          f" / supervised {rec['epochs_per_s']['supervised']:.1f} (medians of "
+          f"{SUPERVISION_PAIRS} alternating pairs)", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1903,6 +2288,9 @@ def main() -> int:
     mc_phase(torch, dev, launches, measured, report)
     k4_phase(torch, dev, W, S, measured, errs)
     scaled_phases(torch, dev, measured, launches, report)
+    # Last: the profiler windows of the phases above drop more of their
+    # first launches the more the process has run before them (PERF.md §7).
+    resilience_phase(torch, dev, W_np, S_np, quiet_miner, main_run, launches, report)
 
     replaces = {
         "consensus_bisect": "yuma_simulation_tpu/ops/pallas_consensus.py:80",
@@ -1952,6 +2340,8 @@ def main() -> int:
     print(json.dumps({"streams": report["streams"]}))
     print(json.dumps({"mc": report["mc"]}))
     print(json.dumps({"telemetry": report["telemetry"]}))
+    print(json.dumps({"resilience": report["resilience"]}))
+    print(json.dumps({"profiler_windows": PROFILER_WINDOWS}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -121,8 +121,10 @@ def test_new_modules_import_without_jax():
     the sharded drivers, the synthetic perturbations) and the telemetry
     slice's (the fingerprint, the numerics sketches, spans, logging, the
     registry, metrics, SLOs, propagation, timing, profiling, the device
-    sample, and the packages that re-export them) import with `jax` made
-    unimportable and pull in nothing of the JAX package."""
+    sample, and the packages that re-export them) and the resilience
+    slice's (the taxonomy, faults, the guard, the ladder, the watchdog, the
+    supervisor, the flight recorder) import with `jax` made unimportable
+    and pull in nothing of the JAX package."""
     import subprocess
     import sys
 
@@ -146,7 +148,15 @@ def test_new_modules_import_without_jax():
             "yuma_simulation_tpu_torch.utils.logging",
             "yuma_simulation_tpu_torch.utils.checkpoint",
             "yuma_simulation_tpu_torch.utils.timing",
-            "yuma_simulation_tpu_torch.utils.profiling"]
+            "yuma_simulation_tpu_torch.utils.profiling",
+            "yuma_simulation_tpu_torch.resilience",
+            "yuma_simulation_tpu_torch.resilience.errors",
+            "yuma_simulation_tpu_torch.resilience.faults",
+            "yuma_simulation_tpu_torch.resilience.guards",
+            "yuma_simulation_tpu_torch.resilience.retry",
+            "yuma_simulation_tpu_torch.resilience.supervisor",
+            "yuma_simulation_tpu_torch.resilience.watchdog",
+            "yuma_simulation_tpu_torch.telemetry.flight"]
     code = (
         "import sys\nsys.modules['jax'] = None\nimport importlib\n"
         f"for m in {mods!r}:\n    importlib.import_module(m)\n"

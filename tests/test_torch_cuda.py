@@ -295,6 +295,29 @@ def test_dividend_fold_and_rank_layout(cuda, version, V, M, B):
         torch.testing.assert_close(g.cpu(), r, rtol=RTOL, atol=ATOL)
 
 
+# (V, M) inside ops/normalize.py::xla_chains where phase 8's dividend total
+# is not phase 7's chain: 2 validators (the EMA modes' D[0] + D[1]), and 4
+# and 8 (every mode but Yuma 4 folds D by halves); 3 keeps the chain.
+TOTAL_WIDTHS = [(2, 5), (3, 5), (4, 8), (8, 5)]
+
+
+@pytest.mark.parametrize("V,M", TOTAL_WIDTHS, ids=[f"{v}x{m}" for v, m in TOTAL_WIDTHS])
+@pytest.mark.parametrize("version,params", VERSIONS, ids=IDS)
+def test_dividend_total_widths_match_plain(cuda, version, params, V, M):
+    """K2 and K3 against their plain versions at the widths where phase 8
+    spells the dividend total as a fold (ops/normalize.py::
+    EMA_FOLD_VALIDATORS, FOLD_VALIDATORS) and one where it is the chain,
+    every version: consensus bitwise, the rest within ATOL / RTOL. (Not
+    bitwise on these random suites: the kernels' other sums round in their
+    own order; ROADMAP §C.)"""
+    W, S = _suite(V, M, seed=21, E=6)
+    kw = _scan_kwargs(version, params)
+    for name, scan, extra in (("K2", fused_case_scan, {}),
+                              ("K3", fused_varying_scan, {"epoch_tile": 3})):
+        got = scan(W.to(cuda), S.to(cuda), **extra, **kw)
+        _assert_matches(got, scan(W, S, **extra, **kw), f"{version} {name} {V}x{M}")
+
+
 @pytest.mark.parametrize("mode,with_clip", [("EMA", False), ("EMA_PREV", True)],
                          ids=["ema", "ema-prev-clip"])
 def test_ema_epoch_back_to_back_matches_synchronized(cuda, mode, with_clip):

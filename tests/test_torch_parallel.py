@@ -163,10 +163,24 @@ def test_sharded_batch_lanes_bitwise_unsharded(mesh8, version):
 
 
 def test_sharded_batch_refuses_slice7_arguments():
-    cases = get_cases()[:2]
-    for kw in ({"elastic": True}, {"quarantine": True}, {"deadline": object()}):
-        with pytest.raises(NotImplementedError, match="slice 7"):
-            simulate_batch_sharded(cases, "Yuma 1 (paper)", mesh=_cpu_mesh(2), **kw)
+    """The resilience tier's arguments (ported in slice 7) no longer raise:
+    on a healthy run `elastic=True` walks nothing, `quarantine=True`
+    reports no lane, `deadline=` only supervises, and every lane stays
+    bitwise the plain sharded run's. (tests/test_torch_resilience.py drives
+    the device loss and the NaN lanes.)"""
+    from yuma_simulation_tpu_torch.resilience import Deadline
+
+    cases = get_cases()[:3]
+    version = "Yuma 1 (paper)"
+    ref = simulate_batch_sharded(cases, version, mesh=_cpu_mesh(2))
+    for kw in ({"elastic": True}, {"quarantine": True}, {"deadline": Deadline(60.0)}):
+        out = simulate_batch_sharded(cases, version, mesh=_cpu_mesh(2), **kw)
+        if "elastic" in kw:
+            assert out.pop("mesh_degradations") == ()
+        if "quarantine" in kw:
+            report = out.pop("quarantine")
+            assert not report and report.num_cases == 3
+        np.testing.assert_array_equal(out["dividends"], ref["dividends"])
 
 
 # ---------------------------------------------------------------------------

@@ -396,8 +396,9 @@ def xla_random_epochs():
     return _xla_random()
 
 
-@pytest.fixture(scope="module", params=[(6, 5), (7, 2), (4, 8), (8, 2), (8, 5), (9, 2), (12, 2)],
-                ids=["v6m5", "v7m2", "v4m8", "v8m2", "v8m5", "v9m2", "v12m2"])
+@pytest.fixture(scope="module", params=[(6, 5), (7, 2), (4, 8), (8, 2), (8, 5), (9, 2), (12, 2),
+                                        (2, 5), (2, 8)],
+                ids=["v6m5", "v7m2", "v4m8", "v8m2", "v8m5", "v9m2", "v12m2", "v2m5", "v2m8"])
 def xla_random_epochs_shaped(request):
     """`(shape, JAX's XLA rung on _random_batch(V, M))` at more shapes of
     ROADMAP §C, C2: an even V (the plain scans' incentive sum); M = 2,
@@ -406,7 +407,10 @@ def xla_random_epochs_shaped(request):
     past it; V = 4 and 8, where XLA sums the dividends in one vector
     register (ops/normalize.py::fold_sum); and V = 8 with M = 5, where the
     EMA with a scalar rate fuses `rate * B_target` in the columns XLA's
-    vector code takes four at a time (ops/normalize.py::ema_blend)."""
+    vector code takes four at a time (ops/normalize.py::ema_blend); and V
+    = 2, where XLA sums the EMA modes' dividends as `D[0] + D[1]`
+    (ops/normalize.py::EMA_FOLD_VALIDATORS) and the capacity modes' as the
+    chain."""
     V, M = request.param
     return request.param, _xla_random(V=V, M=M)
 
@@ -458,10 +462,10 @@ def test_random_epochs_bitwise_jax_xla_rung(xla_random_epochs, index):
 @pytest.mark.parametrize("index", range(9), ids=[v for v, _ in canonical_versions()])
 def test_random_epochs_shapes_bitwise_jax_xla_rung(xla_random_epochs_shaped, index):
     """C2's second half (ROADMAP §C), as far as it is closed: on random
-    [6, 5], [7, 2], [4, 8], [8, 2], [8, 5], [9, 2] and [12, 2] suites with
-    resets, the eager rung's and the varying scan's plain version's
-    per-epoch outputs are bitwise JAX's XLA rung, all nine versions. (At V
-    = 2, V = 16 and V = 8 past M = 8, not yet.)"""
+    [6, 5], [7, 2], [4, 8], [8, 2], [8, 5], [9, 2], [12, 2], [2, 5] and
+    [2, 8] suites with resets, the eager rung's and the varying scan's
+    plain version's per-epoch outputs are bitwise JAX's XLA rung, all nine
+    versions. (At V = 16 and V = 8 past M = 8, not yet.)"""
     (V, M), refs = xla_random_epochs_shaped
     version, params = canonical_versions()[index]
     cfg = YumaConfig(simulation=SimulationHyperparameters(bond_penalty=0.5),

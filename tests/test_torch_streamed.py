@@ -234,11 +234,17 @@ def test_refusals():
         simulate_streamed([], version, device="cpu")
     with pytest.raises(ValueError, match=r"\[E_chunk, V, M\]"):
         simulate_streamed([(scen.weights[0], scen.stakes[0])], version, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        simulate_streamed([(scen.weights, scen.stakes)], version, retry_policy=object(),
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        simulate(scen, version, deadline=object(), device="cpu")
+    # The resilience arguments (slice 7) no longer raise: the ladder over a
+    # stream and the watchdog around `simulate` return the plain run's bits.
+    from yuma_simulation_tpu_torch.resilience import Deadline, RetryPolicy
+
+    plain = simulate(scen, version, device="cpu")
+    laddered = simulate_streamed([(scen.weights, scen.stakes)], version,
+                                 retry_policy=RetryPolicy(), device="cpu")
+    np.testing.assert_array_equal(laddered.dividends, plain.dividends)
+    assert laddered.engine == "eager" and laddered.demotions is None
+    watched = simulate(scen, version, deadline=Deadline(60.0), device="cpu")
+    np.testing.assert_array_equal(watched.dividends, plain.dividends)
     with pytest.raises(NotImplementedError, match="slice 4"):
         simulate(scen, version, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="num_chunks"):

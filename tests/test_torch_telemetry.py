@@ -379,12 +379,14 @@ def test_trace_context_wire_forms_equal_jax():
 
 def _emitted_names():
     """Every event and metric name the port's code emits, read from its
-    source: `log_event(logger, "<event>", ...)` calls and
+    source: `log_event(logger, "<event>", ...)` calls, the supervisor's
+    `ledger.append("<event>", ...)` records, and
     `counter` / `gauge` / `histogram("<name>", ...)` calls."""
     events, metrics = set(), {}
     for path in PORT_ROOT.rglob("*.py"):
         src = path.read_text()
         events |= set(re.findall(r'log_event\(\s*[^,()]+,\s*"(\w+)"', src))
+        events |= set(re.findall(r'ledger\.append\(\s*"(\w+)"', src))
         events |= set(re.findall(r'"slo_alert"|"slo_recovered"', src))
         for kind, name in re.findall(r'\.(counter|gauge|histogram)\(\s*"(\w+)"', src):
             metrics[name] = kind

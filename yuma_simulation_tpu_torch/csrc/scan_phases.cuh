@@ -592,9 +592,10 @@ __device__ __forceinline__ bool xla_chains(const ScanArgs& a) {
 
 // Within xla_chains, at 4 or 8 validators XLA holds D in one vector
 // register and sums it by halves (ops/normalize.py::fold_sum), not by
-// phase 7's chain.
+// phase 7's chain; at 2 validators the EMA modes' total is D[0] + D[1]
+// too (ops/normalize.py::EMA_FOLD_VALIDATORS).
 __device__ __forceinline__ bool fold_validators(const ScanArgs& a) {
-  return a.V == 4 || a.V == 8;
+  return a.V == 4 || a.V == 8 || (a.V == 2 && a.mode <= EMA_PREV);
 }
 
 // Sum over the block's warps of one partial per (warp, column), added in
@@ -869,7 +870,7 @@ __device__ __forceinline__ float group_sum(const float* dp, int V, int v, int g,
 // D_n of scenario b = blockIdx.y at slot t / epoch e from each validator's
 // D before the stake factor, dof(v). Every thread of the block calls it.
 // The total: where xla_chains, Yuma 4's is a chain of FMAs of S_n[v] * D[v]
-// in validator order and the others' is phase 7's (at 4 or 8 validators
+// in validator order and the others' is phase 7's (where fold_validators,
 // D's halves added lane by lane); else a block sum.
 template <class DOf>
 __device__ __forceinline__ void normalize_dividends(const ScanArgs& a, int t, int e,
@@ -899,8 +900,9 @@ __device__ __forceinline__ void normalize_dividends(const ScanArgs& a, int t, in
   } else if (fold_validators(a)) {
     __syncthreads();
     if (threadIdx.x == 0) {  // the halves added lane by lane, written out
-      sh.den = V == 4 ? (d[0] + d[2]) + (d[1] + d[3])
-                      : ((d[0] + d[4]) + (d[2] + d[6])) + ((d[1] + d[5]) + (d[3] + d[7]));
+      sh.den = V == 2   ? d[0] + d[1]
+               : V == 4 ? (d[0] + d[2]) + (d[1] + d[3])
+                        : ((d[0] + d[4]) + (d[2] + d[6])) + ((d[1] + d[5]) + (d[3] + d[7]));
     }
     __syncthreads();
     den = sh.den + 1e-6f;

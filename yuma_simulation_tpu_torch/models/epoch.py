@@ -35,6 +35,7 @@ from yuma_simulation_tpu_torch.ops.consensus import (
 from yuma_simulation_tpu_torch.ops.fma import fma, fma_chain
 from yuma_simulation_tpu_torch.ops.liquid import liquid_alpha_rate
 from yuma_simulation_tpu_torch.ops.normalize import (
+    EMA_FOLD_VALIDATORS,
     FOLD_VALIDATORS,
     ema_blend,
     fold_sum,
@@ -159,17 +160,18 @@ def relative_bonds_update(B_prev, W_n, rate):
     return torch.clamp(B_decayed + purchase, max=1.0)
 
 
-def dividends(B, incentive, S_n=None, msum=miner_sum):
+def dividends(B, incentive, S_n=None, msum=miner_sum, fold=FOLD_VALIDATORS):
     """`(D [..., V], sum(D) [..., 1])`: each validator's bond-weighted
     incentive `D = msum(B * incentive)` (times `S_n` for Yuma 4's relative
     bonds) and its total. Where :func:`..ops.normalize.xla_chains`, both
     round as the XLA rung rounds them: each product is fused into its
     miner chain, Yuma 4's total is a chain of `S_n * D` over validators,
     and the others' total is one chain over every (validator, miner)
-    product, as XLA merges the two sums, except at 4 or 8 validators,
-    where XLA keeps D in one vector register and sums it with its
-    horizontal reduction (:func:`..ops.normalize.fold_sum`). Else plain
-    sums."""
+    product, as XLA merges the two sums, except at the validator counts in
+    `fold` (4 or 8; the EMA modes pass
+    :data:`..ops.normalize.EMA_FOLD_VALIDATORS`, which adds 2), where XLA
+    keeps D in one vector register and sums it with its horizontal
+    reduction (:func:`..ops.normalize.fold_sum`). Else plain sums."""
     inc = incentive.unsqueeze(-2)
     if not xla_chains(*B.shape[-2:]):
         D = msum(B * inc)
@@ -178,7 +180,7 @@ def dividends(B, incentive, S_n=None, msum=miner_sum):
     D = fma_chain(B, inc)
     if S_n is not None:
         return S_n * D, fma_chain(S_n, D, keepdim=True)
-    if B.shape[-2] in FOLD_VALIDATORS:
+    if B.shape[-2] in fold:
         return D, fold_sum(D)
     return D, fma_chain(B.flatten(-2), inc.expand_as(B).flatten(-2), keepdim=True)
 
@@ -300,7 +302,7 @@ def yuma_epoch(
             first_epoch,
             renormalize=bonds_mode is BondsMode.EMA_RUST,
         )
-        D, D_tot = dividends(B_ema, incentive)
+        D, D_tot = dividends(B_ema, incentive, fold=EMA_FOLD_VALIDATORS)
         out.update(
             server_trust=T,
             validator_trust=T_v,

@@ -66,6 +66,8 @@ from yuma_simulation_tpu_torch.ops.cuda_consensus import MMA_LAUNCHES, check_cud
 from yuma_simulation_tpu_torch.ops.fma import fma, fma64
 from yuma_simulation_tpu_torch.ops.launches import COUNTERS
 from yuma_simulation_tpu_torch.ops.normalize import (
+    EMA_FOLD_VALIDATORS,
+    FOLD_VALIDATORS,
     ema_blend,
     miner_sum,
     rank_sum,
@@ -295,7 +297,9 @@ def _bond_phase(
         purchase = torch.minimum(rate * W_n, remaining)
         B_next = torch.clamp(B_dec + purchase, max=1.0)
     S_rel = S[..., 0] if mode is BondsMode.RELATIVE else None
-    D, D_tot = dividends(B_next, incentive[..., 0, :], S_rel, msum=lambda x: x.sum(dim=-1))
+    fold = EMA_FOLD_VALIDATORS if mode in EMA_MODES else FOLD_VALIDATORS
+    D, D_tot = dividends(B_next, incentive[..., 0, :], S_rel, msum=lambda x: x.sum(dim=-1),
+                         fold=fold)
     return B_next, (D / (D_tot + 1e-6)).unsqueeze(-1)
 
 

@@ -90,6 +90,10 @@ def validator_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 #: dividends in one vector register and sums them with its horizontal
 #: reduction (:func:`fold_sum`), not as a chain over (validator, miner).
 FOLD_VALIDATORS = (4, 8)
+#: The same for the EMA modes' dividends, whose total XLA also folds at 2
+#: validators, `D[0] + D[1]` (the capacity modes' stays the chain there;
+#: ROADMAP §C, C2, probed against the jitted XLA rung).
+EMA_FOLD_VALIDATORS = (2,) + FOLD_VALIDATORS
 
 
 def fold_sum(x: torch.Tensor) -> torch.Tensor:

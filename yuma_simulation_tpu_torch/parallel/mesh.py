@@ -28,6 +28,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+# Re-exported: the typed error lives with the resilience taxonomy.
+from yuma_simulation_tpu_torch.resilience.errors import DistributedInitError  # noqa: F401
 from yuma_simulation_tpu_torch.utils.logging import log_event
 
 logger = logging.getLogger(__name__)
@@ -155,13 +157,6 @@ def make_hybrid_mesh(data_per_slice: int = -1, model: int = 1) -> Mesh:
     host's cards, one slice, so this is :func:`make_mesh` over them, as
     JAX's falls back to on one slice."""
     return make_mesh(data_per_slice, model)
-
-
-class DistributedInitError(RuntimeError):
-    """A multi-process join failed within its initialization timeout (a
-    peer crashed before the barrier, a wrong coordinator address). The
-    port's copy of the JAX package's `resilience.errors.DistributedInitError`
-    until the resilience slice (ROADMAP queue A, slice 7)."""
 
 
 def initialize_distributed(

@@ -18,13 +18,15 @@ the JAX package's `parallel/sharded.py`.
   per epoch.
 
 Every draw is JAX's threefry (:mod:`..random`): the same key gives the same
-scenarios as the JAX package. Not ported yet: the elastic walk
-(`elastic=`), `quarantine=` and `deadline=` (ROADMAP queue A, slice 7) and
-miner-axis sharding, `shard_epoch_over_miners` (slice 4b).
+scenarios as the JAX package. :func:`simulate_batch_sharded` takes the
+resilience tier's `elastic=` (shrink the mesh on device loss),
+`quarantine=` and `deadline=`. Not ported yet: miner-axis sharding,
+`shard_epoch_over_miners` (ROADMAP queue A, slice 4b).
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Optional, Sequence
 
 import numpy as np
@@ -38,7 +40,16 @@ from yuma_simulation_tpu_torch.ops.consensus import resolve_consensus_impl
 from yuma_simulation_tpu_torch.ops.cuda_epoch import VARYING_EPOCH_TILE_MAX
 from yuma_simulation_tpu_torch.ops.cuda_random import mc_weights
 from yuma_simulation_tpu_torch.ops.normalize import normalize_weight_rows
-from yuma_simulation_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
+from yuma_simulation_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    Mesh,
+    MeshDegradation,
+    surviving_mesh,
+)
+from yuma_simulation_tpu_torch.resilience import faults
+from yuma_simulation_tpu_torch.resilience.errors import DeviceLossError, classify_failure
+from yuma_simulation_tpu_torch.resilience.guards import build_quarantine_report
+from yuma_simulation_tpu_torch.resilience.watchdog import run_with_deadline
 from yuma_simulation_tpu_torch.scenarios.base import Scenario
 from yuma_simulation_tpu_torch.simulation.carry import NumericsSketch, TotalsCarry
 from yuma_simulation_tpu_torch.simulation.engine import (
@@ -55,19 +66,13 @@ from yuma_simulation_tpu_torch.simulation.planner import (
     resolve_montecarlo_engine,
 )
 from yuma_simulation_tpu_torch.simulation.sweep import simulate_batch, stack_scenarios
+from yuma_simulation_tpu_torch.telemetry.metrics import get_registry
 from yuma_simulation_tpu_torch.telemetry.numerics import SKETCH_FIELDS, to_host
 from yuma_simulation_tpu_torch.telemetry.runctx import dispatch_annotation
 from yuma_simulation_tpu_torch.telemetry.runctx import span as telemetry_span
+from yuma_simulation_tpu_torch.utils.logging import log_event
 
-
-def _refuse_slice7(**given) -> None:
-    named = [k for k, v in given.items() if v]
-    if named:
-        raise NotImplementedError(
-            f"simulate_batch_sharded({', '.join(f'{k}=' for k in named)}) arms the elastic "
-            "mesh walk, the quarantine guard and the watchdog, which are not ported yet "
-            "(ROADMAP queue A, slice 7: resilience)"
-        )
+logger = logging.getLogger(__name__)
 
 
 def _pad_batch(n: int, shards: int) -> int:
@@ -78,14 +83,20 @@ def _pad_batch(n: int, shards: int) -> int:
 def _unpad_outputs(ys: dict, n: int) -> dict:
     """The gathered outputs as numpy, padded lanes dropped; the per-epoch
     numerics sketches (``{stream: NumericsSketch}``, `[B, E]` leaves) are
-    trimmed leaf by leaf."""
+    trimmed leaf by leaf, and a per-lane quarantine state becomes a
+    :class:`..resilience.guards.QuarantineReport` over the un-padded batch."""
     numerics = ys.pop("numerics", None)
+    qstate = ys.pop("quarantine", None)
     out = {k: np.asarray(v)[:n] for k, v in ys.items()}
     if numerics is not None:
         out["numerics"] = {
             stream: NumericsSketch(**{f: np.asarray(getattr(sk, f))[:n] for f in SKETCH_FIELDS})
             for stream, sk in numerics.items()
         }
+    if qstate is not None:
+        out["quarantine"] = build_quarantine_report(
+            {k: np.asarray(v)[:n] for k, v in qstate.items()}
+        )
     return out
 
 
@@ -93,7 +104,12 @@ def _gather_shards(outs: list) -> dict:
     """The shards' outputs on the host, concatenated over the lane axis;
     each shard's sketches come over in one copy."""
     gathered = {k: np.concatenate([o[k].cpu().numpy() for o in outs])
-                for k in outs[0] if k != "numerics"}
+                for k in outs[0] if k not in ("numerics", "quarantine")}
+    if "quarantine" in outs[0]:
+        gathered["quarantine"] = {
+            k: np.concatenate([o["quarantine"][k].cpu().numpy() for o in outs])
+            for k in outs[0]["quarantine"]
+        }
     if "numerics" in outs[0]:
         host = [to_host(o["numerics"]) for o in outs]
         gathered["numerics"] = {
@@ -124,37 +140,141 @@ def simulate_batch_sharded(
     on the shard's device, and the per-epoch dividends `[B, E, V]` (and
     bonds with `save_bonds`) come back as numpy with the padding dropped.
     Each lane is bitwise its unsharded `simulate_batch` lane on the same
-    rung. `quarantine=`, `elastic=` and `deadline=` raise (slice 7)."""
-    _refuse_slice7(quarantine=quarantine, elastic=elastic, deadline=deadline is not None)
+    rung.
+
+    `quarantine=True` arms the per-lane non-finite guard in every shard (on
+    the eager rung): the returned dict gains a ``"quarantine"`` report (a
+    :class:`..resilience.guards.QuarantineReport` over the un-padded batch).
+
+    `elastic=True` arms shrink-and-continue on device loss: a dispatch
+    failure attributable to specific devices (a typed
+    :class:`..resilience.errors.DeviceLossError`, real or fault-injected; a
+    sticky CUDA error on one shard is attributed to that shard's device)
+    rebuilds the mesh over the surviving devices
+    (:func:`..mesh.surviving_mesh`), re-pads and re-shards the batch for the
+    new data-axis width, and re-dispatches — one ``event=mesh_degraded``
+    record and one ``mesh_shrinks`` count per shrink, the walk returned as
+    ``out["mesh_degradations"]`` (a tuple of :class:`..mesh.MeshDegradation`,
+    empty on the healthy path). The last rung is one device without
+    sharding, taken when at most one device survives or when the failure
+    names no device of the mesh. Lanes are independent of the data-axis
+    layout, so a degraded run's lanes are bitwise the full mesh's. Failures
+    that are not device loss propagate unchanged.
+
+    `deadline` (a :class:`..resilience.watchdog.Deadline`) supervises EACH
+    mesh attempt separately (the attempt ends in the outputs' host copy):
+    the shrink walk runs on the caller side of the heartbeat, so each rung
+    of a degradation gets a fresh budget, with the retry grace after the
+    first. A stall raises a typed `EngineStall` to the caller."""
     config = config if config is not None else YumaConfig()
     spec = variant_for_version(yuma_version)
     n = len(scenarios)
     if n < 1:
         raise ValueError("simulate_batch_sharded needs at least one scenario")
-    devices = mesh.data_devices()
-    shards = len(devices)
-    pad = _pad_batch(n, shards)
-    padded = list(scenarios) + [scenarios[-1]] * pad
     E, V, M = np.shape(scenarios[0].weights)
-    lanes = (n + pad) // shards
-    W, S, ri, re_ = stack_scenarios(padded, dtype, device="cpu")
-    outs = []
-    with telemetry_span(f"mesh:{shards}dev"):
-        for s, dev in enumerate(devices):
-            dev = resolve_device(dev)
+
+    def run_lanes(padded, members, label):
+        """`padded` split evenly over `members` (MeshDevices), one
+        `simulate_batch` each; the outputs gathered on the host. A sticky
+        CUDA error on one member is attributed to it."""
+        shards = len(members)
+        lanes = len(padded) // shards
+        W, S, ri, re_ = stack_scenarios(padded, dtype, device="cpu")
+        outs = []
+        for s, member in enumerate(members):
+            dev = resolve_device(member.device)
             # Each device holds `lanes` scenarios: preflighted per shard.
             plan_dispatch(
-                f"sharded_batch:{shards}dev", (lanes, E, V, M), spec, config, dtype,
-                save_bonds=save_bonds, device=dev,
+                f"sharded_batch:{label}", (lanes, E, V, M), spec, config, dtype,
+                save_bonds=save_bonds, quarantine=quarantine, device=dev,
             ).record()
             lane = slice(s * lanes, (s + 1) * lanes)
-            with dispatch_annotation(f"sharded_batch:{shards}dev"):
-                outs.append(simulate_batch(
-                    W[lane].to(dev), S[lane].to(dev), ri[lane].to(dev), re_[lane].to(dev),
-                    config, spec, save_bonds=save_bonds, save_incentives=False, x64=x64,
-                ))
-        gathered = _gather_shards(outs)
-    return _unpad_outputs(gathered, n)
+            try:
+                with dispatch_annotation(f"sharded_batch:{label}"):
+                    outs.append(simulate_batch(
+                        W[lane].to(dev), S[lane].to(dev), ri[lane].to(dev), re_[lane].to(dev),
+                        config, spec, save_bonds=save_bonds, save_incentives=False,
+                        quarantine=quarantine, x64=x64,
+                    ))
+            except BaseException as exc:  # noqa: BLE001 — classified below
+                typed = classify_failure(exc)
+                if isinstance(typed, DeviceLossError) and not typed.device_ids:
+                    raise DeviceLossError(
+                        str(typed), device_ids=(member.id,), context_lost=typed.context_lost
+                    ) from exc
+                raise
+        return _gather_shards(outs)
+
+    def dispatch_on(mesh_now: Mesh) -> dict:
+        members = [row[0] for row in mesh_now.grid]
+        pad = _pad_batch(n, len(members))
+        padded = list(scenarios) + [scenarios[-1]] * pad
+        return run_lanes(padded, members, f"{len(members)}dev")
+
+    degradations: list = []
+    mesh_now: Optional[Mesh] = mesh
+    fallback = mesh.grid[0][0]
+    while True:
+        # Each iteration supervises ONE dispatch on ONE mesh; the shrink
+        # logic below runs on the caller side of the watchdog heartbeat.
+        # The attempt index is the shrink count, so post-shrink attempts
+        # get the retry grace.
+        try:
+            if mesh_now is None:
+                with telemetry_span("mesh:single_device"):
+                    faults.maybe_lose_device([fallback])
+                    ys = run_with_deadline(
+                        lambda: run_lanes(list(scenarios), [fallback], "single_device"),
+                        deadline, label="sharded_batch:single_device",
+                        attempt=len(degradations),
+                    )
+            else:
+                with telemetry_span(f"mesh:{mesh_now.size}dev"):
+                    # Test-only device-loss drill (inert in production):
+                    # fires while the armed plan's lost device is still part
+                    # of this mesh, before any launch.
+                    faults.maybe_lose_device(list(mesh_now.devices.flat))
+                    # Bind by value: an abandoned (stalled) worker must not
+                    # read a mesh the caller has since replaced.
+                    ys = run_with_deadline(
+                        lambda m=mesh_now: dispatch_on(m), deadline,
+                        label="sharded_batch", attempt=len(degradations),
+                    )
+            break
+        except BaseException as exc:  # noqa: BLE001 — classified below
+            typed = classify_failure(exc)
+            if not elastic or mesh_now is None or not isinstance(typed, DeviceLossError):
+                raise
+            present = {d.id for d in mesh_now.devices.flat}
+            lost = tuple(i for i in typed.device_ids if i in present)
+            if typed.device_ids and not lost:
+                # Names only devices this mesh does not route to: shrinking
+                # cannot help, so propagate rather than loop.
+                raise
+            survivors = [d for d in mesh_now.devices.flat if d.id not in set(lost)]
+            if lost and not survivors:
+                raise
+            new_mesh = surviving_mesh(mesh_now, lost) if lost else None
+            if new_mesh is None and lost:
+                fallback = survivors[0]
+            from_n = mesh_now.size
+            to_n = new_mesh.size if new_mesh is not None else 1
+            record = MeshDegradation(
+                from_devices=from_n, to_devices=to_n, lost_device_ids=lost,
+                reason=type(typed).__name__,
+            )
+            degradations.append(record)
+            get_registry().counter("mesh_shrinks", help="elastic mesh degradations").inc()
+            log_event(
+                logger, "mesh_degraded", from_devices=from_n, to_devices=to_n,
+                lost=",".join(map(str, lost)) if lost else "unattributed",
+                reason=record.reason,
+            )
+            mesh_now = new_mesh
+    out = _unpad_outputs(ys, n)
+    if elastic:
+        out["mesh_degradations"] = tuple(degradations)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -48,12 +48,15 @@ class HoistedCarry:
 class ScanCarry:
     """The eager rung's scan carry (:func:`.engine._simulate_scan`): the
     state one epoch hands the next. `w_prev` is None for variants that do
-    not carry previous weights. The JAX package's `quarantine` leg waits for the resilience
-    slice (ROADMAP queue A, slice 7)."""
+    not carry previous weights. `quarantine` is the per-lane non-finite
+    guard's state (:mod:`..resilience.guards`: `bad`, `first_bad_epoch`,
+    `tensor_code`, each `[(B,)]` on the device) when the guard is armed,
+    else None."""
 
     bonds: torch.Tensor  # [(B,) V, M]
     w_prev: Optional[torch.Tensor]  # [(B,) V, M] or None
     consensus: torch.Tensor  # [(B,) M]
+    quarantine: Optional[dict] = None
 
     def to_dict(self) -> dict:
         """The carry dict the entry points take and return

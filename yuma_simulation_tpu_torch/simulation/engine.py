@@ -23,6 +23,13 @@ them), and for a padded suite with per-scenario miner masks, which only the
 eager rung takes. "xla", JAX's name of the bottom rung, runs "eager". The
 fused rungs on CPU tensors run the kernels' plain PyTorch versions.
 
+Resilience: `retry_policy=` runs a dispatch down the engine ladder
+(:mod:`..resilience.retry`: each classified failure retried, then demoted
+one rung, every rung on the same device) and `deadline=` under the
+watchdog (:mod:`..resilience.watchdog`); the eager rung hosts the per-lane
+quarantine guard and the fault hooks' operands
+(:mod:`..resilience.guards`, :mod:`..resilience.faults`).
+
 Long runs: :func:`simulate` with `max_resident_epochs`, and
 :func:`simulate_streamed`, run the epoch stack in slabs with the carry
 threaded between them, the next slab's copy to the card overlapping the
@@ -38,7 +45,10 @@ kernel (K6) on the card, or the eager loop.
 
 from __future__ import annotations
 
+import collections
+import collections.abc
 import contextlib
+import itertools
 import time
 from dataclasses import dataclass, field, fields, replace
 from typing import Optional
@@ -70,11 +80,15 @@ from yuma_simulation_tpu_torch.ops.cuda_epoch import (
     fused_ema_scan,
     fused_varying_scan,
 )
+from yuma_simulation_tpu_torch.ops.fingerprint import flip_ulp
 from yuma_simulation_tpu_torch.ops.liquid import liquid_alpha_rate
 from yuma_simulation_tpu_torch.ops.normalize import (
     normalize_stake,
     normalize_weight_rows,
 )
+from yuma_simulation_tpu_torch.resilience import faults
+from yuma_simulation_tpu_torch.resilience.errors import classify_failure
+from yuma_simulation_tpu_torch.resilience.guards import quarantine_init, quarantine_step
 from yuma_simulation_tpu_torch.scenarios.base import Scenario
 from yuma_simulation_tpu_torch.simulation.carry import (
     HoistedCarry,
@@ -119,6 +133,10 @@ class SimulationResult:
     numerics: Optional[dict] = None
     #: The rung that ran (one of :data:`..planner.FUSED_CASE_RUNGS`, or "eager").
     engine: str = ""
+    #: The ladder's demotions on the way to `engine`
+    #: (:class:`..resilience.retry.DemotionRecord`), with `retry_policy`;
+    #: None when no demotion happened.
+    demotions: Optional[tuple] = None
 
 
 def resolve_device(device) -> torch.device:
@@ -280,15 +298,35 @@ def _simulate_scan(
     return_carry: bool = False,
     x64: bool = False,
     capture_numerics: bool = False,
+    guard_nonfinite: bool = False,
+    nan_fault_epoch=None,  # int or [B] int tensor, -1 = off
+    drift_fault_epoch=None,  # int or [B] int tensor, -1 = off
 ):
     """The eager rung: a Python loop over :func:`yuma_epoch`, threading a
     :class:`..carry.ScanCarry` (bonds, w_prev, consensus). Returns the
     per-epoch outputs stacked on the epoch axis (`dividends [(B,) E, V]`,
-    ...), plus the final carry with `return_carry`. `miner_mask` marks a padded suite's real miner
-    columns, per scenario (`[B, M]`) or shared (`[M]`). `capture_numerics`
-    adds ``ys["numerics"]``: the sketches of the dividends and of the
-    per-epoch consensus, saved or not, as the JAX package's XLA rung takes
-    them."""
+    ...), plus the final carry with `return_carry`. `miner_mask` marks a
+    padded suite's real miner columns, per scenario (`[B, M]`) or shared
+    (`[M]`). `capture_numerics` adds ``ys["numerics"]``: the sketches of
+    the dividends and of the per-epoch consensus, saved or not, as the JAX
+    package's XLA rung takes them.
+
+    `guard_nonfinite` folds the per-lane quarantine
+    (:mod:`..resilience.guards`) into the carry: each epoch's outputs are
+    isfinite-checked per lane, the first failure latches `(first_bad_epoch,
+    tensor_code)`, and from that epoch on every output and the carry of
+    that lane are zero; healthy lanes are bitwise an unguarded run. The
+    state stays on the device and rides ``ys["quarantine"]``.
+
+    `nan_fault_epoch` / `drift_fault_epoch` are the fault hooks' operands
+    (:func:`..resilience.faults.active_nan_fault` / `active_drift_fault`):
+    at that global epoch the lane's dividends become NaN, or validator 0's
+    dividend moves by one ulp; -1 leaves the lane alone."""
+    if guard_nonfinite and (carry is not None or return_carry):
+        raise ValueError(
+            "guard_nonfinite does not compose with chunked streaming "
+            "carries; run the quarantine on monolithic scans"
+        )
     *lead, E, V, M = weights.shape
     dtype, dev = weights.dtype, weights.device
     cfg = _tensor_config(config, dev)
@@ -302,6 +340,7 @@ def _simulate_scan(
         state = ScanCarry(
             bonds=zeros, w_prev=zeros if prev else None,
             consensus=torch.zeros(tuple(lead) + (M,), dtype=dtype, device=dev),
+            quarantine=quarantine_init(lead, dev) if guard_nonfinite else None,
         )
     else:
         def take(key):
@@ -318,6 +357,8 @@ def _simulate_scan(
         ys["incentives"] = []
     if save_consensus or capture_numerics:
         ys["consensus"] = []
+    nan_at = None if nan_fault_epoch is None else torch.as_tensor(nan_fault_epoch, device=dev)
+    drift_at = None if drift_fault_epoch is None else torch.as_tensor(drift_fault_epoch, device=dev)
     for e in range(E):
         epoch = e + epoch_offset
         W = weights[..., e, :, :]
@@ -339,18 +380,40 @@ def _simulate_scan(
             consensus_impl=consensus_impl,
             x64=x64,
         )
-        state = ScanCarry(
-            bonds=res[spec.bond_state_key],
-            w_prev=res["weight"] if prev else None,
-            consensus=res["server_consensus_weight"],
-        )
-        ys["dividends"].append(
-            _dividends_per_1k(res["validator_reward_normalized"], S, cfg)
-        )
+        bonds = res[spec.bond_state_key]
+        w_prev = res["weight"] if prev else None
+        consensus = res["server_consensus_weight"]
+        incentive = res["server_incentive"]
+        div = _dividends_per_1k(res["validator_reward_normalized"], S, cfg)
+        if nan_at is not None:
+            poison = (nan_at == epoch).unsqueeze(-1)
+            div = torch.where(poison, torch.full_like(div, float("nan")), div)
+        if drift_at is not None:
+            # One ulp on validator 0 at the lane's drift epoch: the
+            # smallest drift the numerics canary must localize.
+            flip = (drift_at == epoch).unsqueeze(-1) & (torch.arange(V, device=dev) == 0)
+            div = torch.where(flip, flip_ulp(div), div)
+        qstate = None
+        if guard_nonfinite:
+            # Priority-ordered health check (codes index
+            # guards.QUARANTINE_TENSORS); the mask zeroes this lane's
+            # carry and outputs from the first bad epoch on. The incentive
+            # stream is checked only when it is emitted.
+            checks = [(0, div), (1, bonds), (2, consensus)]
+            if prev:
+                checks.append((3, w_prev))
+            if save_incentives:
+                checks.append((4, incentive))
+            qstate, qmask = quarantine_step(state.quarantine, epoch, checks)
+            div, bonds, consensus = qmask(div), qmask(bonds), qmask(consensus)
+            w_prev = qmask(w_prev) if prev else None
+            incentive = qmask(incentive) if save_incentives else incentive
+        state = ScanCarry(bonds=bonds, w_prev=w_prev, consensus=consensus, quarantine=qstate)
+        ys["dividends"].append(div)
         if save_bonds:
             ys["bonds"].append(state.bonds)
         if save_incentives:
-            ys["incentives"].append(res["server_incentive"])
+            ys["incentives"].append(incentive)
         if "consensus" in ys:
             ys["consensus"].append(state.consensus)
     axis = len(lead)
@@ -360,6 +423,8 @@ def _simulate_scan(
         ys["numerics"] = _numerics.capture_streams(streams, epoch_axis=axis)
     if not save_consensus:
         ys.pop("consensus", None)
+    if guard_nonfinite:
+        ys["quarantine"] = state.quarantine
     if not return_carry:
         return ys
     return ys, state.to_dict()
@@ -507,9 +572,28 @@ def simulate(
     epoch count continues the trajectory over global epochs
     `[offset, offset + E)`.
 
-    `mesh` (miner-axis sharding, slice 4b), `retry_policy` and `deadline`
-    (slice 7 of ROADMAP queue A) are not ported yet and raise when given;
-    the scenario batch shards through :mod:`..parallel.sharded`.
+    `retry_policy` (a :class:`..resilience.retry.RetryPolicy`, default None
+    = fail fast): arm the engine-degradation ladder. A classified engine
+    failure (out of memory, a stall) retries on the same rung with
+    jittered backoff, then demotes one rung down `plan.ladder`
+    (fused_varying -> fused_scan_mxu -> fused_scan, and on the CPU on to
+    eager), logging one ``event=engine_demoted`` record per step; the rung
+    that ran is `result.engine` and the walk `result.demotions`. Every rung
+    runs on `device`; on the card a kernel that will not build or launch
+    raises at once, and a fused plan never demotes to the eager rung
+    (:mod:`..resilience.retry`). Caller errors are never retried.
+
+    `deadline` (a :class:`..resilience.watchdog.Deadline`, default None =
+    unbounded): each dispatch runs on a supervised worker thread and ends
+    in a synchronize of its stream; one that posts no heartbeat within the
+    budget raises a typed `EngineStall`, which with `retry_policy` retries
+    and demotes like any engine failure. The streamed path
+    (`max_resident_epochs`) takes `retry_policy` only, as the JAX
+    package's does.
+
+    `mesh` (miner-axis sharding, slice 4b of ROADMAP queue A) is not
+    ported yet and raises; the scenario batch shards through
+    :mod:`..parallel.sharded`.
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -517,7 +601,6 @@ def simulate(
             "ported yet (ROADMAP queue A, slice 4b); a scenario batch shards over "
             "a mesh's data axis through parallel.simulate_batch_sharded"
         )
-    _refuse_resilience(retry_policy, deadline, "simulate")
     dev = resolve_device(device)
     config = config if config is not None else YumaConfig()
     spec = variant_for_version(yuma_version)
@@ -549,37 +632,59 @@ def simulate(
                 yield scenario.weights[lo:hi], scenario.stakes[lo:hi]
 
         return simulate_streamed(
-            chunk_gen(), yuma_version, config,
+            # Re-iterable, not a one-shot generator: the whole stack lives on
+            # the scenario, so a demotion under retry_policy can restart the
+            # stream from chunk 0 wherever the failure surfaced.
+            _ReiterableChunks(chunk_gen), yuma_version, config,
             reset_bonds_index=scenario.reset_bonds_index,
             reset_bonds_epoch=scenario.reset_bonds_epoch,
             save_bonds=save_bonds, save_incentives=save_incentives,
             save_consensus=save_consensus, consensus_impl=plan.consensus_impl,
-            epoch_impl=plan.engine, dtype=dtype, initial_state=initial_state,
-            epoch_offset=epoch_offset, return_state=return_state, device=dev, x64=x64,
+            epoch_impl=plan.engine, dtype=dtype, retry_policy=retry_policy,
+            initial_state=initial_state, epoch_offset=epoch_offset,
+            return_state=return_state, device=dev, x64=x64,
         )
     plan.record()
     weights = torch.as_tensor(scenario.weights, dtype=dtype).to(dev)
     stakes = torch.as_tensor(scenario.stakes, dtype=dtype).to(dev)
-    carry = None
-    if initial_state is not None:
-        carry = {
-            k: torch.as_tensor(np.array(v), dtype=dtype).to(dev)
-            for k, v in initial_state.items()
-        }
+    capture = _numerics.numerics_enabled()
+
+    def dispatch(rung: str):
+        # The carry is made afresh for every attempt: a retried rung must
+        # see untouched inputs.
+        carry = None
+        if initial_state is not None:
+            carry = {
+                k: torch.as_tensor(np.array(v), dtype=dtype).to(dev)
+                for k, v in initial_state.items()
+            }
+        eager_kwargs = {}
+        if rung not in FUSED_CASE_RUNGS:
+            nf = faults.active_nan_fault()
+            if nf is not None and nf.case is None:
+                eager_kwargs["nan_fault_epoch"] = nf.epoch
+        with dispatch_annotation(f"simulate:{rung}"):
+            out = _dispatch_case(
+                plan.demoted(rung), weights, stakes, _reset_int(scenario.reset_bonds_index),
+                _reset_int(scenario.reset_bonds_epoch), config, spec,
+                eager_kwargs=eager_kwargs, save_bonds=save_bonds,
+                save_incentives=save_incentives, save_consensus=save_consensus,
+                carry=carry, epoch_offset=epoch_offset, return_carry=return_state,
+                x64=x64, capture_numerics=capture,
+            )
+        return out
+
     # One epoch-rate record a run: the dispatch and the host fetch timed
     # together, through the metrics registry (`epochs_total` /
     # `epochs_per_sec`, one `event=epoch_rate` line).
+    from yuma_simulation_tpu_torch.resilience.retry import supervise
+
     t_dispatch = timed(f"simulate:{yuma_version}", epochs=E)
     with t_dispatch:
-        with dispatch_annotation(f"simulate:{plan.engine}"):
-            out = _dispatch_case(
-                plan, weights, stakes, _reset_int(scenario.reset_bonds_index),
-                _reset_int(scenario.reset_bonds_epoch), config, spec,
-                save_bonds=save_bonds, save_incentives=save_incentives,
-                save_consensus=save_consensus, carry=carry, epoch_offset=epoch_offset,
-                return_carry=return_state, x64=x64,
-                capture_numerics=_numerics.numerics_enabled(),
-            )
+        out, engine_used, records = supervise(
+            dispatch, plan, retry_policy, deadline, label=yuma_version
+        )
+        demotions = tuple(records) or None
         state = None
         if return_state:
             out, carry_out = out
@@ -594,7 +699,7 @@ def simulate(
     # The always-on dispatch timing seam: one observation a dispatched
     # region, keyed by the rung, the plan's shape bucket and the backend.
     observe_dispatch(
-        engine=plan.engine, bucket=plan.bucket.key, backend=backend_name(dev),
+        engine=engine_used, bucket=plan.bucket.key, backend=backend_name(dev),
         seconds=t_dispatch.seconds, epochs=E,
     )
     return SimulationResult(
@@ -604,19 +709,9 @@ def simulate(
         consensus=host.get("consensus"),
         final_state=state,
         numerics=numerics,
-        engine=plan.engine,
+        engine=engine_used,
+        demotions=demotions,
     )
-
-
-def _refuse_resilience(retry_policy, deadline, name: str) -> None:
-    """`retry_policy` / `deadline` arm the JAX package's engine ladder and
-    watchdog, which are not ported yet."""
-    if retry_policy is not None or deadline is not None:
-        raise NotImplementedError(
-            f"{name}(retry_policy=, deadline=) arm the engine-demotion ladder and "
-            "the watchdog, which are not ported yet (ROADMAP queue A, slice 7: "
-            "resilience)"
-        )
 
 
 def _reset_int(x) -> int:
@@ -624,18 +719,24 @@ def _reset_int(x) -> int:
 
 
 def _dispatch_case(plan, weights, stakes, reset_index, reset_epoch, config, spec, *,
-                   miner_mask=None, **common):
+                   miner_mask=None, eager_kwargs=None, **common):
     """One `[(B,) E, V, M]` dispatch on the plan's rung. The reset rule's
     index and epoch are ints or `[B]` vectors; `miner_mask` (a padded
-    suite's) goes to the eager rung, the only one the plan lets take it."""
+    suite's) and `eager_kwargs` (the quarantine guard, the fault operands)
+    go to the eager rung, the only one the plan lets take them. A fused
+    dispatch first passes the fault hook
+    (:func:`..resilience.faults.maybe_fail_fused_dispatch`), a single
+    `is None` check unless a test armed a fault plan."""
     if plan.engine in FUSED_CASE_RUNGS:
+        faults.maybe_fail_fused_dispatch()
         return _simulate_case_fused(
             weights, stakes, reset_index, reset_epoch, config, spec,
             **rung_flags(plan.engine), **common,
         )
     return _simulate_scan(
         weights, stakes, reset_index, reset_epoch, config, spec,
-        consensus_impl=plan.consensus_impl, miner_mask=miner_mask, **common,
+        consensus_impl=plan.consensus_impl, miner_mask=miner_mask,
+        **(eager_kwargs or {}), **common,
     )
 
 
@@ -644,15 +745,24 @@ def run_simulation(
     yuma_version: str,
     yuma_config: Optional[YumaConfig] = None,
     *,
+    supervised: bool = False,
     device="cuda",
     x64: bool = False,
 ) -> tuple[dict[str, list[float]], list[np.ndarray], list[np.ndarray]]:
     """Drop-in equivalent of the reference driver (simulation_utils.py:26-112):
     `(dividends_per_validator, bonds_per_epoch, server_incentives_per_epoch)`
-    with numpy arrays in place of torch tensors."""
+    with numpy arrays in place of torch tensors. `supervised=True` arms the
+    default engine ladder and the default deadline watchdog, as the JAX
+    package's does (its `fleet=` waits for the fleet slice)."""
+    supervision = {}
+    if supervised:
+        from yuma_simulation_tpu_torch.resilience.retry import default_retry_policy
+        from yuma_simulation_tpu_torch.resilience.supervisor import default_deadline
+
+        supervision = dict(retry_policy=default_retry_policy(), deadline=default_deadline())
     result = simulate(
         case, yuma_version, yuma_config, save_bonds=True, save_incentives=True,
-        device=device, x64=x64,
+        device=device, x64=x64, **supervision,
     )
     dividends_per_validator = {
         validator: [float(x) for x in result.dividends[:, i]]
@@ -710,8 +820,16 @@ def simulate_streamed(
     Defaults save only the `[E, V]` dividends; the save flags must be bools
     (the stream's length is unknown here, so "auto" cannot be sized).
     `initial_state` / `epoch_offset` / `return_state`: the suffix-resume
-    contract of :func:`simulate`. `retry_policy` (the JAX package's
-    demotion ladder over the stream) is not ported yet and raises.
+    contract of :func:`simulate`.
+
+    `retry_policy` arms the engine-degradation ladder around the WHOLE
+    stream: the rung is pinned per attempt, so a demotion restarts the
+    stream from chunk 0 on the lower rung (never mixes rungs mid-stream).
+    A one-shot generator can only be replayed while every chunk it gave is
+    still held (the two the double buffer had in hand); past that, pass a
+    re-iterable sequence to make demotion possible — otherwise a
+    ValueError says exactly that. Each attempt ends in its outputs' host
+    copy, so a failure on the card surfaces inside the attempt.
     """
     for name, flag in (("save_bonds", save_bonds), ("save_incentives", save_incentives),
                        ("save_consensus", save_consensus)):
@@ -722,20 +840,121 @@ def simulate_streamed(
                 "here (resolve it against the full shape via simulate(), or pass an "
                 "explicit bool)"
             )
-    _refuse_resilience(retry_policy, None, "simulate_streamed")
     config = config if config is not None else YumaConfig()
     spec = variant_for_version(yuma_version)
     if epoch_offset < 0:
         raise ValueError(f"epoch_offset must be >= 0, got {epoch_offset}")
-    return _simulate_streamed_attempt(
-        iter(chunks), yuma_version, config, spec,
+    kwargs = dict(
         reset_bonds_index=reset_bonds_index, reset_bonds_epoch=reset_bonds_epoch,
         save_bonds=save_bonds, save_incentives=save_incentives,
-        save_consensus=save_consensus, consensus_impl=consensus_impl,
-        epoch_impl=epoch_impl, dtype=dtype, initial_state=initial_state,
-        epoch_offset=epoch_offset, return_state=return_state,
-        device=resolve_device(device), x64=x64,
+        save_consensus=save_consensus, consensus_impl=consensus_impl, dtype=dtype,
+        initial_state=initial_state, epoch_offset=epoch_offset,
+        return_state=return_state, device=resolve_device(device), x64=x64,
     )
+    if retry_policy is not None:
+        return _simulate_streamed_ladder(
+            chunks, yuma_version, config, spec, epoch_impl=epoch_impl,
+            retry_policy=retry_policy, **kwargs,
+        )
+    return _simulate_streamed_attempt(
+        iter(chunks), yuma_version, config, spec, epoch_impl=epoch_impl, **kwargs,
+    )
+
+
+class _ReiterableChunks:
+    """A chunk stream that can be iterated from the start any number of
+    times — `iter()` invokes the factory afresh. What the streamed
+    ladder needs to restart on a demoted rung regardless of where in the
+    stream the failure surfaced."""
+
+    def __init__(self, make_iter):
+        self._make_iter = make_iter
+
+    def __iter__(self):
+        return iter(self._make_iter())
+
+
+class _CountingIter:
+    """Iterator wrapper that counts consumed chunks and holds the most
+    recent TWO (the double-buffered driver keeps one slab in flight
+    ahead of the one computing), so an early failure can be replayed on
+    a lower rung without re-materializing the stream."""
+
+    def __init__(self, it):
+        self._it = it
+        self.consumed = 0
+        self.recent = collections.deque(maxlen=2)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = next(self._it)
+        self.consumed += 1
+        self.recent.append(item)
+        return item
+
+
+def _simulate_streamed_ladder(chunks, yuma_version: str, config: YumaConfig,
+                              spec: VariantSpec, *, epoch_impl: str, retry_policy, **kwargs):
+    """The degradation ladder around a whole chunk stream (see
+    :func:`simulate_streamed`): peek the first chunk to plan the starting
+    rung, then run each attempt with the rung pinned; on a classified
+    engine failure restart the stream on the next rung."""
+    from yuma_simulation_tpu_torch.resilience.retry import supervise
+
+    it = iter(chunks)
+    try:
+        first = next(it)
+    except StopIteration:
+        raise ValueError("simulate_streamed received no chunks") from None
+    # Shape only: the rung and its ladder are all this needs; each attempt
+    # plans (and records) in full.
+    shape0 = np.shape(first[0])
+    if len(shape0) != 3:
+        raise ValueError(f"streamed chunks must be [E_chunk, V, M], got {shape0}")
+    plan0 = plan_dispatch(
+        f"streamed:{yuma_version}", shape0, spec, config, kwargs["dtype"],
+        epoch_impl=epoch_impl, consensus_impl=kwargs["consensus_impl"],
+        save_bonds=kwargs["save_bonds"], streaming=True, check_memory=False,
+        device=kwargs["device"],
+    )
+    # Anything that is not its own iterator (lists, tuples, re-iterable
+    # chunk factories like simulate()'s slab slicer) restarts from chunk
+    # 0; a one-shot generator cannot.
+    reiterable = not isinstance(chunks, collections.abc.Iterator)
+    state = {"it": itertools.chain([first], it)}
+
+    def dispatch(rung: str):
+        tracker = _CountingIter(state["it"])
+        try:
+            return _simulate_streamed_attempt(
+                tracker, yuma_version, config, spec, epoch_impl=rung, **kwargs,
+            )
+        except BaseException as exc:
+            if classify_failure(exc) is None:
+                raise  # a caller error: no replay bookkeeping needed
+            if reiterable:
+                state["it"] = iter(chunks)
+            elif tracker.consumed <= len(tracker.recent):
+                # Every consumed chunk is still held (at most the two the
+                # double buffer had in hand): re-feed them ahead of the
+                # untouched rest of the generator.
+                state["it"] = itertools.chain(list(tracker.recent), tracker._it)
+            else:
+                raise ValueError(
+                    "engine demotion needs to restart the stream from chunk 0, "
+                    f"but {tracker.consumed} chunks of a one-shot generator were "
+                    "already consumed — pass a re-iterable sequence (list/tuple) "
+                    "of chunks to use retry_policy with simulate_streamed"
+                ) from exc
+            raise
+
+    result, _, records = supervise(
+        dispatch, plan0, retry_policy, label=f"streamed:{yuma_version}"
+    )
+    result.demotions = tuple(records) or None
+    return result
 
 
 class _HostSlabs:

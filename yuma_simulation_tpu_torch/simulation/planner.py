@@ -192,6 +192,10 @@ class DispatchPlan:
     memory: MemoryPlan
     #: Why each decision fell as it did, in decision order.
     reasons: tuple
+    #: The dispatch runs on a CUDA device: its ladder stops at the last
+    #: hand-written rung, and a kernel that will not build or launch
+    #: raises instead of demoting (:func:`..resilience.retry.run_ladder`).
+    on_card: bool = False
 
     def to_json(self) -> dict:
         out = dataclasses.asdict(self)
@@ -246,7 +250,7 @@ class DispatchPlan:
             self,
             engine=rung,
             consensus_impl=self.fallback_consensus if rung == "eager" else self.consensus_impl,
-            ladder=ladder_from(rung),
+            ladder=self.ladder[self.ladder.index(rung):],
             reasons=self.reasons + (f"circuit breaker re-anchored dispatch at {rung!r}",),
         )
 
@@ -267,6 +271,7 @@ def _plan_engine(
     streaming: bool,
     has_miner_mask: bool,
     reasons: list,
+    quarantine: bool = False,
 ) -> tuple[str, str]:
     """The one engine / consensus resolution of the case-scan entry
     points. Returns `(engine, consensus_impl)` resolved. A streaming plan
@@ -286,7 +291,8 @@ def _plan_engine(
         reasons.append("'xla' is the JAX package's name of the bottom rung: 'eager'")
     if epoch_impl == "auto":
         why = (
-            "per-scenario miner mask" if has_miner_mask
+            "quarantine guard rides the XLA carry" if quarantine
+            else "per-scenario miner mask" if has_miner_mask
             else f"consensus_impl={consensus_impl!r}" if consensus_impl not in ("auto", "bisect")
             else "zero epochs" if epochs < 1
             else f"dtype {dtype}" if dtype != torch.float32
@@ -310,6 +316,12 @@ def _plan_engine(
                    if exact_mxu_support_covers(shape[-2]) else "")
             )
     if epoch_impl in FUSED_CASE_RUNGS:
+        if quarantine:
+            raise ValueError(
+                "quarantine rides the XLA scan carry; the fused case scan "
+                "cannot host it — use epoch_impl='eager' (or 'auto', which "
+                "resolves to 'eager' under quarantine)"
+            )
         if has_miner_mask:
             raise ValueError(
                 "the batched fused case scan has no per-scenario miner "
@@ -419,6 +431,7 @@ def plan_dispatch(
     save_consensus: bool = False,
     mesh=None,
     streaming: bool = False,
+    quarantine: bool = False,
     has_miner_mask: bool = False,
     max_resident_epochs: Optional[int] = None,
     check_memory: bool = True,
@@ -430,7 +443,10 @@ def plan_dispatch(
     preconditions) and :class:`..telemetry.cost.HBMPreflightError` for a
     monolithic shape that cannot fit; a streaming plan sizes
     `memory.chunk_epochs` instead. `check_memory=False` skips the memory
-    plan (the batched entry points: the arrays are already placed)."""
+    plan (the batched entry points: the arrays are already placed).
+    `quarantine=True` (the per-lane non-finite guard, which only the eager
+    rung's carry hosts) resolves "auto" to "eager", as the JAX package's
+    resolves it to its XLA rung, and makes an explicit fused rung raise."""
     if mesh is not None:
         raise NotImplementedError(
             "miner-sharding meshes are not ported yet (ROADMAP queue A, slice 4b)"
@@ -449,7 +465,7 @@ def plan_dispatch(
         reasons.append(f"engine {epoch_impl!r} requested explicitly")
     engine, resolved_consensus = _plan_engine(
         epoch_impl, consensus_impl, shape, config, dtype, dev, streaming,
-        has_miner_mask, reasons,
+        has_miner_mask, reasons, quarantine=quarantine,
     )
     fallback_consensus = (
         resolved_consensus if engine == "eager" else resolve_consensus_impl(consensus_impl, V, M)
@@ -476,6 +492,13 @@ def plan_dispatch(
     ladder = ladder_from(engine)
     if not exact_mxu_support_covers(V):
         ladder = tuple(r for r in ladder if r == engine or not r.endswith("_mxu"))
+    on_card = dev.type == "cuda"
+    if on_card and engine != "eager" and "eager" in ladder:
+        # On the card every fused rung is a hand-written kernel and the
+        # eager rung is plain PyTorch: demotion may trade one kernel for
+        # another, never a kernel for its plain version.
+        ladder = ladder[:-1]
+        reasons.append("on the card the ladder stops at the last kernel rung")
     return DispatchPlan(
         label=label,
         engine=engine,
@@ -487,6 +510,7 @@ def plan_dispatch(
         batch_lanes=batch,
         memory=memory,
         reasons=tuple(reasons),
+        on_card=on_card,
     )
 
 

@@ -32,6 +32,7 @@ from yuma_simulation_tpu_torch.models.config import (
     YumaParams,
 )
 from yuma_simulation_tpu_torch.models.variants import VariantSpec, variant_for_version
+from yuma_simulation_tpu_torch.resilience import faults
 from yuma_simulation_tpu_torch.scenarios.base import Scenario
 from yuma_simulation_tpu_torch.simulation.engine import (
     _dispatch_case,
@@ -40,7 +41,11 @@ from yuma_simulation_tpu_torch.simulation.engine import (
     simulate_scaled_batch,
     validate_initial_state,
 )
-from yuma_simulation_tpu_torch.simulation.planner import bucket_shape, plan_dispatch
+from yuma_simulation_tpu_torch.simulation.planner import (
+    FUSED_CASE_RUNGS,
+    bucket_shape,
+    plan_dispatch,
+)
 # The module, not its names: numerics imports simulation.carry, which
 # imports this package.
 from yuma_simulation_tpu_torch.telemetry import numerics as _numerics
@@ -143,6 +148,9 @@ def simulate_batch(
     consensus_impl: str = "bisect",
     miner_mask: Optional[torch.Tensor] = None,  # [B, M] for padded suites
     epoch_impl: str = "auto",
+    quarantine: bool = False,
+    retry_policy=None,
+    deadline=None,
     x64: bool = False,
 ) -> dict:
     """A scenario suite in one call, on the device the tensors live on.
@@ -156,7 +164,25 @@ def simulate_batch(
     fields, one value per scenario (a :func:`config_grid` grid).
     `miner_mask` (from :func:`pad_scenarios`) marks each scenario's real
     miners; such a suite runs on the eager rung ("auto" resolves to it, a
-    fused rung raises), as the JAX package runs it on its XLA rung."""
+    fused rung raises), as the JAX package runs it on its XLA rung.
+
+    `quarantine=True` folds the per-lane non-finite guard into the eager
+    rung's carry ("auto" then resolves to "eager"; a fused rung raises): a
+    lane whose outputs go NaN/Inf at epoch k is masked to zero from that
+    epoch on and recorded in the returned ``ys["quarantine"]`` state
+    (`{bad [B], first_bad_epoch [B], tensor_code [B]}` on the device — feed
+    it to :func:`..resilience.guards.build_quarantine_report`), while
+    healthy lanes stay bit-for-bit an unguarded run.
+
+    `retry_policy` (a :class:`..resilience.retry.RetryPolicy`) arms the
+    engine-degradation ladder: a classified engine failure on a fused rung
+    retries with backoff, then demotes down `plan.ladder` on the same
+    device (on the card down to the last kernel rung, never to "eager"),
+    one ``event=engine_demoted`` record per step (the ys dict stays plain
+    tensors). `deadline` (a :class:`..resilience.watchdog.Deadline`) runs
+    each dispatch under the watchdog, ending in a synchronize of its
+    stream; a hang raises a typed `EngineStall`, which an armed ladder
+    retries and demotes like any engine failure."""
     if weights.ndim != 4:
         raise ValueError(f"weights must be [B, E, V, M], got {tuple(weights.shape)}")
     config_lanes(config, weights.shape[0])
@@ -165,17 +191,46 @@ def simulate_batch(
     plan = plan_dispatch(
         "simulate_batch", weights.shape, spec, config, weights.dtype,
         epoch_impl=epoch_impl, consensus_impl=consensus_impl, save_bonds=save_bonds,
-        save_incentives=save_incentives, has_miner_mask=miner_mask is not None,
-        check_memory=False, device=dev,
+        save_incentives=save_incentives, quarantine=quarantine,
+        has_miner_mask=miner_mask is not None, check_memory=False, device=dev,
     )
     plan.record()
-    with dispatch_annotation(f"simulate_batch:{plan.engine}"):
-        return _dispatch_case(
-            plan, weights, stakes, reset_index, reset_epoch, config, spec,
-            miner_mask=miner_mask, save_bonds=save_bonds,
-            save_incentives=save_incentives, save_consensus=False, x64=x64,
-            capture_numerics=_numerics.numerics_enabled(),
-        )
+    capture = _numerics.numerics_enabled()
+
+    def lane_epochs(fault):
+        """The `[B]` epoch operand of a per-case fault (-1 = healthy lane),
+        shared by the NaN and drift injections."""
+        if fault is None:
+            return None
+        B = weights.shape[0]
+        lanes = torch.full((B,), -1, dtype=torch.int32)
+        if fault.case is None:
+            lanes[:] = fault.epoch
+        elif 0 <= fault.case < B:
+            lanes[fault.case] = fault.epoch
+        return lanes.to(dev)
+
+    def dispatch(rung: str):
+        eager_kwargs = {}
+        if rung not in FUSED_CASE_RUNGS:
+            eager_kwargs = dict(
+                guard_nonfinite=quarantine,
+                nan_fault_epoch=lane_epochs(faults.active_nan_fault()),
+                # Armed only inside canary re-executions (faults.canary_scope).
+                drift_fault_epoch=lane_epochs(faults.active_drift_fault()),
+            )
+        with dispatch_annotation(f"simulate_batch:{rung}"):
+            return _dispatch_case(
+                plan.demoted(rung), weights, stakes, reset_index, reset_epoch, config, spec,
+                miner_mask=miner_mask, eager_kwargs=eager_kwargs, save_bonds=save_bonds,
+                save_incentives=save_incentives, save_consensus=False, x64=x64,
+                capture_numerics=capture,
+            )
+
+    from yuma_simulation_tpu_torch.resilience.retry import supervise
+
+    ys, _, _ = supervise(dispatch, plan, retry_policy, deadline, label="simulate_batch")
+    return ys
 
 
 def sweep_hyperparams(
@@ -184,6 +239,7 @@ def sweep_hyperparams(
     configs: YumaConfig,
     *,
     save_bonds: bool = False,
+    quarantine: bool = False,
     dtype: torch.dtype = torch.float32,
     initial_state: Optional[dict] = None,
     epoch_offset: int = 0,
@@ -203,10 +259,23 @@ def sweep_hyperparams(
     `initial_state` / `epoch_offset`: resume every lane from ONE shared
     carry (the `final_state` of a `return_state=True` run), with the
     scenario's epochs indexed as global epochs `[offset, offset + E)`.
-    The JAX package's `quarantine=` (the per-lane non-finite guard) is not
-    ported yet (ROADMAP queue A, slice 7)."""
+
+    `quarantine=True` arms the per-lane non-finite guard exactly as in
+    :func:`simulate_batch` — here a lane is one grid point, which is the
+    batch axis where NaNs originate (a pathological `bond_alpha` or `kappa`
+    poisons its own recurrence while every other grid point is fine): the
+    bad lane is masked and recorded in ``ys["quarantine"]``, the rest of
+    the grid returns bit-for-bit the unguarded values. It runs on the eager
+    rung and is incompatible with `initial_state` (the guard rides a
+    monolithic scan carry)."""
     if epoch_offset < 0:
         raise ValueError(f"epoch_offset must be >= 0, got {epoch_offset}")
+    if initial_state is not None and quarantine:
+        raise ValueError(
+            "sweep_hyperparams: initial_state does not compose with "
+            "quarantine (the guard rides a monolithic scan carry); "
+            "pass quarantine=False for suffix-resume grid units"
+        )
     spec = variant_for_version(yuma_version)
     dev = resolve_device(device)
     G = config_lanes(configs)
@@ -223,11 +292,12 @@ def sweep_hyperparams(
         }
     plan = plan_dispatch(
         "sweep_hyperparams", (G, E, V, M), spec, configs, dtype, epoch_impl=epoch_impl,
-        save_bonds=save_bonds, check_memory=False, device=dev,
+        save_bonds=save_bonds, quarantine=quarantine, check_memory=False, device=dev,
     )
     plan.record()
     return _dispatch_case(
         plan, W.expand(G, E, V, M), S.expand(G, E, V), ri, re_, configs, spec,
+        eager_kwargs={"guard_nonfinite": True} if quarantine else None,
         carry=carry, epoch_offset=epoch_offset,
         save_bonds=save_bonds, save_incentives=False, save_consensus=False, x64=x64,
         capture_numerics=_numerics.numerics_enabled(),

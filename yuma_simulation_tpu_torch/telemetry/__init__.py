@@ -13,7 +13,11 @@
 - :mod:`.registry`: every event and metric name the port emits;
 - :mod:`.slo`: latency sketches, SLO burn rates, the dispatch timing table;
 - :mod:`.propagation`: cross-process trace continuation;
-- :mod:`.device`: the card's memory, sampled between dispatches.
+- :mod:`.device`: the card's memory, sampled between dispatches;
+- :mod:`.flight`: the per-run on-disk bundle of a supervised sweep (ledger,
+  spans, metrics, numerics, report, SLO state) and its loader and
+  consistency checks, in the JAX package's formats (``python -m
+  tools.obsreport DIR --check`` reads it).
 
 Host-side only: nothing here synchronizes the card on its own.
 """
@@ -30,6 +34,18 @@ from yuma_simulation_tpu_torch.telemetry.cost import (  # noqa: F401
 from yuma_simulation_tpu_torch.telemetry.device import (  # noqa: F401
     record_device_telemetry,
     sample_device_telemetry,
+)
+from yuma_simulation_tpu_torch.telemetry.flight import (  # noqa: F401
+    Bundle,
+    FlightRecorder,
+    RotationPolicy,
+    build_timeline,
+    check_bundle,
+    check_stitched,
+    ledger_counts,
+    load_bundle,
+    merge_bundles,
+    rotation_from_env,
 )
 from yuma_simulation_tpu_torch.telemetry.metrics import (  # noqa: F401
     Counter,

@@ -185,7 +185,12 @@ class HostFetch:
 
 def to_host(sketches: dict) -> dict:
     """Fetch a sketch set of tensors to the host: numpy leaves,
-    fingerprints `uint32` (one copy for the whole set)."""
+    fingerprints `uint32` (one copy for the whole set). A set already on
+    the host (numpy leaves, as the sharded batch gathers it) is returned
+    as it is, as `jax.device_get` returns host arrays."""
+    if all(not isinstance(getattr(sk, f), torch.Tensor)
+           for sk in sketches.values() for f in SKETCH_FIELDS):
+        return sketches
     return HostFetch(sketches).result()
 
 

@@ -51,6 +51,97 @@ class MetricSpec:
 
 
 EVENTS = {
+    # -- engine ladder / watchdog / quarantine / supervisor (resilience) ----
+    "engine_retry": EventSpec(
+        "same-rung retry with backoff (resilience.retry.run_ladder)",
+        operator_reason="recovery forensics: one greppable record per burned "
+                        "attempt; counted via the engine_retries metric",
+    ),
+    "engine_demoted": EventSpec(
+        "ladder demotion onto a lower engine rung",
+        operator_reason="recovery forensics; counted via the engine_demotions "
+                        "metric obsreport reconciles",
+    ),
+    "engine_stalled": EventSpec(
+        "watchdog deadline kill of a hung dispatch",
+        operator_reason='incident forensics; counted via stalls_killed',
+    ),
+    "sweep_supervised": EventSpec(
+        "supervised sweep finished (one summary record per sweep)",
+        operator_reason="sweep-level summary line for operator greps; per-unit "
+                        "accounting rides unit_ok records",
+    ),
+    "unit_ok": EventSpec(
+        "one sweep unit finished and published",
+        consumers=(
+            "obsreport",
+            "fabric.health",
+            "telemetry.flight",
+            "resilience.supervisor",
+        ),
+    ),
+    "unit_failed": EventSpec(
+        "one sweep unit exhausted every recovery path",
+        operator_reason="terminal per-unit failure record; resumed sweeps skip "
+                        "completed units via unit_ok, failures re-run",
+    ),
+    "unit_retry": EventSpec(
+        "one sweep unit re-dispatched after a retryable failure",
+        operator_reason='per-unit recovery forensics between the attempt spans',
+    ),
+    "unit_requeued": EventSpec(
+        "one sweep unit pushed back onto the work queue",
+        consumers=("telemetry.flight",),
+    ),
+    "unit_stalled": EventSpec(
+        "one sweep unit killed by the deadline watchdog",
+        consumers=("telemetry.flight",),
+    ),
+    "unit_canary": EventSpec(
+        "cross-engine numerics canary re-execution for one unit",
+        operator_reason="canary audit trail; verdicts feed the engine_drift_ok "
+                        "SLO stream and the engine_drift event",
+    ),
+    "canary_failed": EventSpec(
+        "a numerics canary re-execution itself errored (no verdict)",
+        operator_reason="canary infrastructure failure is not drift; record "
+                        "keeps the no-verdict case auditable",
+    ),
+    "engine_drift": EventSpec(
+        "CONFIRMED cross-engine numerics drift (bitwise divergence localized to"
+        " its first epoch)",
+        consumers=("telemetry.slo", "serve.service"),
+        operator_reason="the typed incident record; gates ride the "
+                        "engine_drift_ok SLO stream and driftreport's "
+                        "numerics.jsonl comparison",
+    ),
+    "checkpoint_chunk_requeued": EventSpec(
+        "corrupt/torn checkpoint chunk detected and requeued",
+        operator_reason='crash-recovery forensics for resumed sweeps',
+    ),
+    "fault_injected": EventSpec(
+        "deterministic fault armed by a chaos drill",
+        operator_reason="drill forensics: pairs each injected fault with the "
+                        "recovery records it provoked",
+    ),
+    "mesh_degraded": EventSpec(
+        "elastic mesh shrank after device loss",
+        operator_reason="counted via mesh_shrinks which obsreport reconciles; "
+                        "record carries the lost device ids",
+    ),
+    "segment_sealed": EventSpec(
+        "the flight recorder's live rotation segment hit a size/age bound (or "
+        "was sealed at close) and published its seal.json (record carries "
+        "segment name, bytes, run ids)",
+        consumers=("obsreport",),
+    ),
+    "segments_compacted": EventSpec(
+        "retention reclaimed sealed segments past the policy's byte bound and "
+        "merged them into the compacted.json tombstone that exempts their runs "
+        "from span checks",
+        consumers=("obsreport",),
+    ),
+    # -- dispatch planning / memory / telemetry core ---------------------------
     "dispatch_planned": EventSpec(
         "one DispatchPlan resolved (engine rung, bucket, memory plan)",
         operator_reason="DEBUG-level; the plan summary rides span "
@@ -83,6 +174,58 @@ EVENTS = {
 
 
 METRICS = {
+    # -- resilience and the flight recorder ---------------------------------
+    "engine_retries": MetricSpec(
+        "counter",
+        "same-rung ladder retries",
+    ),
+    "engine_demotions": MetricSpec(
+        "counter",
+        "engine-ladder demotions",
+        consumers=("obsreport",),
+    ),
+    "stalls_killed": MetricSpec(
+        "counter",
+        "watchdog deadline kills",
+        consumers=("obsreport",),
+    ),
+    "mesh_shrinks": MetricSpec(
+        "counter",
+        "elastic mesh degradations",
+        consumers=("obsreport",),
+    ),
+    "quarantined_lanes": MetricSpec(
+        "counter",
+        "non-finite lanes masked by the quarantine guard",
+    ),
+    "checkpoint_bytes": MetricSpec(
+        "counter",
+        "bytes of published checkpoint chunk snapshots",
+    ),
+    "numerics_canaries": MetricSpec(
+        "counter",
+        "cross-engine canary re-executions",
+    ),
+    "engine_drift_total": MetricSpec(
+        "counter",
+        "canary comparisons that CONFIRMED drift",
+    ),
+    "engine_drift_expected": MetricSpec(
+        "counter",
+        "canary drift crossings stamped expected (the documented u16-fallback "
+        "pairing class)",
+    ),
+    "telemetry_segments_total": MetricSpec(
+        "counter",
+        "flight-recorder segments sealed by rotation",
+        consumers=("obsreport",),
+    ),
+    "telemetry_bytes_retained": MetricSpec(
+        "gauge",
+        "bytes currently retained across sealed rotation segments (post-compaction)",
+        consumers=("obsreport",),
+    ),
+    # -- rates, device, SLO ---------------------------------------------------
     "epochs_total": MetricSpec(
         "counter", "simulated epochs (lanes x E), from the epoch-rate "
         "reporters",

@@ -38,6 +38,12 @@ from yuma_simulation_tpu_torch.reporting.tables import (
 from yuma_simulation_tpu_torch.reporting.tables import (  # noqa: F401  (promoted)
     generate_total_dividends_table,
 )
+from yuma_simulation_tpu_torch.resilience.retry import (
+    default_retry_policy as _default_retry_policy,
+)
+from yuma_simulation_tpu_torch.resilience.supervisor import (
+    default_deadline as _default_deadline,
+)
 from yuma_simulation_tpu_torch.scenarios.base import Scenario
 from yuma_simulation_tpu_torch.telemetry.runctx import ensure_run as _ensure_run
 from yuma_simulation_tpu_torch.telemetry.runctx import span as _span
@@ -118,14 +124,15 @@ def _simulate_suite(
     divide runs in float64, as the reference's does. Each version's
     outputs come to the host in one copy.
 
-    `supervised=True` (the JAX package's deadline watchdog and
-    engine-degradation ladder) is not ported yet: it raises."""
-    if supervised:
-        raise NotImplementedError(
-            "supervised=True runs the suite under the deadline watchdog and the "
-            "engine-degradation ladder, which are not ported yet (ROADMAP queue A, "
-            "slice 7: resilience)"
-        )
+    Every version rides the engine-degradation ladder with
+    :func:`..resilience.retry.default_retry_policy`, as the JAX package's
+    suite does: a dispatch that runs out of memory retries and demotes down
+    the ladder, on the same device, instead of aborting the whole artifact
+    build (one ``event=engine_demoted`` record per demotion). On the card
+    the ladder ends at the last kernel rung, and a kernel that will not
+    build or launch raises (:mod:`..resilience.retry`). `supervised=True` also arms the deadline watchdog at
+    :func:`..resilience.supervisor.default_deadline`, so a hung dispatch is
+    killed and retried or demoted through the same ladder."""
     if not cases:
         # The chart table renders empty, as the per-case loop did.
         return {}
@@ -135,6 +142,7 @@ def _simulate_suite(
         mask = None
     else:
         W, S, ri, re_, mask = _pad_scenarios(cases, device=dev)
+    deadline = _default_deadline() if supervised else None
     out = {}
     # The whole suite is one run (joining a caller's RunContext when one is
     # open) and each version's dispatch one span under it.
@@ -145,6 +153,7 @@ def _simulate_suite(
                 ys = _simulate_batch(
                     W, S, ri, re_, config, _variant_for_version(yuma_version),
                     save_bonds=True, save_incentives=True, miner_mask=mask, x64=True,
+                    retry_policy=_default_retry_policy(), deadline=deadline,
                 )
             div = ys["dividends"].cpu().numpy()  # [B, Ep, Vp]
             bonds = ys["bonds"].cpu().numpy()  # [B, Ep, Vp, Mp]
@@ -174,7 +183,8 @@ def generate_chart_table(
     """Simulate every case x version and assemble the chart grid (rows =
     chart types per case, columns = versions) as an :class:`HTML`
     (reference v1/api.py:24-132), on the card unless `device="cpu"`.
-    Rendering needs matplotlib. `supervised=True` is not ported yet
+    Rendering needs matplotlib. `supervised=True` arms the deadline
+    watchdog on top of the ladder every version rides
     (:func:`_simulate_suite`)."""
     table_data: dict[str, list[str]] = {v: [] for v, _ in yuma_versions}
     case_row_ranges: list[tuple[int, int, int]] = []
