@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py            # one GPU, a few minutes
 
+(`python3 chip_smoke.py --cache-child MODE` is one process of the cache
+phase below, started by the script itself.)
+
 Builds the CUDA kernels from `yuma_simulation_tpu_torch/csrc` (nvcc, one
 process per source, on first use), then:
 
@@ -82,7 +85,28 @@ process per source, on first use), then:
    256 x 4096, a checkpointed `SweepSupervisor` over 16 scenarios with one
    fault (its bundle checked, a resumed run launching nothing), and
    `simulate` epochs/s supervised against unsupervised in alternating
-   pairs; no demotion but the injected ones;
+   pairs; no demotion but the injected ones; then the kernel-library
+   cache (cache_phase) in four processes on a fresh build directory under
+   build/chip_smoke/cache: a cold one building all four libraries (four
+   misses "absent"), a warm one loading them under a
+   `RecompilationSentinel(budget=0)` with no compile started, one after a
+   library was truncated (a miss "corrupt", that library rebuilt, K3's
+   output bitwise the warm process's), and one after a library's metadata
+   was moved under another toolkit's key (a "stale" entry, rebuilt); the
+   cost records (cost_phase) of every rung at 256 x 4096 x 64, the same
+   work for each, K3's roofline equal to its bound in the kernel line and
+   its attained fraction from K3's event time and from `simulate`'s
+   epochs/s; and the foundry (foundry_phase): `synthetic_snapshot(0)` over
+   40 epochs through `simulate` (one K3 launch, within ATOL / RTOL of K3's
+   plain version), the snapshots of seeds 0-7 through
+   `run_montecarlo(route="batch")` (one K3 launch over [8, 40, 256, 4096],
+   each lane bitwise its solo `simulate`; two of them through the
+   supervised route, on the eager rung, within ATOL / RTOL), the drill
+   population through
+   the batch and supervised routes (each route's rung and launches
+   asserted, each lane bitwise its solo run on that rung, the rungs within
+   ATOL), and `python -m yuma_simulation_tpu_torch.foundry --drill` on the
+   card;
 6. holds K4 (the bisection's support on the tensor cores) against its
    plain version at 256 x 4096 bitwise, timed as K1 at one slab and 16,
    and K2, K3 and K5 with `mxu=True`
@@ -119,7 +143,12 @@ process per source, on first use), then:
    (the stream sets, the capture's ms, the profile windows, the metrics,
    the numerics on / off epochs/s), one `{"resilience": {...}}` line (the
    quarantine's and the supervised sweep's seconds, the canary pair's
-   first divergences, the supervised / unsupervised epochs/s), and one
+   first divergences, the supervised / unsupervised epochs/s), one
+   `{"cache": ...}` line (each process's hits, misses by reason, stale
+   entries, builds, load and process seconds), one `{"cost": ...}` line
+   (the records, the card's spec, K3's and `simulate`'s rooflines), one
+   `{"foundry": ...}` line (each route's rung, the largest K3 / plain and
+   K3 / eager gaps, the seconds of each step, the drill's summary), and one
    `{"kernels": [...]}`
    line for K1-K7 (launches on the
    main paths, max |kernel - plain|, kernel and plain times from CUDA
@@ -143,22 +172,11 @@ import time
 
 import numpy as np
 
+# The H100's peaks and the bound model (bytes over HBM's rate against
+# operations over their peak) live with the cost records they also price.
+from yuma_simulation_tpu_torch.telemetry.cost import BISECT_OPS, ELEMENTWISE_OPS, bound_ms
+
 V, M, E = 256, 4096, 64
-#: H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth, and the
-#: non-tensor-core float32 rate, against which the bisection's int32
-#: compare-adds are counted (the data sheet gives no int32 vector rate).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
-#: Dense int8 tensor-core rate (K4's contraction).
-PEAK_INT8_OPS_PER_S = 1979e12
-#: Elementwise operations per [V, M] cell per epoch outside the bisection
-#: (Yuma 1): the row normalization (scale, add, divide), the clip (min),
-#: the rank (multiply, add), the bond target (min, two multiplies, add,
-#: multiply), its column sum and divide, the EMA (two multiplies, add),
-#: and the dividend (multiply, add).
-ELEMENTWISE_OPS = 18
-#: The bisection: 17 halvings of a compare and an add per cell.
-BISECT_OPS = 17 * 2
 VERSIONS = [
     ("Yuma 0 (subtensor)", {}),
     ("Yuma 1 (paper) - liquid alpha on", dict(liquid_alpha=True)),
@@ -214,15 +232,6 @@ def workload(seed: int, E: int, nnz: int = 48, strong: int = 64, shape=None):
         row = quality[chosen] * rng.lognormal(0.0, 0.35, (V, nnz))
         W[e, rows, chosen] = (row / row.sum(axis=1, keepdims=True)).astype(np.float32)
     return W, S, int(np.argmin(quality))
-
-
-def bound_ms(nbytes: float, ops: float, int8_ops: float = 0.0):
-    """max(bytes / HBM rate, operations / their peak rate) in ms, and which
-    of the two binds; `ops` at the float32 vector rate, `int8_ops` at the
-    int8 tensor-core rate."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = ops / PEAK_OPS_PER_S + int8_ops / PEAK_INT8_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -2071,6 +2080,311 @@ def resilience_phase(torch, dev, W_np, S_np, quiet_miner, main_run, launches, re
           f"{SUPERVISION_PAIRS} alternating pairs)", flush=True)
 
 
+#: The cache phase's build directory, made afresh each run.
+CACHE_DIR = os.path.join(OUT_DIR, "cache")
+#: Another toolkit's release line, for the stale entry the cache phase plants.
+OTHER_NVCC = "Cuda compilation tools, release 11.8, V11.8.89"
+
+
+def cache_child(mode: str) -> int:
+    """One process of the cache phase (`chip_smoke.py --cache-child MODE`,
+    its build directory in `$YUMA_TORCH_BUILD_DIR`): load every library
+    through the cache under a `RecompilationSentinel` (budget 0 when `mode`
+    is "warm", where starting `nvcc` to compile also fails the process;
+    `nvcc --version` still gives the key's release line), run K3 once on
+    a fixed input, and print the cache's counters, the compiles, the load
+    seconds and a sha256 of K3's outputs as one JSON line."""
+    import hashlib
+
+    import torch
+
+    from yuma_simulation_tpu_torch.ops import _build
+    from yuma_simulation_tpu_torch.ops.cuda_epoch import fused_varying_scan
+    from yuma_simulation_tpu_torch.ops.launches import launch_counts
+    from yuma_simulation_tpu_torch.utils.profiling import RecompilationSentinel
+
+    compiles = []
+    compile_all = _build._compile_all
+
+    def counted(jobs):
+        if mode == "warm":
+            raise AssertionError(f"the warm process started nvcc for {sorted(jobs)}")
+        compiles.append(sorted(jobs))
+        return compile_all(jobs)
+
+    _build._compile_all = counted
+    budget = {"cold": len(_build.SOURCES), "warm": 0, "rebuild": 1}[mode]
+    t0 = time.perf_counter()
+    with RecompilationSentinel(budget=budget, label=f"cache {mode}") as sentinel:
+        for src in _build.SOURCES:
+            _build.load(src)
+    load_s = time.perf_counter() - t0
+    W, S, _ = workload(seed=1, E=16, shape=(64, 1024))
+    out = fused_varying_scan(torch.tensor(W, device="cuda"), torch.tensor(S, device="cuda"),
+                             epoch_tile=16, save_bonds=False, save_incentives=False)
+    digest = hashlib.sha256()
+    for key in ("dividends_normalized", "final_bonds"):
+        digest.update(out[key].cpu().numpy().tobytes())
+    print(json.dumps(dict(
+        stats=_build.active_cache().stats_payload(), compiles=compiles, load_s=load_s,
+        aot_hits=sentinel.aot_hits, aot_builds=sentinel.aot_builds,
+        k3_sha256=digest.hexdigest(), k3_launches=launch_counts()["varying_scan"],
+    )))
+    return 0
+
+
+def cache_phase(report):
+    """The kernel-library cache across processes, on a fresh build
+    directory: a cold process builds every library (each miss "absent"); a
+    warm one loads them all from disk and compiles nothing; after one
+    library is truncated, a process finds it "corrupt", rebuilds it alone
+    and runs K3 bitwise the warm process; after another library's metadata
+    is moved under another environment's key, a process finds it "stale"
+    and rebuilds it alone."""
+    import glob
+    import shutil
+
+    from yuma_simulation_tpu_torch.ops import _build
+
+    root = os.path.abspath(CACHE_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    n = len(_build.SOURCES)
+
+    def child(mode):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--cache-child", mode],
+            capture_output=True, text=True, timeout=600, cwd=here,
+            env={**os.environ, _build.EXECUTABLE_CACHE_ENV: root},
+        )
+        if proc.returncode:
+            raise AssertionError(f"cache child {mode}: exit {proc.returncode}\n"
+                                 f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        out["process_s"] = time.perf_counter() - t0
+        stats = out["stats"]
+        print(f"cache {mode}: {({k: stats[k] for k in ('hits', 'misses', 'stale', 'builds')})} "
+              f"{stats['miss_reasons']}, load {out['load_s']:.2f} s, "
+              f"process {out['process_s']:.1f} s", flush=True)
+        assert stats["errors"] == 0 and out["k3_launches"] == 1, out
+        return out
+
+    def counts(out):
+        s = out["stats"]
+        return s["hits"], s["misses"], s["stale"], s["builds"], s["miss_reasons"]
+
+    cold = child("cold")
+    assert counts(cold) == (0, n, 0, n, {"absent": n}), cold
+    assert cold["compiles"] == [sorted(_build.SOURCES)] and cold["aot_builds"] == n
+    warm = child("warm")
+    assert counts(warm) == (n, 0, 0, 0, {}) and warm["compiles"] == [], warm
+    assert (warm["aot_hits"], warm["aot_builds"]) == (n, 0)
+    assert warm["k3_sha256"] == cold["k3_sha256"]
+    key = warm["stats"]["env_key"]
+
+    def entry(stem):
+        (found,) = glob.glob(os.path.join(root, f"{stem}-*"))
+        return found
+
+    meta_path = os.path.join(entry("case_scan"), f"{key}.json")
+    with open(meta_path) as f:
+        blob = os.path.join(entry("case_scan"), json.load(f)["blob"])
+    with open(blob, "r+b") as f:
+        f.truncate(os.path.getsize(blob) // 2)
+    corrupt = child("rebuild")
+    assert counts(corrupt) == (n - 1, 1, 0, 1, {"corrupt": 1}), corrupt
+    assert corrupt["compiles"] == [["case_scan.cu"]]
+    assert corrupt["k3_sha256"] == warm["k3_sha256"], "K3 after the rebuild"
+
+    meta_path = os.path.join(entry("ema_scan"), f"{key}.json")
+    with open(meta_path) as f:
+        meta = json.load(f)
+    meta["environment"] = dict(meta["environment"], nvcc=OTHER_NVCC)
+    with open(os.path.join(entry("ema_scan"), f"{_build.environment_key(meta['environment'])}.json"),
+              "w") as f:
+        json.dump(meta, f)
+    os.remove(meta_path)
+    stale = child("rebuild")
+    assert counts(stale) == (n - 1, 0, 1, 1, {}), stale
+    assert stale["compiles"] == [["ema_scan.cu"]]
+    report["cache"] = dict(
+        environment=warm["stats"]["environment"], env_key=key,
+        **{mode: dict(hits=out["stats"]["hits"], misses=out["stats"]["misses"],
+                      stale=out["stats"]["stale"], builds=out["stats"]["builds"],
+                      miss_reasons=out["stats"]["miss_reasons"], load_s=out["load_s"],
+                      process_s=out["process_s"])
+           for mode, out in (("cold", cold), ("warm", warm), ("corrupt", corrupt),
+                             ("stale", stale))},
+        k3_bitwise_after_rebuild=True,
+    )
+
+
+def cost_phase(report, scans):
+    """The cost records of every rung at the main path's 256 x 4096 x 64:
+    the same work for each; K3's roofline against the card's spec is the
+    bound of the kernel line (0.0814 ms, by bytes), and with K3's event
+    time and `simulate`'s epochs/s gives the attained fractions."""
+    import dataclasses
+
+    from yuma_simulation_tpu_torch.telemetry.cost import (
+        capture_engine_costs,
+        resolve_device_spec,
+        roofline,
+    )
+
+    t0 = time.perf_counter()
+    records = capture_engine_costs(V, M, E)
+    assert len({(r.flops, r.bytes_accessed) for r in records.values()}) == 1, records
+    spec = resolve_device_spec(device="cuda")
+    k3 = scans["varying_scan"]
+    roof = roofline(records["fused_varying"], spec, measured_epochs_per_sec=E / (k3["ms"] / 1e3))
+    assert roof.bound == "memory" and k3["bound_by"] == "bytes", (roof, k3)
+    assert abs(roof.predicted_seconds * 1e3 - k3["bound_ms"]) <= 1e-12 * k3["bound_ms"], (roof, k3)
+    assert round(k3["bound_ms"], 4) == 0.0814, k3["bound_ms"]
+    end_to_end = roofline(records["fused_varying"], spec,
+                          measured_epochs_per_sec=report["main_path"]["epochs_per_s"])
+    report["cost"] = dict(
+        spec=dataclasses.asdict(spec),
+        records={name: r.to_json() for name, r in records.items()},
+        k3=roof.to_json(), simulate=end_to_end.to_json(),
+        seconds=time.perf_counter() - t0,
+    )
+    print(f"cost: K3 attains {roof.attained_fraction:.4f} of its roofline "
+          f"({roof.predicted_epochs_per_sec:.1f} epochs/s); simulate "
+          f"{end_to_end.attained_fraction:.6f}", flush=True)
+
+
+def foundry_phase(torch, dev, launches, report):
+    """The scenario foundry on the card. A synthetic real-subnet snapshot
+    (256 x 4096, seed 0) tiled over 40 epochs through `simulate`: one K3
+    launch, within ATOL / RTOL of the same call on K3's plain version. The
+    snapshots of seeds 0-7 through `run_montecarlo(route="batch")`: one K3
+    launch over [8, 40, 256, 4096], each lane bitwise its solo `simulate`;
+    two of them through the supervised route, on the eager rung, within
+    ATOL / RTOL of their K3 lanes.
+    The 8-scenario drill population (mixed shapes, so donor-packed with
+    miner masks) through the batch and supervised routes, both on the eager
+    rung (no launch) and bitwise each other; its same-shaped lanes through
+    the batch route on K3 (one launch), each bitwise its solo `simulate`,
+    and through the supervised route on the eager rung (its quarantine
+    default), each bitwise its solo eager run, the two rungs within ATOL.
+    Then the drill itself, `python -m yuma_simulation_tpu_torch.foundry
+    --drill`, on the card in a fresh bundle directory."""
+    import shutil
+
+    from yuma_simulation_tpu_torch.foundry import (
+        run_montecarlo,
+        scenario_from_snapshot,
+        synthetic_snapshot,
+    )
+    from yuma_simulation_tpu_torch.foundry.__main__ import build_drill_suite
+    from yuma_simulation_tpu_torch.ops.cuda_epoch import fused_varying_scan_plain
+    from yuma_simulation_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from yuma_simulation_tpu_torch.simulation import engine
+    from yuma_simulation_tpu_torch.telemetry import check_bundle, load_bundle
+
+    version = "Yuma 1 (paper)"
+    out, seconds = {}, {}
+
+    def step(name, fn):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return result, launch_counts()
+
+    snaps, seconds["snapshots"] = [], 0.0
+    for seed in range(8):
+        t0 = time.perf_counter()
+        snaps.append(scenario_from_snapshot(synthetic_snapshot(seed), num_epochs=40))
+        seconds["snapshots"] += time.perf_counter() - t0
+    solo, counts = step("simulate", lambda: engine.simulate(snaps[0], version))
+    assert solo.engine == "fused_varying" and counts["varying_scan"] == 1, (solo.engine, counts)
+    assert solo.dividends.shape == (40, V) and np.isfinite(solo.dividends).all()
+    launches["varying_scan"] += counts["varying_scan"]
+    kernel = engine.fused_varying_scan
+    engine.fused_varying_scan = fused_varying_scan_plain
+    try:
+        plain, counts = step("simulate_plain", lambda: engine.simulate(snaps[0], version))
+    finally:
+        engine.fused_varying_scan = kernel
+    assert sum(counts.values()) == 0, counts
+    np.testing.assert_allclose(solo.dividends, plain.dividends, atol=ATOL, rtol=RTOL)
+    out["snapshot_vs_plain_max_abs"] = float(np.abs(solo.dividends - plain.dividends).max())
+
+    batch, counts = step("batch_8_snapshots", lambda: run_montecarlo(snaps, version))
+    assert counts["varying_scan"] == 1 and sum(counts.values()) == 1, counts
+    assert batch["dividends"].shape == (8, 40, V)
+    launches["varying_scan"] += 1
+    solos, counts = step("solo_8_snapshots",
+                         lambda: [engine.simulate(s, version).dividends for s in snaps])
+    assert counts["varying_scan"] == 8, counts
+    launches["varying_scan"] += 8
+    for i, d in enumerate(solos):
+        np.testing.assert_array_equal(batch["dividends"][i], d, err_msg=f"snapshot lane {i}")
+    out["batch_weights_bytes"] = 8 * 40 * V * M * 4
+    sup, counts = step("supervised_2_snapshots",
+                       lambda: run_montecarlo(snaps[:2], version, route="supervised"))
+    assert sum(counts.values()) == 0 and sup["report"].engines_used == ("eager",), counts
+    np.testing.assert_allclose(sup["dividends"], batch["dividends"][:2], atol=ATOL, rtol=RTOL)
+    out["snapshot_k3_vs_eager_max_abs"] = float(
+        np.abs(sup["dividends"] - batch["dividends"][:2]).max())
+    del snaps, solos, batch, sup
+
+    suite = build_drill_suite(0, 8)
+    packed, counts = step("drill_batch", lambda: run_montecarlo(suite, version))
+    assert sum(counts.values()) == 0, counts
+    sup, counts = step("drill_supervised",
+                       lambda: run_montecarlo(suite, version, route="supervised", pack=True))
+    assert sum(counts.values()) == 0 and sup["report"].engines_used == ("eager",), counts
+    np.testing.assert_array_equal(sup["dividends"], packed["dividends"])
+    same = [s for s in suite if s.weights.shape == suite[0].weights.shape]
+    k3, counts = step("drill_same_shape_batch", lambda: run_montecarlo(same, version))
+    assert counts["varying_scan"] == 1 and sum(counts.values()) == 1, counts
+    launches["varying_scan"] += 1
+    eager, counts = step("drill_same_shape_supervised",
+                         lambda: run_montecarlo(same, version, route="supervised"))
+    assert sum(counts.values()) == 0 and eager["report"].engines_used == ("eager",), counts
+    solo_k3, counts = step("drill_solo_k3",
+                           lambda: [engine.simulate(s, version).dividends for s in same])
+    assert counts["varying_scan"] == len(same) and sum(counts.values()) == len(same), counts
+    launches["varying_scan"] += len(same)
+    solo_eager, counts = step("drill_solo_eager", lambda: [
+        engine.simulate(s, version, epoch_impl="eager").dividends for s in same])
+    assert sum(counts.values()) == 0, counts
+    for i in range(len(same)):
+        np.testing.assert_array_equal(k3["dividends"][i], solo_k3[i],
+                                      err_msg=f"drill lane {i} on K3")
+        np.testing.assert_array_equal(eager["dividends"][i], solo_eager[i],
+                                      err_msg=f"drill lane {i} on the eager rung")
+    np.testing.assert_allclose(k3["dividends"], eager["dividends"], atol=ATOL, rtol=0)
+    out["routes"] = dict(
+        drill_batch="eager (donor-packed: miner masks)", drill_supervised="eager",
+        drill_same_shape_batch="fused_varying (K3)", drill_same_shape_supervised="eager",
+        same_shape_lanes=len(same), shape=list(same[0].weights.shape),
+        k3_vs_eager_max_abs=float(np.abs(k3["dividends"] - eager["dividends"]).max()),
+    )
+
+    bundle = os.path.abspath(os.path.join(OUT_DIR, "foundry_drill"))
+    shutil.rmtree(bundle, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "yuma_simulation_tpu_torch.foundry", "--drill",
+         "--bundle-dir", bundle],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+    )
+    seconds["drill_process"] = time.perf_counter() - t0
+    assert proc.returncode == 0, (proc.stdout[-3000:], proc.stderr[-3000:])
+    assert check_bundle(load_bundle(bundle)) == []
+    out["drill"] = proc.stdout.strip().splitlines()[-1]
+    out["seconds"] = seconds
+    report["foundry"] = out
+    print(f"foundry: {json.dumps(out)}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2291,6 +2605,10 @@ def main() -> int:
     # Last: the profiler windows of the phases above drop more of their
     # first launches the more the process has run before them (PERF.md §7).
     resilience_phase(torch, dev, W_np, S_np, quiet_miner, main_run, launches, report)
+    # The kernel cache across processes, the rungs' cost records, the foundry.
+    cache_phase(report)
+    cost_phase(report, scans)
+    foundry_phase(torch, dev, launches, report)
 
     replaces = {
         "consensus_bisect": "yuma_simulation_tpu/ops/pallas_consensus.py:80",
@@ -2342,6 +2660,9 @@ def main() -> int:
     print(json.dumps({"telemetry": report["telemetry"]}))
     print(json.dumps({"resilience": report["resilience"]}))
     print(json.dumps({"profiler_windows": PROFILER_WINDOWS}))
+    print(json.dumps({"cache": report["cache"]}))
+    print(json.dumps({"cost": report["cost"]}))
+    print(json.dumps({"foundry": report["foundry"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -2353,4 +2674,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cache-child"]:
+        sys.exit(cache_child(sys.argv[2]))
     sys.exit(main())

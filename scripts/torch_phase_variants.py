@@ -153,7 +153,8 @@ def use(libs: dict, name: str) -> None:
     from yuma_simulation_tpu_torch.ops import _build, cuda_epoch
 
     _build.load("consensus.cu")  # builds and registers every committed source first
-    _build._libs.update(libs[name])
+    for src, lib in libs[name].items():
+        _build._libs[_build.memo_key(src)] = lib
     header = (_build.CSRC / PHASES).read_text()
     for const, mirror in MIRRORS.items():
         value = re.search(r"%s = (\d+);" % const, header).group(1)

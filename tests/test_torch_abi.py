@@ -123,8 +123,10 @@ def test_new_modules_import_without_jax():
     registry, metrics, SLOs, propagation, timing, profiling, the device
     sample, and the packages that re-export them) and the resilience
     slice's (the taxonomy, faults, the guard, the ladder, the watchdog, the
-    supervisor, the flight recorder) import with `jax` made unimportable
-    and pull in nothing of the JAX package."""
+    supervisor, the flight recorder) and the cost and foundry slice's (the
+    kernel-library cache and its AOT surface, the foundry and its drill)
+    import with `jax` made unimportable and pull in nothing of the JAX
+    package."""
     import subprocess
     import sys
 
@@ -156,7 +158,15 @@ def test_new_modules_import_without_jax():
             "yuma_simulation_tpu_torch.resilience.retry",
             "yuma_simulation_tpu_torch.resilience.supervisor",
             "yuma_simulation_tpu_torch.resilience.watchdog",
-            "yuma_simulation_tpu_torch.telemetry.flight"]
+            "yuma_simulation_tpu_torch.telemetry.flight",
+            "yuma_simulation_tpu_torch.ops._build",
+            "yuma_simulation_tpu_torch.simulation.aot",
+            "yuma_simulation_tpu_torch.foundry",
+            "yuma_simulation_tpu_torch.foundry.dsl",
+            "yuma_simulation_tpu_torch.foundry.metagraph",
+            "yuma_simulation_tpu_torch.foundry.adversarial",
+            "yuma_simulation_tpu_torch.foundry.montecarlo",
+            "yuma_simulation_tpu_torch.foundry.__main__"]
     code = (
         "import sys\nsys.modules['jax'] = None\nimport importlib\n"
         f"for m in {mods!r}:\n    importlib.import_module(m)\n"

@@ -39,8 +39,6 @@ TWO_VERSIONS = ["Yuma 1 (paper)", "Yuma 3 (Rhef)"]
 LATER_SLICES = {
     "SimulationClient", "serve",  # slice 11: serve
     "SnapshotArchive", "StateCache", "WhatIfSpec", "sweep_trailing_window",  # slice 10
-    "cartel_scenario", "compile_spec", "load_metagraph_snapshot",  # slice 8: foundry
-    "stake_churn_scenario", "takeover_scenario", "weight_copier_scenario",
 }
 
 

@@ -1274,3 +1274,140 @@ def test_profile_trace_range_holds_k3_kernels(cuda, tmp_path):
     assert dispatch_snapshot()[key]["dispatches"] >= 2
     sample = sample_device_telemetry()
     assert sample["backend"] == "gpu" and sample["device_peak_bytes"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the kernel-library cache (ops/_build.py, simulation/aot.py) and the foundry
+
+#: A child process that loads every library through the cache at
+#: `$YUMA_TORCH_BUILD_DIR` (compiling nothing when `warm`), runs K3 on a
+#: fixed input and prints the cache's counters and a sha256 of K3's output.
+CACHE_CHILD = """
+import hashlib, json, sys
+import numpy as np, torch
+from yuma_simulation_tpu_torch.ops import _build
+from yuma_simulation_tpu_torch.ops.cuda_epoch import fused_varying_scan
+if sys.argv[1] == "warm":
+    def refuse(jobs):
+        raise AssertionError(f"nvcc started for {sorted(jobs)}")
+    _build._compile_all = refuse
+for src in _build.SOURCES:
+    _build.load(src)
+rng = np.random.default_rng(3)
+W = torch.tensor(rng.random((8, 16, 256)), dtype=torch.float32, device="cuda")
+S = torch.tensor(rng.random((8, 16)) + 0.01, dtype=torch.float32, device="cuda")
+out = fused_varying_scan(W, S, epoch_tile=4, save_bonds=False, save_incentives=False)
+digest = hashlib.sha256(out["dividends_normalized"].cpu().numpy().tobytes()).hexdigest()
+print(json.dumps(dict(stats=_build.active_cache().stats_payload(), k3=digest)))
+"""
+
+
+def _cache_child(root, mode):
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    proc = subprocess.run(
+        [sys.executable, "-c", CACHE_CHILD, mode], capture_output=True, text=True, timeout=600,
+        cwd=repo, env={**os.environ, "YUMA_TORCH_BUILD_DIR": str(root),
+                       "PYTHONPATH": str(repo)},
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_cache_warm_process_compiles_nothing_and_a_corrupt_library_is_rebuilt(cuda, tmp_path):
+    """A cold process builds every library; a warm one loads them all and
+    starts no compile; a truncated library is a "corrupt" miss, rebuilt
+    alone, and K3 runs bitwise as before."""
+    import json
+
+    from yuma_simulation_tpu_torch.ops import _build
+
+    n = len(_build.SOURCES)
+    cold = _cache_child(tmp_path, "cold")
+    assert (cold["stats"]["builds"], cold["stats"]["miss_reasons"]) == (n, {"absent": n})
+    warm = _cache_child(tmp_path, "warm")
+    assert (warm["stats"]["hits"], warm["stats"]["builds"], warm["stats"]["misses"]) == (n, 0, 0)
+    assert warm["k3"] == cold["k3"]
+    entry = next(tmp_path.glob("case_scan-*"))
+    meta = json.loads((entry / f"{warm['stats']['env_key']}.json").read_text())
+    blob = entry / meta["blob"]
+    blob.write_bytes(blob.read_bytes()[:1000])
+    again = _cache_child(tmp_path, "rebuild")
+    assert again["stats"]["miss_reasons"] == {"corrupt": 1}
+    assert (again["stats"]["builds"], again["stats"]["hits"]) == (1, n - 1)
+    assert again["k3"] == cold["k3"]
+
+
+def test_preload_shapes_builds_launches_and_raises_on_a_failed_build(cuda, tmp_path,
+                                                                     monkeypatch):
+    from yuma_simulation_tpu_torch.ops import _build
+    from yuma_simulation_tpu_torch.simulation.aot import configure_executable_cache, preload_shapes
+
+    reset_launch_counts()
+    assert preload_shapes([(16, 8, 128), (40, 3, 2)]) == 2
+    assert preload_shapes([(16, 8, 128)], batch=3) == 1
+    assert launch_counts()["varying_scan"] == 3
+    _build.deactivate_executable_cache()
+    try:
+        configure_executable_cache(tmp_path)
+        monkeypatch.setattr(_build, "_compile_all",
+                            lambda jobs: {src: (1, "ptxas fatal : forced") for src in jobs})
+        with pytest.raises(RuntimeError, match="nvcc .* failed"):
+            preload_shapes([(16, 8, 128)])
+        assert _build.active_cache().stats.errors == len(_build.SOURCES)
+    finally:
+        _build.deactivate_executable_cache()
+
+
+def test_attach_executable_runs_the_rung(cuda):
+    from yuma_simulation_tpu_torch.simulation.planner import plan_dispatch
+
+    case = create_case("Case 3")
+    plan = plan_dispatch("t", case.weights.shape, "Yuma 1 (paper)", YumaConfig(), torch.float32,
+                         device="cuda")
+    exe = plan.attach_executable().executable
+    assert exe.source in ("cache", "built") and plan.engine == "fused_varying"
+    W = torch.tensor(case.weights, device="cuda")
+    S = torch.tensor(case.stakes, device="cuda")
+    reset_launch_counts()
+    ys = exe.call(W, S, -1, -1, YumaConfig())
+    assert launch_counts()["varying_scan"] == 1
+    ref = simulate(case, "Yuma 1 (paper)", save_bonds=False, save_incentives=False)
+    np.testing.assert_array_equal(ys["dividends"].cpu().numpy(), ref.dividends)
+
+
+def test_foundry_batch_route_on_k3(cuda):
+    """A same-shaped generated population: the batch route is one K3
+    launch, each lane bitwise its solo `simulate`; the supervised route
+    runs the eager rung (its quarantine default), each lane bitwise its
+    solo eager run; the two rungs, and the CPU, within ATOL."""
+    from yuma_simulation_tpu_torch.foundry import run_montecarlo, weight_copier_scenario
+
+    suite = [weight_copier_scenario(s, num_miners=4, num_epochs=16).scenario for s in range(4)]
+    for version in ("Yuma 1 (paper)", "Yuma 3 (Rhef)", "Yuma 4 (Rhef+relative bonds)"):
+        reset_launch_counts()
+        k3 = run_montecarlo(suite, version)["dividends"]
+        assert launch_counts()["varying_scan"] == 1
+        sup = run_montecarlo(suite, version, route="supervised")
+        assert sup["report"].engines_used == ("eager",)
+        assert launch_counts()["varying_scan"] == 1
+        cpu = run_montecarlo(suite, version, device="cpu")["dividends"]
+        for i, s in enumerate(suite):
+            np.testing.assert_array_equal(k3[i], simulate(s, version).dividends)
+            np.testing.assert_array_equal(
+                sup["dividends"][i], simulate(s, version, epoch_impl="eager").dividends)
+        np.testing.assert_allclose(k3, sup["dividends"], atol=ATOL, rtol=0)
+        np.testing.assert_allclose(k3, cpu, atol=ATOL, rtol=0)
+
+
+def test_foundry_drill_on_the_card(cuda, tmp_path):
+    from yuma_simulation_tpu_torch.foundry.__main__ import main
+    from yuma_simulation_tpu_torch.telemetry import check_bundle, load_bundle
+
+    assert main(["--drill", "--bundle-dir", str(tmp_path / "b")]) == 0
+    assert check_bundle(load_bundle(tmp_path / "b")) == []

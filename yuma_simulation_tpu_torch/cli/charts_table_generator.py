@@ -10,21 +10,27 @@ written as it completes. The suite is simulated on the card unless
 
     python -m yuma_simulation_tpu_torch.cli.charts_table_generator \
         [--bond-penalty 0 0.5 0.99 1.0] [--cases "Case 3" ...] \
-        [--out-dir DIR] [--no-draggable] [--device cuda|cpu] [--profile-dir DIR]
+        [--out-dir DIR] [--no-draggable] [--device cuda|cpu] [--profile-dir DIR] \
+        [--executable-cache DIR]
 
 The invocation is one telemetry run; `--profile-dir` writes a
-`torch.profiler` Chrome trace of it.
+`torch.profiler` Chrome trace of it. `--executable-cache DIR` makes DIR the
+kernels' build directory (the library cache of `ops/_build.py`): a second
+invocation against it loads the libraries without running `nvcc`, and its
+`cache_stats.json` is printed and published there on exit.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import pathlib
 import time
 
 from yuma_simulation_tpu_torch.models.config import SimulationHyperparameters
 from yuma_simulation_tpu_torch.models.variants import canonical_versions
 from yuma_simulation_tpu_torch.scenarios import create_case, get_cases
+from yuma_simulation_tpu_torch.simulation.aot import configure_executable_cache
 from yuma_simulation_tpu_torch.simulation.engine import resolve_device
 from yuma_simulation_tpu_torch.telemetry.runctx import RunContext
 from yuma_simulation_tpu_torch.utils.logging import setup_logging
@@ -67,6 +73,14 @@ def main(argv: list[str] | None = None) -> dict[str, float]:
         default=None,
         help="write a torch.profiler trace of the run to DIR/trace.json",
     )
+    parser.add_argument(
+        "--executable-cache",
+        default=None,
+        metavar="DIR",
+        help="build the CUDA kernels' libraries into DIR, the library cache: a "
+        "second invocation against the same DIR loads them instead of running "
+        "nvcc; cache_stats.json is published there on exit",
+    )
     args = parser.parse_args(argv)
     try:
         import matplotlib  # noqa: F401
@@ -78,6 +92,9 @@ def main(argv: list[str] | None = None) -> dict[str, float]:
         ) from exc
     setup_logging()
     device = resolve_device(args.device)
+    cache = (
+        configure_executable_cache(args.executable_cache) if args.executable_cache else None
+    )
     cases = [create_case(name) for name in args.cases] if args.cases else get_cases()
     args.out_dir.mkdir(parents=True, exist_ok=True)
     seconds = {}
@@ -95,6 +112,8 @@ def main(argv: list[str] | None = None) -> dict[str, float]:
             file_name.write_bytes(table.data.encode("utf-8"))
             seconds[bond_penalty] = time.perf_counter() - t0
             print(f"HTML saved to {file_name} ({seconds[bond_penalty]:.3f} s)")
+    if cache is not None:
+        print(json.dumps({"executable_cache": cache.write_stats()}))
     return seconds
 
 

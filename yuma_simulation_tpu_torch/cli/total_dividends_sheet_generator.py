@@ -9,15 +9,20 @@ card unless `--device cpu` is given:
 
     python -m yuma_simulation_tpu_torch.cli.total_dividends_sheet_generator \
         [--bond-penalty 0 0.5 0.99 1.0] [--out-dir DIR] [--device cuda|cpu] \
-        [--profile-dir DIR]
+        [--profile-dir DIR] [--executable-cache DIR]
 
 The invocation is one telemetry run, each sheet a span under it;
 `--profile-dir` writes a `torch.profiler` Chrome trace of the whole run.
+`--executable-cache DIR` makes DIR the kernels' build directory (the
+library cache of `ops/_build.py`): a second invocation against it loads the
+libraries without running `nvcc`, and its `cache_stats.json` is printed and
+published there on exit.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import pathlib
 import time
 
@@ -25,6 +30,7 @@ from yuma_simulation_tpu_torch.models.config import SimulationHyperparameters
 from yuma_simulation_tpu_torch.models.variants import canonical_versions
 from yuma_simulation_tpu_torch.reporting.tables import generate_total_dividends_table
 from yuma_simulation_tpu_torch.scenarios import get_cases
+from yuma_simulation_tpu_torch.simulation.aot import configure_executable_cache
 from yuma_simulation_tpu_torch.simulation.engine import resolve_device
 from yuma_simulation_tpu_torch.telemetry.runctx import RunContext, span
 from yuma_simulation_tpu_torch.utils.logging import setup_logging
@@ -54,9 +60,20 @@ def main(argv: list[str] | None = None) -> dict[str, float]:
         default=None,
         help="write a torch.profiler trace of the run to DIR/trace.json",
     )
+    parser.add_argument(
+        "--executable-cache",
+        default=None,
+        metavar="DIR",
+        help="build the CUDA kernels' libraries into DIR, the library cache: a "
+        "second invocation against the same DIR loads them instead of running "
+        "nvcc; cache_stats.json is published there on exit",
+    )
     args = parser.parse_args(argv)
     setup_logging()
     device = resolve_device(args.device)
+    cache = (
+        configure_executable_cache(args.executable_cache) if args.executable_cache else None
+    )
     cases = get_cases()
     args.out_dir.mkdir(parents=True, exist_ok=True)
     seconds = {}
@@ -75,6 +92,8 @@ def main(argv: list[str] | None = None) -> dict[str, float]:
             file_name.write_bytes(table.to_csv(float_format="%.6f").encode())
             seconds[bond_penalty] = time.perf_counter() - t0
             print(f"CSV saved to {file_name} ({seconds[bond_penalty]:.3f} s)")
+    if cache is not None:
+        print(json.dumps({"executable_cache": cache.write_stats()}))
     return seconds
 
 

@@ -296,9 +296,11 @@ class SweepSupervisor:
     quarantine: bool = True
     elastic: bool = True
     engine: str = "eager"
-    #: The JAX package's opt-in AOT cost capture into the bundle's
-    #: ``costs.jsonl``. It needs the AOT half of ``telemetry.cost``, which
-    #: is not ported yet (ROADMAP queue A, item 3): True raises.
+    #: Opt-in cost capture (``telemetry.cost``): after the run, the
+    #: :class:`..telemetry.cost.CostRecord` of every rung at the sweep's
+    #: first shape goes to the bundle's ``costs.jsonl`` (needs
+    #: `directory`). Host arithmetic on the shape; a capture failure is
+    #: logged, never reported as the bundle failing.
     capture_costs: bool = False
     #: Cross-engine numerics-canary fraction (``telemetry.numerics``):
     #: re-execute this fraction of units on the DEMOTED rung (deterministic
@@ -326,12 +328,6 @@ class SweepSupervisor:
         if self.profile_every < 0:
             raise ValueError(
                 f"profile_every must be >= 0, got {self.profile_every}"
-            )
-        if self.capture_costs:
-            raise NotImplementedError(
-                "SweepSupervisor(capture_costs=True) needs the AOT cost capture "
-                "of telemetry/cost.py, which is not ported yet (ROADMAP queue A, "
-                "item 3: cost and the kernel cache)"
             )
         if self.profile_every > 0:
             raise NotImplementedError(
@@ -576,6 +572,11 @@ class SweepSupervisor:
                 "num_scenarios": len(scenarios),
                 "unit_size": self.unit_size,
             },
+            cost_request=(
+                dict(zip(("epochs", "V", "M"), np.shape(scenarios[0].weights)),
+                     yuma_version=yuma_version)
+                if scenarios else None
+            ),
         )
 
     def run_grid(
@@ -682,6 +683,10 @@ class SweepSupervisor:
                     else {}
                 ),
             },
+            cost_request=dict(
+                zip(("epochs", "V", "M"), np.shape(scenario.weights)),
+                yuma_version=yuma_version,
+            ),
         )
 
     # -- internals ------------------------------------------------------
@@ -738,6 +743,7 @@ class SweepSupervisor:
         plan=None,
         canary_dispatch: Optional[Callable] = None,
         canary_expected: Optional[str] = None,
+        cost_request: Optional[dict] = None,
     ) -> dict:
         from yuma_simulation_tpu_torch.telemetry import (
             FlightRecorder,
@@ -1025,6 +1031,31 @@ class SweepSupervisor:
                                 directory,
                                 exc_info=True,
                             )
+                        if self.capture_costs and cost_request is not None:
+                            # After the sweep, on the same crash-safe
+                            # bundle; its own guard: by here the bundle
+                            # published, and a capture failure must not
+                            # read as the bundle failing.
+                            try:
+                                from yuma_simulation_tpu_torch.telemetry.cost import (
+                                    capture_engine_costs,
+                                )
+
+                                recorder.record_costs(
+                                    capture_engine_costs(
+                                        cost_request["V"], cost_request["M"],
+                                        cost_request["epochs"],
+                                        yuma_version=cost_request["yuma_version"],
+                                    ),
+                                    run_id=run.run_id,
+                                )
+                            except Exception:
+                                logger.warning(
+                                    "cost capture failed for %s (the flight "
+                                    "bundle itself published)",
+                                    directory,
+                                    exc_info=True,
+                                )
         return {
             "dividends": dividends,
             "quarantine": quarantine,

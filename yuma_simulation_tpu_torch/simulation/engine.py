@@ -1527,7 +1527,8 @@ def simulate_constant(
     the dividends, with the same update helpers :func:`yuma_epoch` uses;
     it needs `num_epochs >= 1`. The constant path has no scenario, so no
     bond reset fires. (JAX's `mesh=` shards the miner axis, ROADMAP queue
-    A, slice 4b; its HBM preflight is slice 5's.)
+    A, slice 4b; its HBM preflight is not ported yet, ROADMAP queue A,
+    item 3.)
 
     Returns `(total_dividends [V], final_bonds [V, M])`.
     """

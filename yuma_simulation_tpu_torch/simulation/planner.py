@@ -34,8 +34,11 @@ The bottom rung is the port's "eager" loop; "xla", the JAX package's name
 for it, is accepted and resolves to "eager". Plans are frozen and
 deterministic: equal inputs give an equal plan. :meth:`DispatchPlan.record`
 logs one ``event=dispatch_planned`` record and stamps the plan on the open
-telemetry span. Not ported yet: `attach_cost` / `attach_executable`
-(ROADMAP queue A, slice 5), miner-sharding meshes (slice 4b).
+telemetry span. :meth:`DispatchPlan.attach_cost` attaches the rung's work
+(:func:`..telemetry.cost.capture_engine_cost`) and
+:meth:`DispatchPlan.attach_executable` its libraries, resolved through the
+kernel cache (:func:`..aot.executable_for_plan`). Not ported yet:
+miner-sharding meshes (ROADMAP queue A, slice 4b).
 """
 
 from __future__ import annotations
@@ -196,11 +199,19 @@ class DispatchPlan:
     #: hand-written rung, and a kernel that will not build or launch
     #: raises instead of demoting (:func:`..resilience.retry.run_ladder`).
     on_card: bool = False
+    #: The rung's cost record (a `telemetry.cost.CostRecord` dict), set only
+    #: by :meth:`attach_cost`.
+    cost: Optional[dict] = None
+    #: The rung resolved on the card (a `simulation.aot.AotExecutable`), set
+    #: only by :meth:`attach_executable`. Left out of equality: a plan with
+    #: a loaded executable is the same plan.
+    executable: Optional[object] = dataclasses.field(default=None, compare=False, repr=False)
 
     def to_json(self) -> dict:
-        out = dataclasses.asdict(self)
+        out = dataclasses.asdict(dataclasses.replace(self, executable=None))
         out["ladder"] = list(self.ladder)
         out["reasons"] = list(self.reasons)
+        out["executable"] = self.executable.describe() if self.executable is not None else None
         return out
 
     def span_attr(self) -> dict:
@@ -252,7 +263,34 @@ class DispatchPlan:
             consensus_impl=self.fallback_consensus if rung == "eager" else self.consensus_impl,
             ladder=self.ladder[self.ladder.index(rung):],
             reasons=self.reasons + (f"circuit breaker re-anchored dispatch at {rung!r}",),
+            # An attached executable is the old rung's.
+            executable=None,
         )
+
+    def attach_cost(self, yuma_version: str = "Yuma 1 (paper)") -> "DispatchPlan":
+        """A copy of this plan with its rung's cost record at its bucket's
+        shape attached (host arithmetic: nothing is built or run)."""
+        from yuma_simulation_tpu_torch.telemetry.cost import capture_engine_cost
+
+        rec = capture_engine_cost(
+            self.engine, self.bucket.V, self.bucket.M, max(1, self.bucket.epochs),
+            yuma_version=yuma_version,
+        )
+        return dataclasses.replace(self, cost=rec.to_json())
+
+    def attach_executable(
+        self, yuma_version: str = "Yuma 1 (paper)", *, cache=None, **kwargs
+    ) -> "DispatchPlan":
+        """A copy of this plan with its rung's libraries loaded through the
+        kernel cache (:func:`..aot.executable_for_plan`; a miss builds, so
+        this is for warm-up, not the hot path). An eager or CPU plan is
+        returned unchanged: it launches no library."""
+        from yuma_simulation_tpu_torch.simulation.aot import executable_for_plan
+
+        exe = executable_for_plan(self, yuma_version, cache=cache, **kwargs)
+        if exe is None:
+            return self
+        return dataclasses.replace(self, executable=exe)
 
 
 def _resolve_spec(spec_or_version) -> VariantSpec:

@@ -1,6 +1,7 @@
 """Telemetry of the port: the JAX package's `telemetry/` as far as ported.
 
-- :mod:`.cost`: the HBM half (device specs, the analytic footprint and
+- :mod:`.cost`: the rungs' work (cost records from the shape, rooflines
+  against the device spec) and the HBM half (the analytic footprint and
   the preflight every dispatch plan runs);
 - :mod:`.numerics`: the per-epoch numerics sketches every `simulate`,
   `simulate_streamed`, `simulate_batch` and `sweep_hyperparams` result
@@ -13,7 +14,8 @@
 - :mod:`.registry`: every event and metric name the port emits;
 - :mod:`.slo`: latency sketches, SLO burn rates, the dispatch timing table;
 - :mod:`.propagation`: cross-process trace continuation;
-- :mod:`.device`: the card's memory, sampled between dispatches;
+- :mod:`.device`: the card's memory, sampled between dispatches, and the
+  kernel builds counted onto ``recompiles``;
 - :mod:`.flight`: the per-run on-disk bundle of a supervised sweep (ledger,
   spans, metrics, numerics, report, SLO state) and its loader and
   consistency checks, in the JAX package's formats (``python -m
@@ -23,15 +25,23 @@ Host-side only: nothing here synchronizes the card on its own.
 """
 
 from yuma_simulation_tpu_torch.telemetry.cost import (  # noqa: F401
+    DEVICE_SPECS,
+    ENGINE_RUNGS,
+    CostRecord,
     DeviceSpec,
     FootprintEstimate,
     HBMPreflightError,
     PreflightVerdict,
+    Roofline,
+    capture_engine_cost,
+    capture_engine_costs,
     estimate_hbm_bytes,
     preflight_hbm,
     resolve_device_spec,
+    roofline,
 )
 from yuma_simulation_tpu_torch.telemetry.device import (  # noqa: F401
+    CompileTracker,
     record_device_telemetry,
     sample_device_telemetry,
 )

@@ -1,10 +1,27 @@
-"""The HBM preflight: device specs and the analytic footprint check.
+"""Cost models: the rungs' work and rooflines, and the HBM preflight.
 
-The counterpart of the HBM half of the JAX package's `telemetry/cost.py`.
-:func:`preflight_hbm` is the check the dispatch planner runs before every
-dispatch: :func:`estimate_hbm_bytes` predicts the peak resident bytes from
-shapes alone, and a shape that cannot fit the card is refused with a typed
-:class:`HBMPreflightError` (a ``ValueError``) and one
+The counterpart of the JAX package's `telemetry/cost.py`, in two halves.
+
+The cost half: :func:`capture_engine_cost` / :func:`capture_engine_costs`
+give a :class:`CostRecord` per engine rung at an `[epochs, V, M]` shape,
+and :func:`roofline` places a record against a :class:`DeviceSpec` and a
+measured rate. JAX fills a record from XLA's compile-time
+``cost_analysis``, which the port has no counterpart of. The port counts
+the rung's *work* from the shape instead: the bytes a run must move (each
+input read once, each output written once) and the operations of an epoch
+(:data:`BISECT_OPS` + :data:`ELEMENTWISE_OPS` per `[V, M]` cell), over
+every epoch, where XLA counts a scan body once. The work is the same for
+every rung at a shape, so a roofline reads the same work whatever
+implements it; ``hlo_fingerprint`` is the build digest of the library a
+fused rung launches (`ops/_build.py`), and the memory fields are
+:func:`estimate_hbm_bytes`'s. The H100's peaks (:data:`PEAK_BYTES_PER_S`
+and the rest) and :func:`bound_ms` are the model `chip_smoke.py` bounds
+every kernel with.
+
+The preflight half: :func:`preflight_hbm` is the check the dispatch planner
+runs before every dispatch: :func:`estimate_hbm_bytes` predicts the peak
+resident bytes from shapes alone, and a shape that cannot fit the card is
+refused with a typed :class:`HBMPreflightError` (a ``ValueError``) and one
 ``event=preflight_rejected`` record, before anything is copied to the card.
 It is on the hot path, so it stays host arithmetic on shapes: the device's
 name and total memory are read once per device and cached, and the card is
@@ -17,9 +34,7 @@ _scratch_layout`): at 256 x 4096 a 16-epoch tile's normalized weights alone
 are 67 MB, more than JAX's six `[V, M]` buffers (25 MB).
 
 The same override variables as the JAX package: ``YUMA_TPU_DEVICE_SPEC``
-(a JSON device spec) and ``YUMA_TPU_PREFLIGHT=0`` (preflight off). The AOT
-cost capture and the roofline model are not ported yet (ROADMAP queue A,
-slice 5).
+(a JSON device spec) and ``YUMA_TPU_PREFLIGHT=0`` (preflight off).
 """
 
 from __future__ import annotations
@@ -28,7 +43,7 @@ import dataclasses
 import json
 import logging
 import os
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -53,12 +68,38 @@ WORKING_SET_VM_BUFFERS = 6
 DEFAULT_MEMORY_FRACTION = 0.92
 
 
+#: H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth, and the
+#: non-tensor-core float32 rate, against which the bisection's int32
+#: compare-adds are counted (the data sheet gives no int32 vector rate).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+#: Dense int8 tensor-core rate (K4's contraction).
+PEAK_INT8_OPS_PER_S = 1979e12
+#: Elementwise operations per [V, M] cell per epoch outside the bisection
+#: (Yuma 1): the row normalization (scale, add, divide), the clip (min),
+#: the rank (multiply, add), the bond target (min, two multiplies, add,
+#: multiply), its column sum and divide, the EMA (two multiplies, add),
+#: and the dividend (multiply, add).
+ELEMENTWISE_OPS = 18
+#: The bisection: 17 halvings of a compare and an add per cell.
+BISECT_OPS = 17 * 2
+
+
+def bound_ms(nbytes: float, ops: float, int8_ops: float = 0.0):
+    """max(bytes / HBM rate, operations / their peak rate) in ms, and which
+    of the two binds; `ops` at the float32 vector rate, `int8_ops` at the
+    int8 tensor-core rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S + int8_ops / PEAK_INT8_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
 @dataclasses.dataclass(frozen=True)
 class DeviceSpec:
-    """What one device can do: peak FLOP/s (dense, bf16 on the tensor
-    cores), memory bandwidth (bytes/s) and usable memory (bytes). ``None``
-    means unknown: every consumer then degrades to an unknown verdict (the
-    CPU spec is all None by design)."""
+    """What one device can do: peak operations/s of the arithmetic the
+    rungs do, memory bandwidth (bytes/s) and usable memory (bytes).
+    ``None`` means unknown: every consumer then degrades to an unknown
+    verdict (the CPU spec is all None by design)."""
 
     name: str
     peak_flops: Optional[float] = None
@@ -67,11 +108,13 @@ class DeviceSpec:
 
 
 #: Device-name substring (lowercase) -> spec, the longest key winning. The
-#: rates are NVIDIA's data-sheet figures for the H100 SXM part (dense bf16,
-#: HBM3); the memory is read from the card itself
+#: rates are NVIDIA's data-sheet figures for the H100 SXM part: the float32
+#: rate outside the tensor cores (the rungs' work is float32 and int32
+#: vector arithmetic, :func:`capture_engine_cost`) and HBM3's bandwidth;
+#: the memory is read from the card itself
 #: (`torch.cuda.get_device_properties(dev).total_memory`).
 DEVICE_SPECS: dict[str, DeviceSpec] = {
-    "h100": DeviceSpec("NVIDIA H100", 989e12, 3.35e12),
+    "h100": DeviceSpec("NVIDIA H100", PEAK_OPS_PER_S, PEAK_BYTES_PER_S),
     "cpu": DeviceSpec("cpu"),
 }
 
@@ -133,6 +176,217 @@ def _resolve_uncached(env: str, dev: torch.device) -> DeviceSpec:
                 DEVICE_SPECS[key], name=props.name, memory_bytes=int(props.total_memory)
             )
     return DeviceSpec(name=props.name, memory_bytes=int(props.total_memory))
+
+
+# ---------------------------------------------------------------------------
+# the rungs' work and rooflines
+
+#: The case-scan rungs, best first: `simulation/planner.py::ENGINE_LADDER`,
+#: kept literal here (the planner imports this module).
+ENGINE_RUNGS = (
+    "fused_varying_mxu",
+    "fused_varying",
+    "fused_scan_mxu",
+    "fused_scan",
+    "eager",
+)
+
+
+@dataclasses.dataclass
+class CostRecord:
+    """One engine rung's work at one shape, with JAX's fields. A null field
+    carries a non-null ``reason``. ``flops`` counts the operations of
+    every epoch (float32 and int32 vector operations; on the `_mxu` rungs
+    the support sum runs on the tensor cores, counted the same);
+    ``bytes_accessed`` each input read once and each output written once;
+    ``peak_bytes`` is :func:`estimate_hbm_bytes`'s total (source
+    "estimate_hbm_bytes")."""
+
+    engine: str
+    backend: Optional[str]
+    V: int
+    M: int
+    epochs: int
+    flops: Optional[float] = None
+    bytes_accessed: Optional[float] = None
+    transcendentals: Optional[float] = None
+    argument_bytes: Optional[int] = None
+    output_bytes: Optional[int] = None
+    temp_bytes: Optional[int] = None
+    peak_bytes: Optional[int] = None
+    peak_bytes_source: Optional[str] = None
+    generated_code_bytes: Optional[int] = None
+    hlo_fingerprint: Optional[str] = None
+    reason: Optional[str] = None
+
+    def to_json(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @property
+    def flops_per_epoch(self) -> Optional[float]:
+        if self.flops is None or self.epochs <= 0:
+            return None
+        return self.flops / self.epochs
+
+    @property
+    def bytes_per_epoch(self) -> Optional[float]:
+        if self.bytes_accessed is None or self.epochs <= 0:
+            return None
+        return self.bytes_accessed / self.epochs
+
+
+def capture_engine_cost(
+    engine: str,
+    V: int,
+    M: int,
+    epochs: int,
+    *,
+    yuma_version: str = "Yuma 1 (paper)",
+    config=None,
+    dtype: torch.dtype = torch.float32,
+    save_bonds: bool = False,
+    save_incentives: bool = False,
+) -> CostRecord:
+    """The work of one engine rung over `[epochs, V, M]`, from the shape
+    (nothing is built, allocated or run): per epoch, :data:`BISECT_OPS` +
+    :data:`ELEMENTWISE_OPS` operations a cell and, with liquid alpha, one
+    exponential a cell; the weights and stakes read once; the dividends,
+    the final bonds and the saved streams written once. "xla", the JAX
+    package's name of the bottom rung, is taken as "eager"."""
+    from yuma_simulation_tpu_torch.models.config import YumaConfig
+    from yuma_simulation_tpu_torch.models.variants import variant_for_version
+
+    engine = "eager" if engine == "xla" else engine
+    if engine not in ENGINE_RUNGS:
+        raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINE_RUNGS}")
+    variant_for_version(yuma_version)  # an unknown version is a caller error
+    config = config if config is not None else YumaConfig()
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    E, V, M = int(epochs), int(V), int(M)
+    cells = E * V * M
+    fused = engine != "eager"
+    if fused:
+        from yuma_simulation_tpu_torch.ops._build import library_digest
+        from yuma_simulation_tpu_torch.simulation.planner import scan_scratch_bytes
+
+        scratch = scan_scratch_bytes(engine, V, M)
+    else:
+        scratch = 0
+    est = estimate_hbm_bytes(
+        V, M, resident_epochs=E, itemsize=itemsize, save_bonds=save_bonds,
+        save_incentives=save_incentives, scratch_bytes=scratch,
+    )
+    parts = est.breakdown
+    return CostRecord(
+        engine=engine,
+        backend="gpu" if torch.cuda.is_available() else "cpu",
+        V=V, M=M, epochs=E,
+        flops=float(cells * (BISECT_OPS + ELEMENTWISE_OPS)),
+        bytes_accessed=float(itemsize * (
+            cells + 2 * E * V + V * M
+            + (cells if save_bonds else 0) + (E * M if save_incentives else 0)
+        )),
+        transcendentals=float(cells if config.liquid_alpha else 0),
+        argument_bytes=parts["weights_stack"] + parts["stakes_stack"],
+        output_bytes=sum(parts[k] for k in parts if k.endswith("_out")),
+        temp_bytes=parts["working_set"] + parts.get("scan_scratch", 0),
+        peak_bytes=est.total_bytes,
+        peak_bytes_source="estimate_hbm_bytes",
+        hlo_fingerprint=library_digest("case_scan.cu") if fused else None,
+        reason=(
+            "work counted from the shape over every epoch; generated_code_bytes "
+            "not reported (one library serves every shape)" if fused
+            else "eager rung: plain PyTorch, no library to fingerprint; work "
+            "counted from the shape over every epoch"
+        ),
+    )
+
+
+def capture_engine_costs(
+    V: int,
+    M: int,
+    epochs: int,
+    *,
+    engines: Sequence[str] = ENGINE_RUNGS,
+    yuma_version: str = "Yuma 1 (paper)",
+    config=None,
+    dtype: torch.dtype = torch.float32,
+    save_bonds: bool = False,
+    save_incentives: bool = False,
+) -> dict[str, CostRecord]:
+    """One :class:`CostRecord` per engine rung: the cost report's payload."""
+    return {
+        engine: capture_engine_cost(
+            engine, V, M, epochs, yuma_version=yuma_version, config=config,
+            dtype=dtype, save_bonds=save_bonds, save_incentives=save_incentives,
+        )
+        for engine in engines
+    }
+
+
+@dataclasses.dataclass
+class Roofline:
+    """A rung's position against the device roofline (the JAX package's
+    fields). ``None`` fields mean the spec or the record lacked the inputs."""
+
+    engine: str
+    device: str
+    arithmetic_intensity: Optional[float] = None  # operations / byte
+    ridge_intensity: Optional[float] = None  # peak operations / bandwidth
+    bound: Optional[str] = None  # "compute" | "memory"
+    predicted_seconds: Optional[float] = None
+    predicted_epochs_per_sec: Optional[float] = None
+    measured_epochs_per_sec: Optional[float] = None
+    #: measured / predicted: the fraction of the roofline attained.
+    attained_fraction: Optional[float] = None
+
+    def to_json(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def roofline(
+    record: CostRecord,
+    spec: Optional[DeviceSpec] = None,
+    *,
+    measured_epochs_per_sec: Optional[float] = None,
+) -> Roofline:
+    """Classify `record` compute- or memory-bound under `spec` and predict
+    the epochs/s ceiling, ``t = max(flops / peak_flops, bytes / bandwidth)``,
+    epochs/s = epochs / t; with a measured rate, the attained fraction of
+    the prediction. The JAX package's arithmetic, operation for operation.
+    The port's records count every epoch, so the prediction is the rung's
+    bound, not JAX's optimistic scan-body ceiling."""
+    spec = resolve_device_spec(spec)
+    out = Roofline(
+        engine=record.engine, device=spec.name,
+        measured_epochs_per_sec=measured_epochs_per_sec,
+    )
+    if record.flops is not None and record.bytes_accessed:
+        out.arithmetic_intensity = record.flops / record.bytes_accessed
+    if spec.peak_flops and spec.hbm_bandwidth:
+        out.ridge_intensity = spec.peak_flops / spec.hbm_bandwidth
+    if out.arithmetic_intensity is not None and out.ridge_intensity is not None:
+        out.bound = "compute" if out.arithmetic_intensity >= out.ridge_intensity else "memory"
+    t_compute = (
+        record.flops / spec.peak_flops
+        if record.flops is not None and spec.peak_flops else None
+    )
+    t_memory = (
+        record.bytes_accessed / spec.hbm_bandwidth
+        if record.bytes_accessed is not None and spec.hbm_bandwidth else None
+    )
+    candidates = [t for t in (t_compute, t_memory) if t is not None]
+    if candidates:
+        out.predicted_seconds = max(candidates)
+        if out.predicted_seconds > 0 and record.epochs > 0:
+            out.predicted_epochs_per_sec = record.epochs / out.predicted_seconds
+    if measured_epochs_per_sec is not None and out.predicted_epochs_per_sec:
+        out.attained_fraction = measured_epochs_per_sec / out.predicted_epochs_per_sec
+    return out
+
+
+# ---------------------------------------------------------------------------
+# HBM preflight
 
 
 class HBMPreflightError(ValueError):

@@ -5,8 +5,8 @@ The counterpart of the JAX package's `telemetry/device.py`:
 (`torch.cuda.memory_stats`) of every visible card, and
 :func:`record_device_telemetry` folds the sample into the metrics registry.
 Without CUDA the sample is the JAX package's CPU one: no memory figures
-(None), and the gauges are left untouched. `CompileTracker` waits for the
-kernel-build cache (ROADMAP queue A, slice 5).
+(None), and the gauges are left untouched. :class:`CompileTracker` counts
+the kernel builds (`ops/_build.py`) onto the ``recompiles`` counter.
 """
 
 from __future__ import annotations
@@ -66,3 +66,33 @@ def record_device_telemetry(registry: Optional[MetricsRegistry] = None) -> dict:
             sample["live_buffers"]
         )
     return sample
+
+
+class CompileTracker:
+    """Build observer: the counting sibling of
+    :class:`..utils.profiling.RecompilationSentinel` (which enforces a
+    budget). Call :meth:`record` at span boundaries: every kernel library
+    built since the previous call (or construction) lands on the
+    ``recompiles`` counter. The JAX package's tracks the jit caches of the
+    functions it is given; the port's compiles are its `nvcc` builds, so
+    it tracks those and takes no functions."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
+        self._registry = registry
+        self._baseline = self._builds()
+
+    @staticmethod
+    def _builds() -> int:
+        from yuma_simulation_tpu_torch.ops._build import process_stats
+
+        return process_stats().builds
+
+    def record(self) -> int:
+        """Builds since the last call; increments ``recompiles`` by them."""
+        current = self._builds()
+        new = max(0, current - self._baseline)
+        self._baseline = current
+        if new:
+            reg = self._registry if self._registry is not None else get_registry()
+            reg.counter("recompiles", help="new jit-cache entries observed").inc(new)
+        return new

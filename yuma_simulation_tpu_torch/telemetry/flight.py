@@ -719,16 +719,27 @@ class FlightRecorder:
         )
 
     def record_costs(self, records, *, run_id: Optional[str] = None) -> None:
-        """Append AOT cost records to ``costs.jsonl`` (the JAX package's
-        `capture_engine_costs` records). The cost capture is the AOT half
-        of :mod:`.cost`, which is not ported yet (ROADMAP queue A, item 3:
-        "5, what is left: cost and the kernel cache"): this raises rather
-        than write nothing. Bundles that hold a ``costs.jsonl`` still load
-        and check."""
-        raise NotImplementedError(
-            "FlightRecorder.record_costs needs the AOT cost capture of "
-            "telemetry/cost.py, which is not ported yet (ROADMAP queue A, "
-            "item 3: cost and the kernel cache)"
+        """Append cost records (:class:`..cost.CostRecord` instances or their
+        ``to_json`` dicts) to ``costs.jsonl``, each stamped with `run_id`.
+        Merged by ``(run_id, engine, V, M, epochs)``, newest wins: a resumed
+        run's re-capture replaces its earlier line; distinct shapes and runs
+        accumulate."""
+        from yuma_simulation_tpu_torch.utils.checkpoint import publish_atomic
+
+        lines = []
+        for rec in records.values() if isinstance(records, dict) else records:
+            line = rec.to_json() if hasattr(rec, "to_json") else dict(rec)
+            if run_id is not None:
+                line["run_id"] = run_id
+            lines.append(line)
+        path = self.directory / COSTS_NAME
+        merged: dict[tuple, dict] = {}
+        for rec in _read_jsonl(path) + lines:
+            key = tuple(rec.get(k) for k in ("run_id", "engine", "V", "M", "epochs"))
+            merged[key] = rec
+        publish_atomic(
+            path,
+            "".join(json.dumps(r, sort_keys=True) + "\n" for r in merged.values()).encode(),
         )
 
 

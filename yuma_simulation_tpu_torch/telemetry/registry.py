@@ -170,6 +170,41 @@ EVENTS = {
         "burn-rate alert recovered to ok",
         consumers=("serve.service",),
     ),
+    # -- the kernel-library cache (ops._build, simulation.aot) ------------------
+    "executable_cache_hit": EventSpec(
+        "one published executable deserialized and dispatched (cold "
+        "start skipped a compile)",
+        operator_reason="cold-start forensics: one record per program "
+        "load; the executable_cache_hits counter is the reconciled "
+        "aggregate the CI cold-start lane asserts on via "
+        "cache_stats.json",
+    ),
+    "executable_cache_miss": EventSpec(
+        "no loadable artifact for this program (reason: absent / "
+        "corrupt / torn / undeserializable) — dispatch requeued to JIT",
+        operator_reason="typed miss taxonomy: a corrupt or truncated "
+        "artifact must surface as a greppable reason, never a crash or "
+        "a silent slow start",
+    ),
+    "executable_cache_stale": EventSpec(
+        "artifacts for this exact program exist only under another "
+        "toolchain/device — rebuilt instead of misexecuted",
+        operator_reason="upgrade forensics: a jax/jaxlib bump or a "
+        "device swap shows up as stale misses, the signal to re-warm "
+        "the cache",
+    ),
+    # -- scenario foundry -------------------------------------------------------
+    "scenario_compiled": EventSpec(
+        "one foundry ScenarioSpec materialized to dense Scenario arrays",
+        operator_reason="DEBUG-level log-stream provenance per generated "
+        "scenario; the scenarios_generated counter (obsreport-rendered) "
+        "is the machine-readable process-lifetime aggregate",
+    ),
+    "metagraph_loaded": EventSpec(
+        "one metagraph snapshot file ingested (netuid/block/shape)",
+        operator_reason="ingestion audit trail on the log stream: which "
+        "snapshot file fed which generated suite (grep event=)",
+    ),
 }
 
 
@@ -261,6 +296,37 @@ METRICS = {
     ),
     "slo_slow_burn_active": MetricSpec(
         "gauge", "SLOs currently in slow burn",
+    ),
+    # -- compiles and the kernel-library cache -----------------------------------
+    "compile_seconds": MetricSpec(
+        "histogram", "wall seconds of sentinel regions that added "
+        "jit-cache entries (compile-time upper bound)",
+    ),
+    "recompiles": MetricSpec(
+        "counter", "new jit-cache entries observed by "
+        "RecompilationSentinel regions",
+    ),
+    "executable_cache_hits": MetricSpec(
+        "counter", "published executables deserialized from the cache "
+        "(compiles skipped)",
+    ),
+    "executable_cache_misses": MetricSpec(
+        "counter", "cache lookups with no loadable artifact (absent or "
+        "corrupt — dispatch requeued to JIT)",
+    ),
+    "executable_cache_stale": MetricSpec(
+        "counter", "lookups that found only other-toolchain/device "
+        "artifacts for the program",
+    ),
+    "executable_cache_builds": MetricSpec(
+        "counter", "programs AOT-exported and published after a miss "
+        "(true compiles, counted by RecompilationSentinel budgets)",
+    ),
+    # -- scenario foundry -------------------------------------------------------
+    "scenarios_generated": MetricSpec(
+        "counter", "foundry-generated scenarios (DSL compiles + "
+        "metagraph ingestions + adversarial builds)",
+        consumers=("obsreport",),
     ),
 }
 

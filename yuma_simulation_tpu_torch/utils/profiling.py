@@ -2,9 +2,11 @@
 
 The counterpart of the JAX package's `utils/profiling.py`: :class:`timed`
 and :func:`profile_trace`, with :func:`trace_range_windows` to read a
-named range and the kernels inside it back from the trace. The
-recompilation sentinel and the compilation cache wait for the
-kernel-build cache (ROADMAP queue A, slice 5).
+named range and the kernels inside it back from the trace;
+:class:`RecompilationSentinel`, which budgets the `nvcc` builds of a region
+(the port's compiles: its kernels are built once per program and
+environment, never per shape); and :func:`enable_compilation_cache`,
+which points the build directory.
 """
 
 from __future__ import annotations
@@ -87,6 +89,97 @@ def within(window, windows, slack_us: float = 1.0) -> bool:
     return window is not None and any(
         a - slack_us <= window[0] and window[1] <= b + slack_us for a, b in windows
     )
+
+
+def enable_compilation_cache(cache_dir: Optional[str] = None) -> str:
+    """Point the kernels' build directory (the library cache,
+    `ops/_build.py`) at `cache_dir`, created if absent; None keeps the
+    current one. Returns the directory in use. The JAX package's persistent
+    XLA cache has no counterpart: the libraries are the cache."""
+    from yuma_simulation_tpu_torch.ops import _build
+
+    if cache_dir is None:
+        return str(_build.build_dir())
+    return str(_build.configure_executable_cache(cache_dir).root)
+
+
+class RecompilationBudgetExceeded(RuntimeError):
+    """A :class:`RecompilationSentinel` region built more kernel libraries
+    than its declared budget allows."""
+
+
+class RecompilationSentinel:
+    """Fail loudly when a region compiles beyond a declared budget.
+
+    The port compiles only when a kernel library is missing from the cache
+    (`ops/_build.py`): an `nvcc` build, counted by the process's cache
+    statistics. A region's builds count against `budget` (0: the region
+    must not compile); libraries loaded from the cache cost nothing and
+    are reported on ``aot_hits``, as the JAX package reports its
+    executable-cache loads. Unlike the JAX package's, it tracks no jitted
+    functions: nothing of the port is traced.
+
+    Usage::
+
+        with RecompilationSentinel(budget=0):
+            simulate(...)   # a build here raises on exit
+
+    The check runs on a clean exit only: an exception inside the region
+    propagates untouched."""
+
+    def __init__(self, *, budget: int = 0, label: str = "region"):
+        self.budget = budget
+        self.label = label
+        self.new_entries: Optional[int] = None
+        self.aot_hits: int = 0
+        self.aot_builds: int = 0
+
+    @staticmethod
+    def _snapshot() -> tuple[int, int]:
+        from yuma_simulation_tpu_torch.ops._build import process_stats
+
+        stats = process_stats()
+        return stats.hits, stats.builds
+
+    def __enter__(self) -> "RecompilationSentinel":
+        self._before = self._snapshot()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is not None:
+            return  # don't mask the region's own failure
+        wall_seconds = time.perf_counter() - self._t0
+        hits, builds = self._snapshot()
+        self.aot_hits = max(0, hits - self._before[0])
+        self.aot_builds = max(0, builds - self._before[1])
+        self.new_entries = self.aot_builds
+        if self.new_entries:
+            # Every build a region observes lands on the `recompiles`
+            # counter (over-budget ones too) and its wall time on the
+            # `compile_seconds` histogram and SLO sketch: an upper bound on
+            # the compile cost, since the region may also have run.
+            from yuma_simulation_tpu_torch.telemetry.metrics import get_registry
+            from yuma_simulation_tpu_torch.telemetry.slo import observe_duration
+
+            registry = get_registry()
+            registry.counter("recompiles", help="new jit-cache entries observed").inc(
+                self.new_entries
+            )
+            registry.histogram(
+                "compile_seconds",
+                help="wall seconds of sentinel regions that added jit-cache entries "
+                "(compile-time upper bound)",
+            ).observe(wall_seconds)
+            observe_duration("compile_seconds", wall_seconds)
+        if self.new_entries > self.budget:
+            raise RecompilationBudgetExceeded(
+                f"{self.label}: {self.new_entries} kernel librar"
+                f"{'y' if self.new_entries == 1 else 'ies'} built, over the "
+                f"compile budget of {self.budget} (cache hits: {self.aot_hits}). "
+                "A build in this region means a library was missing from the "
+                "cache or stale under this toolkit, runtime or card."
+            )
 
 
 @dataclass

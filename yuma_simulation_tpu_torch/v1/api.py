@@ -15,6 +15,14 @@ module or to simulate the suite (:func:`_simulate_suite`).
 
 from __future__ import annotations
 
+from yuma_simulation_tpu_torch.foundry import (  # noqa: F401  (promoted, as in JAX's v1)
+    cartel_scenario,
+    compile_spec,
+    load_metagraph_snapshot,
+    stake_churn_scenario,
+    takeover_scenario,
+    weight_copier_scenario,
+)
 from yuma_simulation_tpu_torch.models.config import (  # noqa: F401  (public re-exports)
     SimulationHyperparameters,
     YumaConfig,
@@ -64,9 +72,15 @@ __all__ = [
     "YumaConfig",
     "YumaParams",
     "YumaSimulationNames",
+    "cartel_scenario",
+    "compile_spec",
     "generate_chart_table",
     "generate_total_dividends_table",
+    "load_metagraph_snapshot",
     "run_simulation",
+    "stake_churn_scenario",
+    "takeover_scenario",
+    "weight_copier_scenario",
 ]
 
 
