@@ -276,6 +276,15 @@ def host_ms(torch, fn, calls: int = 20) -> float:
     return total / calls * 1e3
 
 
+def held_profiler():
+    """The process's profiler latch for one of the script's own
+    torch.profiler windows: an ops-plane ProfileSession cannot open while
+    it is held (telemetry/ops.py), and it cannot be taken while one is."""
+    from yuma_simulation_tpu_torch.telemetry.ops import hold_profiler
+
+    return hold_profiler({"mode": "chip_smoke"})
+
+
 def kernel_device_ms(torch, fn, kernel: str, reps: int) -> float:
     """Mean device milliseconds of one launch of kernel `kernel` (its
     `k_*` name), from torch.profiler (CUPTI): the last `reps` of its
@@ -296,7 +305,8 @@ def kernel_device_ms(torch, fn, kernel: str, reps: int) -> float:
     calls = WINDOW_WARMUP + reps
     seen = []
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with held_profiler(), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 with record_function("window_call"):
                     fn()
@@ -416,7 +426,8 @@ def phase_profile(torch, smi, runs, mode: str = "w") -> dict:
     phases = {}
     with open(os.path.join(OUT_DIR, "chip_smoke_profile.txt"), mode) as f:
         for name, fn in runs:
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with held_profiler(), profile(
+                    activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 fn()
                 torch.cuda.synchronize()
             f.write(f"== {name} [{V}, {M}], one call, {smi}\n")
@@ -1155,7 +1166,8 @@ def mc_profile(torch, smi, fn) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with held_profiler(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2385,6 +2397,328 @@ def foundry_phase(torch, dev, launches, report):
     print(f"foundry: {json.dumps(out)}", flush=True)
 
 
+def mesh_phase(torch, dev, launches, report):
+    """Miner-axis sharding on the card (no kernel: the sharded rung is the
+    eager one, and every launch count must stay 0 through its runs).
+    `synthetic_snapshot(0)` at 256 x 4096 over 16 epochs through
+    `simulate(mesh=)` on a [1, 4] and a [1, 2] mesh of `MeshDevice(i,
+    dev)` (every shard on the one card), for Yuma 1, Yuma 1 with liquid
+    alpha (the quantile over the gathered consensus, on the snapshot with
+    512 weights a row, where the fit is not degenerate) and Yuma 3.1 (a
+    reset at epoch 8): each run bitwise
+    `simulate(epoch_impl="eager")` unsharded on the card, on every saved
+    stream; the Yuma 1 run also within ATOL / RTOL of K3's `simulate` (one
+    launch, counted). `shard_epoch_over_miners` on the [1, 4] mesh for the
+    EMA, capacity and relative bond models, every key bitwise `yuma_epoch`.
+    `simulate_constant(mesh=)` both ways, bitwise unsharded. The constant
+    path's preflight refusing, with nothing allocated, a shape whose one
+    shard fits the card but whose four shards on the one card do not."""
+    import dataclasses
+
+    from yuma_simulation_tpu_torch.foundry import scenario_from_snapshot, synthetic_snapshot
+    from yuma_simulation_tpu_torch.models.config import YumaConfig, YumaParams
+    from yuma_simulation_tpu_torch.models.epoch import BondsMode, yuma_epoch
+    from yuma_simulation_tpu_torch.models.miner_shards import MinerSharded
+    from yuma_simulation_tpu_torch.models.variants import variant_for_version
+    from yuma_simulation_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from yuma_simulation_tpu_torch.parallel import MeshDevice, make_mesh, shard_epoch_over_miners
+    from yuma_simulation_tpu_torch.simulation.engine import simulate, simulate_constant
+    from yuma_simulation_tpu_torch.telemetry.cost import (
+        DEFAULT_MEMORY_FRACTION,
+        WORKING_SET_VM_BUFFERS,
+        HBMPreflightError,
+        estimate_hbm_bytes,
+        resolve_device_spec,
+    )
+
+    def mesh_of(n):
+        return make_mesh(data=1, model=n, devices=[MeshDevice(i, dev) for i in range(n)])
+
+    meshes = {"1x4": mesh_of(4), "1x2": mesh_of(2)}
+    base = scenario_from_snapshot(synthetic_snapshot(0), num_epochs=16)
+    reset = dataclasses.replace(base, reset_bonds_index=7, reset_bonds_epoch=8)
+    # Liquid alpha's fit is degenerate (NaN rates) where the consensus
+    # quantiles all sit on the lowest grid step, as at 48 weights a row:
+    # its run takes 512 a row, where the 0.99 quantile is the fit's high.
+    dense = scenario_from_snapshot(synthetic_snapshot(0, nnz_per_row=512), num_epochs=16)
+    runs = [
+        ("Yuma 1 (paper)", YumaConfig(), base),
+        ("Yuma 1 (paper) - liquid alpha on",
+         YumaConfig(yuma_params=YumaParams(liquid_alpha=True)), dense),
+        ("Yuma 3.1 (Rhef+reset)", YumaConfig(), reset),
+    ]
+    out, seconds = {}, {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t0
+        return result
+
+    reset_launch_counts()
+    for version, cfg, scen in runs:
+        kw = dict(save_bonds=True, save_incentives=True, save_consensus=True)
+        ref = timed(f"{version} unsharded eager",
+                    lambda: simulate(scen, version, cfg, epoch_impl="eager", **kw))
+        assert ref.engine == "eager" and np.isfinite(ref.dividends).all(), version
+        for name, mesh in meshes.items():
+            got = timed(f"{version} sharded {name}", lambda: simulate(scen, version, cfg,
+                                                                        mesh=mesh, **kw))
+            assert got.engine == "eager", got.engine
+            for stream in ("dividends", "bonds", "incentives", "consensus"):
+                _np_equal(f"mesh {name} {version} {stream}", getattr(got, stream),
+                          getattr(ref, stream))
+        if version == "Yuma 1 (paper)":
+            eager_ref = ref
+    assert sum(launch_counts().values()) == 0, launch_counts()
+
+    rng = np.random.default_rng(3)
+    W = torch.tensor(base.weights[0], dtype=torch.float32, device=dev)
+    S = torch.tensor(base.stakes[0], dtype=torch.float32, device=dev)
+    for mode in (BondsMode.EMA, BondsMode.CAPACITY, BondsMode.RELATIVE):
+        scale = 1e18 if mode is BondsMode.CAPACITY else 0.5
+        B = torch.tensor(rng.random((V, M)) * scale, dtype=torch.float32, device=dev)
+        got = timed(f"shard_epoch_over_miners {mode.value}",
+                    lambda: shard_epoch_over_miners(W, S, B, YumaConfig(), mesh=meshes["1x4"],
+                                                    bonds_mode=mode))
+        ref = yuma_epoch(W, S, B, YumaConfig(), bonds_mode=mode)
+        assert set(got) == set(ref), (sorted(got), sorted(ref))
+        for key, value in ref.items():
+            g = got[key].numpy() if isinstance(got[key], MinerSharded) else got[key].cpu().numpy()
+            _np_equal(f"shard_epoch_over_miners {mode.value} {key}", g, value.cpu().numpy())
+    spec = variant_for_version("Yuma 1 (paper)")
+    for hoist in (False, True):
+        want = timed(f"simulate_constant hoist={hoist} unsharded",
+                     lambda: simulate_constant(W, S, 16, YumaConfig(), spec,
+                                               hoist_invariant=hoist))
+        got = timed(f"simulate_constant hoist={hoist} sharded 1x4",
+                    lambda: simulate_constant(W, S, 16, YumaConfig(), spec,
+                                              hoist_invariant=hoist, mesh=meshes["1x4"]))
+        for a, b, part in zip(got, want, ("total", "bonds")):
+            check_equal(f"simulate_constant hoist={hoist} {part}", a, b)
+    assert sum(launch_counts().values()) == 0, launch_counts()
+
+    # K3 on the same Yuma 1 run: one launch, counted, within the engines'
+    # reduction-order class of the sharded (= unsharded eager) run.
+    k3 = timed("Yuma 1 (paper) K3", lambda: simulate(base, "Yuma 1 (paper)", save_bonds=True))
+    counts = launch_counts()
+    assert k3.engine == "fused_varying" and counts["varying_scan"] == 1, (k3.engine, counts)
+    launches["varying_scan"] += 1
+    np.testing.assert_allclose(eager_ref.dividends, k3.dividends, atol=ATOL, rtol=RTOL)
+    out["k3_vs_sharded_max_abs"] = float(np.abs(eager_ref.dividends - k3.dividends).max())
+
+    # The preflight per physical device: one shard's working set fits the
+    # card, four shards on the one card do not; nothing is allocated.
+    spec_card = resolve_device_spec(device=dev)
+    budget = int(spec_card.memory_bytes * DEFAULT_MEMORY_FRACTION)
+    Vp = 1024
+    Mp = -(-2 * budget // (WORKING_SET_VM_BUFFERS * Vp * 4))
+    Mp += (-Mp) % (8 * 64)
+    shard = estimate_hbm_bytes(Vp, Mp, resident_epochs=0, miner_shards=4).total_bytes
+    assert shard <= budget < 4 * shard, (shard, budget)
+    big = torch.zeros(1, 1, device=dev).expand(Vp, Mp)  # a view: nothing of [V, M]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    try:
+        simulate_constant(big, torch.ones(Vp, device=dev), 1, mesh=meshes["1x4"])
+    except HBMPreflightError as e:
+        message = str(e)
+    else:
+        raise AssertionError("the preflight let four shards on one card past its memory")
+    assert torch.cuda.memory_allocated(dev) == before
+    out["preflight"] = dict(shape=[Vp, Mp], shard_bytes=shard, budget_bytes=budget,
+                            message=message)
+    out["seconds"] = seconds
+    report["mesh"] = out
+    print(f"mesh: {json.dumps(out)}", flush=True)
+
+
+def fleet_phase(torch, dev, launches, report):
+    """The fleet fabric on the card, at full width. The snapshots of seeds
+    0-7 as [8, 40, 256, 4096] through `run_fleet_batch` in this process with
+    units of two lanes and a supervisor that runs K3 (`quarantine=False`,
+    `engine="fused_varying"`): 4 K3 launches, each lane bitwise its solo
+    `simulate` and `run_montecarlo(route="batch")`'s lane; a second call on
+    the same store launches nothing; `run_montecarlo(route="fleet")` over
+    the same suite gives the same bytes; the same call under the
+    supervisor's quarantine default lands on the eager rung, within ATOL of
+    K3. `run_drill` with its four host processes on the card (every healthy
+    lane bitwise the oracle, `check_fleet` clean, no unit lost or published
+    twice). Two concurrent `total_dividends_sheet_generator --fleet-store`
+    processes: each sheet built once across them, every CSV byte-identical
+    to the plain CLI's (cli_phase's). One ops-plane `ProfileSession` trace
+    window over a fleet unit, opened after uncounted K1 calls, whose trace
+    holds K3's phase kernels. The launches of child processes are not
+    counted."""
+    import shutil
+
+    from yuma_simulation_tpu_torch.fabric import (
+        FleetConfig,
+        FleetStore,
+        check_fleet,
+        merged_ledger,
+        run_fleet_batch,
+    )
+    from yuma_simulation_tpu_torch.fabric.simhost import run_drill
+    from yuma_simulation_tpu_torch.foundry import (
+        run_montecarlo,
+        scenario_from_snapshot,
+        synthetic_snapshot,
+    )
+    from yuma_simulation_tpu_torch.ops.cuda_consensus import stake_weighted_median_cuda
+    from yuma_simulation_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from yuma_simulation_tpu_torch.resilience import SweepSupervisor
+    from yuma_simulation_tpu_torch.simulation.engine import simulate
+    from yuma_simulation_tpu_torch.telemetry.ops import ProfileSession
+
+    version = "Yuma 1 (paper)"
+    root = os.path.abspath(os.path.join(OUT_DIR, "fleet"))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out, seconds = {}, {}
+
+    def step(name, fn):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return result, launch_counts()
+
+    def k3_supervisor():
+        return SweepSupervisor(directory=None, quarantine=False, engine="fused_varying")
+
+    snaps = [scenario_from_snapshot(synthetic_snapshot(seed), num_epochs=40) for seed in range(8)]
+    fleet, counts = step("fleet_batch", lambda: run_fleet_batch(
+        snaps, version, FleetConfig(directory=os.path.join(root, "batch"), unit_size=2),
+        supervisor=k3_supervisor()))
+    assert counts["varying_scan"] == 4 and sum(counts.values()) == 4, counts
+    launches["varying_scan"] += 4
+    assert fleet["dividends"].shape == (8, 40, V) and fleet["report"].clean
+    assert fleet["report"].units_published == 4
+    assert check_fleet(os.path.join(root, "batch")) == []
+    again, counts = step("fleet_batch_again", lambda: run_fleet_batch(
+        snaps, version, FleetConfig(directory=os.path.join(root, "batch"), unit_size=2,
+                                    host_id="late-joiner"),
+        supervisor=k3_supervisor()))
+    assert sum(counts.values()) == 0 and again["host"].units_published == 0, counts
+    np.testing.assert_array_equal(again["dividends"], fleet["dividends"])
+    batch, counts = step("batch_route", lambda: run_montecarlo(snaps, version))
+    assert counts["varying_scan"] == 1, counts
+    launches["varying_scan"] += 1
+    solos, counts = step("solo_8", lambda: [simulate(s, version).dividends for s in snaps])
+    assert counts["varying_scan"] == 8, counts
+    launches["varying_scan"] += 8
+    for i in range(8):
+        _np_equal(f"fleet lane {i} vs solo", fleet["dividends"][i], solos[i])
+        _np_equal(f"fleet lane {i} vs batch route", fleet["dividends"][i],
+                  batch["dividends"][i])
+    routed, counts = step("fleet_route", lambda: run_montecarlo(
+        snaps, version, route="fleet",
+        fleet=FleetConfig(directory=os.path.join(root, "route"), unit_size=2),
+        supervisor=k3_supervisor()))
+    assert counts["varying_scan"] == 4, counts
+    launches["varying_scan"] += 4
+    _np_equal("fleet route vs run_fleet_batch", routed["dividends"], fleet["dividends"])
+    quarantined, counts = step("fleet_route_quarantine_default", lambda: run_montecarlo(
+        snaps, version, route="fleet",
+        fleet=FleetConfig(directory=os.path.join(root, "eager"), unit_size=2)))
+    assert sum(counts.values()) == 0, counts
+    engines = {engine for _, engine in quarantined["report"].unit_engines}
+    assert engines == {"eager"}, quarantined["report"].unit_engines
+    np.testing.assert_allclose(quarantined["dividends"], fleet["dividends"], atol=ATOL, rtol=0)
+    out["k3_vs_eager_max_abs"] = float(np.abs(quarantined["dividends"]
+                                              - fleet["dividends"]).max())
+    del solos, batch, routed, quarantined, again
+
+    # One ops-plane trace window over a fleet unit.
+    session = ProfileSession(os.path.join(root, "ops"))
+    W1 = torch.tensor(snaps[0].weights[0], dtype=torch.float32, device=dev)
+    S1 = torch.tensor(snaps[0].stakes[0], dtype=torch.float32, device=dev)
+    S1 = S1 / S1.sum()
+    started = session.start(120.0)
+    try:
+        for _ in range(WINDOW_WARMUP):  # uncounted: absorb the window's dropped records
+            stake_weighted_median_cuda(W1, S1, 0.5)
+        torch.cuda.synchronize()
+        unit, counts = step("profiled_fleet_unit", lambda: run_fleet_batch(
+            snaps[:2], version, FleetConfig(directory=os.path.join(root, "profiled"),
+                                            unit_size=2),
+            supervisor=k3_supervisor()))
+    finally:
+        published = session.stop()
+    assert counts["varying_scan"] == 1, counts
+    launches["varying_scan"] += 1
+    _np_equal("profiled fleet unit", unit["dividends"], fleet["dividends"][:2])
+    with open(os.path.join(published["artifact"], "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    import re
+
+    names = collections.Counter(
+        found.group(0) for found in (
+            re.search(r"\bk_[a-z_]+", ev.get("name", ""))
+            for ev in events if ev.get("cat") == "kernel")
+        if found
+    )
+    for kernel in ("k_rank", "k_bond", "k_incentive"):
+        assert any(kernel in n for n in names), (kernel, dict(names))
+    out["profile_window"] = dict(artifact=os.path.relpath(published["artifact"]),
+                                 kernels=dict(names), started=started["mode"])
+
+    # The drill: four host processes on the card.
+    t0 = time.perf_counter()
+    drill = run_drill(os.path.join(root, "drill"), device="cuda", timeout=400.0)
+    seconds["drill"] = time.perf_counter() - t0
+    rep = drill["report"]
+    out["drill"] = dict(
+        units=rep.num_units, published=rep.units_published, stolen=rep.units_stolen,
+        hosts_lost=list(rep.hosts_lost), stalls_killed=rep.stalls_killed,
+        lanes_quarantined=rep.lanes_quarantined, rcs=drill["rcs"],
+    )
+
+    # Two concurrent CLI processes on one store.
+    store = os.path.join(root, "sheets_store")
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join(p for p in [here, env.get("PYTHONPATH", "")] if p)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "yuma_simulation_tpu_torch.cli.total_dividends_sheet_generator",
+         "--fleet-store", store, "--out-dir", os.path.join(root, f"sheets{i}")],
+        cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    ) for i in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    seconds["cli_pair"] = time.perf_counter() - t0
+    built = []
+    for p, (stdout, stderr) in zip(procs, outs):
+        assert p.returncode == 0, stderr[-3000:]
+        built.append(stdout.count("Generating total dividends sheet"))
+    assert sum(built) == 4, built
+    ok = [r for r in merged_ledger(FleetStore(store)) if r.get("event") == "unit_ok"]
+    assert len(ok) == 4 and check_fleet(store) == [], ok
+    for i in range(2):
+        for beta in ("0", "0.5", "0.99", "1.0"):
+            name = f"total_dividends_b{beta}.csv"
+            with open(os.path.join(root, f"sheets{i}", name), "rb") as f:
+                mine = f.read()
+            with open(os.path.join(OUT_DIR, "sheets", name), "rb") as f:
+                plain = f.read()
+            assert mine == plain, (i, beta)
+    out["cli_pair"] = dict(sheets_built_per_process=built)
+    out["units_stolen"] = {"drill": rep.units_stolen}
+    out["seconds"] = seconds
+    report["fleet"] = out
+    print(f"fleet: {json.dumps(out)}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2609,6 +2943,9 @@ def main() -> int:
     cache_phase(report)
     cost_phase(report, scans)
     foundry_phase(torch, dev, launches, report)
+    # Miner-axis sharding and the fleet fabric.
+    mesh_phase(torch, dev, launches, report)
+    fleet_phase(torch, dev, launches, report)
 
     replaces = {
         "consensus_bisect": "yuma_simulation_tpu/ops/pallas_consensus.py:80",
@@ -2639,6 +2976,10 @@ def main() -> int:
             plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
             library_ms=m.get("library_ms"),
         ))
+        if name == "varying_scan":
+            kernels[-1]["launches_note"] = (
+                "in-process launches only: the fleet drill's host processes and the "
+                "--fleet-store CLI processes are not counted")
     report["kernels"] = kernels
 
     report["bisect"] = {
@@ -2663,6 +3004,8 @@ def main() -> int:
     print(json.dumps({"cache": report["cache"]}))
     print(json.dumps({"cost": report["cost"]}))
     print(json.dumps({"foundry": report["foundry"]}))
+    print(json.dumps({"mesh": report["mesh"]}))
+    print(json.dumps({"fleet": report["fleet"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -125,8 +125,9 @@ def test_new_modules_import_without_jax():
     slice's (the taxonomy, faults, the guard, the ladder, the watchdog, the
     supervisor, the flight recorder) and the cost and foundry slice's (the
     kernel-library cache and its AOT surface, the foundry and its drill)
-    import with `jax` made unimportable and pull in nothing of the JAX
-    package."""
+    and the mesh, ops-plane and fleet slice's (the miner shards, the ops
+    and incident plane, the fabric and its simulated host) import with
+    `jax` made unimportable and pull in nothing of the JAX package."""
     import subprocess
     import sys
 
@@ -166,7 +167,14 @@ def test_new_modules_import_without_jax():
             "yuma_simulation_tpu_torch.foundry.metagraph",
             "yuma_simulation_tpu_torch.foundry.adversarial",
             "yuma_simulation_tpu_torch.foundry.montecarlo",
-            "yuma_simulation_tpu_torch.foundry.__main__"]
+            "yuma_simulation_tpu_torch.foundry.__main__",
+            "yuma_simulation_tpu_torch.models.miner_shards",
+            "yuma_simulation_tpu_torch.telemetry.ops",
+            "yuma_simulation_tpu_torch.telemetry.timeseries",
+            "yuma_simulation_tpu_torch.telemetry.anomaly",
+            "yuma_simulation_tpu_torch.telemetry.incident",
+            "yuma_simulation_tpu_torch.fabric",
+            "yuma_simulation_tpu_torch.fabric.simhost"]
     code = (
         "import sys\nsys.modules['jax'] = None\nimport importlib\n"
         f"for m in {mods!r}:\n    importlib.import_module(m)\n"

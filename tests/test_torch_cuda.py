@@ -1411,3 +1411,114 @@ def test_foundry_drill_on_the_card(cuda, tmp_path):
 
     assert main(["--drill", "--bundle-dir", str(tmp_path / "b")]) == 0
     assert check_bundle(load_bundle(tmp_path / "b")) == []
+
+
+# ---------------------------------------------------------------------------
+# miner-axis sharding, the fleet fabric and the ops plane
+
+
+@pytest.mark.parametrize("version", ["Yuma 1 (paper)", "Yuma 1 (paper) - liquid alpha on",
+                                     "Yuma 3.1 (Rhef+reset)", "Yuma 4 (Rhef+relative bonds)"])
+def test_miner_sharded_simulate_bitwise_unsharded_on_card(cuda, version):
+    """`simulate(mesh=)` on [1, 2] and [1, 4] meshes of the one card is
+    bitwise the unsharded eager run on every saved stream, and launches no
+    kernel. 256 miners: 128 and 64 a shard."""
+    import dataclasses
+
+    from yuma_simulation_tpu_torch.parallel import MeshDevice, make_mesh
+    from yuma_simulation_tpu_torch.scenarios.synthetic import random_subnet_scenario
+
+    scen = dataclasses.replace(
+        random_subnet_scenario(4, num_validators=24, num_miners=256, num_epochs=8),
+        reset_bonds_index=5, reset_bonds_epoch=4)
+    params = dict(canonical_versions())[version]
+    cfg = YumaConfig(yuma_params=params)
+    kw = dict(save_bonds=True, save_incentives=True, save_consensus=True)
+    ref = simulate(scen, version, cfg, epoch_impl="eager", **kw)
+    for n in (2, 4):
+        mesh = make_mesh(data=1, model=n, devices=[MeshDevice(i, cuda) for i in range(n)])
+        reset_launch_counts()
+        got = simulate(scen, version, cfg, mesh=mesh, **kw)
+        assert sum(launch_counts().values()) == 0
+        for name in ("dividends", "bonds", "incentives", "consensus"):
+            np.testing.assert_array_equal(getattr(got, name), getattr(ref, name),
+                                          err_msg=f"x{n} {name}")
+
+
+def test_fleet_batch_on_k3_counts_launches(cuda, tmp_path):
+    """`run_fleet_batch` with a supervisor that runs K3: one launch a unit,
+    each lane bitwise its solo `simulate`; a second call on the store
+    launches nothing."""
+    from yuma_simulation_tpu_torch.fabric import FleetConfig, run_fleet_batch
+    from yuma_simulation_tpu_torch.foundry import weight_copier_scenario
+    from yuma_simulation_tpu_torch.resilience import SweepSupervisor
+
+    suite = [weight_copier_scenario(s, num_miners=8, num_epochs=16).scenario for s in range(6)]
+    sup = SweepSupervisor(directory=None, quarantine=False, engine="fused_varying")
+    reset_launch_counts()
+    out = run_fleet_batch(suite, "Yuma 1 (paper)",
+                          FleetConfig(directory=tmp_path, unit_size=2), supervisor=sup)
+    assert launch_counts()["varying_scan"] == 3
+    assert out["report"].units_published == 3 and out["report"].clean
+    for i, s in enumerate(suite):
+        np.testing.assert_array_equal(out["dividends"][i],
+                                      simulate(s, "Yuma 1 (paper)").dividends)
+    reset_launch_counts()
+    again = run_fleet_batch(suite, "Yuma 1 (paper)",
+                            FleetConfig(directory=tmp_path, unit_size=2, host_id="late"),
+                            supervisor=sup)
+    assert sum(launch_counts().values()) == 0 and again["host"].units_published == 0
+    np.testing.assert_array_equal(again["dividends"], out["dividends"])
+
+
+def test_profile_session_trace_holds_k3_kernels(cuda, tmp_path):
+    """An ops-plane `ProfileSession` window (its profiler on its own
+    thread) over a K3 dispatch: the trace holds K3's phase kernels; the
+    window is registered in profiles.jsonl; `profile_trace` refuses while
+    it is open. Then a memory snapshot, pickled and registered."""
+    import json
+
+    from yuma_simulation_tpu_torch.telemetry.ops import ProfileBusyError, ProfileSession
+    from yuma_simulation_tpu_torch.utils.profiling import profile_trace
+
+    scen = _stream_scenario()
+    simulate(scen, "Yuma 1 (paper)")
+    session = ProfileSession(tmp_path)
+    session.start(60.0)
+    try:
+        with pytest.raises(ProfileBusyError):
+            with profile_trace(str(tmp_path / "second")):
+                pass
+        W = torch.rand(16, 64, device=cuda)
+        S = torch.rand(16, device=cuda) + 0.1
+        for _ in range(15):  # uncounted: a late window may drop its first records
+            stake_weighted_median_cuda(W / W.sum(1, keepdim=True), S / S.sum(), 0.5)
+        r = simulate(scen, "Yuma 1 (paper)")
+        torch.cuda.synchronize()
+    finally:
+        record = session.stop()
+    assert r.engine == "fused_varying"
+    with open(f"{record['artifact']}/trace.json") as f:
+        names = [ev["name"] for ev in json.load(f)["traceEvents"] if ev.get("cat") == "kernel"]
+    for kernel in ("k_rank", "k_bond", "k_incentive"):
+        assert any(kernel in n for n in names), (kernel, sorted(set(names))[:20])
+    assert (tmp_path / "profiles.jsonl").read_text().count("profile_published") == 1
+    # The memory mode: one snapshot of the caching allocator, registered.
+    import pickle
+
+    snap = session.start(1.0, mode="memory")
+    with open(snap["artifact"], "rb") as f:
+        assert "segments" in pickle.load(f)
+    assert (tmp_path / "profiles.jsonl").read_text().count("profile_published") == 2
+
+
+def test_fleet_drill_on_the_card(cuda, tmp_path):
+    """`run_drill` with its four host processes on the card: the healthy
+    lanes bitwise the oracle's, every unit published once, the fleet gate
+    clean (the drill raises otherwise)."""
+    from yuma_simulation_tpu_torch.fabric.simhost import run_drill
+
+    out = run_drill(tmp_path / "drill", device="cuda", timeout=400.0)
+    report = out["report"]
+    assert report.units_published == report.num_units == 5
+    assert "crash-host" in report.hosts_lost and report.units_stolen >= 1

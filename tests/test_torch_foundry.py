@@ -289,10 +289,10 @@ def test_run_montecarlo_matches_jax(version):
         np.testing.assert_array_equal(td, jd)
 
 
-def test_routes_agree_on_the_cpu():
-    """On the CPU every route lands on the eager rung: batch, supervised
-    and sharded (a two-device CPU mesh) bitwise; the fleet route and
-    unknown routes raise."""
+def test_routes_agree_on_the_cpu(tmp_path):
+    """On the CPU every route lands on the eager rung: batch, supervised,
+    sharded (a two-device CPU mesh) and fleet (a store under `tmp_path`)
+    bitwise; the fleet route without a store and unknown routes raise."""
     suite = tdrill.build_drill_suite(1, 8)
     batch = T.run_montecarlo(suite, "Yuma 1 (paper)", pack=True, device="cpu")
     sup = T.run_montecarlo(suite, "Yuma 1 (paper)", route="supervised", pack=True, device="cpu")
@@ -304,8 +304,11 @@ def test_routes_agree_on_the_cpu():
     np.testing.assert_array_equal(sharded["dividends"], stacked["dividends"])
     with pytest.raises(ValueError, match="needs mesh"):
         T.run_montecarlo(same, "Yuma 1 (paper)", route="sharded")
-    with pytest.raises(NotImplementedError, match="item 9: fleet fabric"):
-        T.run_montecarlo(same, "Yuma 1 (paper)", route="fleet", fleet="store")
+    fleet = T.run_montecarlo(same, "Yuma 3 (Rhef)", route="fleet", fleet=tmp_path / "store",
+                             device="cpu")
+    np.testing.assert_array_equal(fleet["dividends"], stacked["dividends"])
+    with pytest.raises(ValueError, match="needs fleet"):
+        T.run_montecarlo(same, "Yuma 1 (paper)", route="fleet", device="cpu")
     with pytest.raises(ValueError, match="unknown route"):
         T.run_montecarlo(same, "Yuma 1 (paper)", route="pod")
 

@@ -245,8 +245,12 @@ def test_refusals():
     assert laddered.engine == "eager" and laddered.demotions is None
     watched = simulate(scen, version, deadline=Deadline(60.0), device="cpu")
     np.testing.assert_array_equal(watched.dividends, plain.dividends)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        simulate(scen, version, mesh=object(), device="cpu")
+    # A miner-sharding mesh runs (tests/test_torch_mesh_miners.py), but not
+    # streamed.
+    from yuma_simulation_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="cannot be combined with a miner-sharding mesh"):
+        simulate(scen, version, mesh=make_mesh(devices=["cpu"]), max_resident_epochs=1)
     with pytest.raises(ValueError, match="num_chunks"):
         simulate_generated(lambda i: None, 0, version)
     if not torch.cuda.is_available():

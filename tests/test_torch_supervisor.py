@@ -237,14 +237,16 @@ def test_stall_and_device_loss_units(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    """The option that needs a slice not ported yet raises, naming it; so
-    does a fused start under quarantine. The cost capture, ported since,
-    no longer raises: `capture_costs=True` is accepted and
-    `record_costs([])` publishes an empty ``costs.jsonl``
-    (tests/test_torch_cost.py drives both)."""
+    """A fused start under quarantine raises, and so does a negative
+    profiling cadence. The options of the slices ported since no longer
+    raise: `capture_costs=True` is accepted and `record_costs([])`
+    publishes an empty ``costs.jsonl`` (tests/test_torch_cost.py drives
+    both); `profile_every=2` is accepted (tests/test_torch_ops_plane.py
+    drives it)."""
     assert SweepSupervisor(capture_costs=True).capture_costs
-    with pytest.raises(NotImplementedError, match="item 9"):
-        SweepSupervisor(profile_every=2)
+    assert SweepSupervisor(profile_every=2).profile_every == 2
+    with pytest.raises(ValueError, match="profile_every must be >= 0"):
+        SweepSupervisor(profile_every=-1)
     FlightRecorder(tmp_path).record_costs([])
     assert (tmp_path / "costs.jsonl").read_text() == ""
     with pytest.raises(ValueError, match="quarantine rides"):

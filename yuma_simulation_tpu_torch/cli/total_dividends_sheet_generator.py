@@ -9,14 +9,19 @@ card unless `--device cpu` is given:
 
     python -m yuma_simulation_tpu_torch.cli.total_dividends_sheet_generator \
         [--bond-penalty 0 0.5 0.99 1.0] [--out-dir DIR] [--device cuda|cpu] \
-        [--profile-dir DIR] [--executable-cache DIR]
+        [--profile-dir DIR] [--executable-cache DIR] [--fleet-store DIR]
 
 The invocation is one telemetry run, each sheet a span under it;
 `--profile-dir` writes a `torch.profiler` Chrome trace of the whole run.
 `--executable-cache DIR` makes DIR the kernels' build directory (the
 library cache of `ops/_build.py`): a second invocation against it loads the
 libraries without running `nvcc`, and its `cache_stats.json` is printed and
-published there on exit.
+published there on exit. `--fleet-store DIR` coordinates the sheets through
+a shared fleet store (:func:`..fabric.run_fleet_artifacts`): concurrent
+invocations pointed at DIR split the betas into lease-claimed units, each
+sheet is built exactly once across them, a dying process's beta is
+requeued when its lease expires, and every invocation writes the whole
+CSV set once every sheet is published.
 """
 
 from __future__ import annotations
@@ -38,8 +43,9 @@ from yuma_simulation_tpu_torch.utils.profiling import profile_trace
 
 
 def main(argv: list[str] | None = None) -> dict[str, float]:
-    """Write one sheet per `--bond-penalty` value, each as it completes.
-    Returns the wall seconds each sheet took, by value."""
+    """Write one sheet per `--bond-penalty` value, each as it completes (with
+    `--fleet-store`, all of them once the fleet has published every sheet).
+    Returns the wall seconds each sheet this process built took, by value."""
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--bond-penalty",
@@ -68,6 +74,16 @@ def main(argv: list[str] | None = None) -> dict[str, float]:
         "second invocation against the same DIR loads them instead of running "
         "nvcc; cache_stats.json is published there on exit",
     )
+    parser.add_argument(
+        "--fleet-store",
+        default=None,
+        metavar="DIR",
+        help="coordinate the per-beta sheets through a shared fleet store: N "
+        "concurrent invocations pointed at DIR split the betas into "
+        "lease-claimed units, each sheet builds exactly once across them, a "
+        "dying process's beta is requeued on lease expiry, and every "
+        "invocation writes the complete CSV set",
+    )
     args = parser.parse_args(argv)
     setup_logging()
     device = resolve_device(args.device)
@@ -77,21 +93,44 @@ def main(argv: list[str] | None = None) -> dict[str, float]:
     cases = get_cases()
     args.out_dir.mkdir(parents=True, exist_ok=True)
     seconds = {}
+
+    def build_sheet(bond_penalty: str) -> bytes:
+        print(f"Generating total dividends sheet for bond_penalty={bond_penalty}")
+        t0 = time.perf_counter()
+        hp = SimulationHyperparameters(bond_penalty=float(bond_penalty))
+        with span(f"sheet:b{bond_penalty}"):
+            table = generate_total_dividends_table(
+                cases, canonical_versions(), hp, device=device
+            )
+        if table.has_nan():
+            print("Warning: NaN values detected in the dividends table.")
+        data = table.to_csv(float_format="%.6f").encode()
+        seconds[bond_penalty] = time.perf_counter() - t0
+        return data
+
+    def write_sheet(bond_penalty: str, data: bytes) -> None:
+        file_name = args.out_dir / f"total_dividends_b{bond_penalty}.csv"
+        file_name.write_bytes(data)
+        took = f" ({seconds[bond_penalty]:.3f} s)" if bond_penalty in seconds else ""
+        print(f"CSV saved to {file_name}{took}")
+
     with RunContext(), profile_trace(args.profile_dir):
-        for bond_penalty in args.bond_penalty:
-            print(f"Generating total dividends sheet for bond_penalty={bond_penalty}")
-            t0 = time.perf_counter()
-            hp = SimulationHyperparameters(bond_penalty=float(bond_penalty))
-            with span(f"sheet:b{bond_penalty}"):
-                table = generate_total_dividends_table(
-                    cases, canonical_versions(), hp, device=device
-                )
-            if table.has_nan():
-                print("Warning: NaN values detected in the dividends table.")
-            file_name = args.out_dir / f"total_dividends_b{bond_penalty}.csv"
-            file_name.write_bytes(table.to_csv(float_format="%.6f").encode())
-            seconds[bond_penalty] = time.perf_counter() - t0
-            print(f"CSV saved to {file_name} ({seconds[bond_penalty]:.3f} s)")
+        if args.fleet_store is not None:
+            # The fleet path writes after completion: the full set exists
+            # only once every invocation's units are published.
+            from yuma_simulation_tpu_torch.fabric import run_fleet_artifacts
+
+            sheets = run_fleet_artifacts(
+                args.bond_penalty, build_sheet, args.fleet_store,
+                tag="dividend_sheets",
+                config_fingerprint={"driver": "yuma-dividends",
+                                    "betas": list(args.bond_penalty)},
+            )
+            for bond_penalty, data in sheets.items():
+                write_sheet(bond_penalty, data)
+        else:
+            for bond_penalty in args.bond_penalty:
+                write_sheet(bond_penalty, build_sheet(bond_penalty))
     if cache is not None:
         print(json.dumps({"executable_cache": cache.write_stats()}))
     return seconds

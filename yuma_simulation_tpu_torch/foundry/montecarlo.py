@@ -200,7 +200,11 @@ def run_montecarlo(
       - ``"sharded"`` — the data-axis sharded path
         (:func:`..parallel.sharded.simulate_batch_sharded`; needs `mesh`,
         whose devices it runs on);
-      - ``"fleet"`` — not ported yet: raises.
+      - ``"fleet"`` — this process's share of a fleet sweep over the
+        store `fleet` (:func:`..fabric.scheduler.run_fleet_batch`): each
+        unit through `supervisor` (default: a fresh
+        :class:`..resilience.supervisor.SweepSupervisor`, whose quarantine
+        default lands it on the eager rung) on `device`.
 
     Returns the carrier's own dict with `"dividends"` (a numpy `[B, E, V]`)
     always present. Each lane is bitwise its solo run on the rung its
@@ -237,9 +241,13 @@ def run_montecarlo(
 
         return simulate_batch_sharded(scenarios, yuma_version, config, mesh=mesh)
     if route == "fleet":
-        raise NotImplementedError(
-            "run_montecarlo(route='fleet') runs on the fleet fabric (fabric/*), "
-            "which is not ported yet (ROADMAP queue A, item 9: fleet fabric)"
+        if fleet is None:
+            raise ValueError("route='fleet' needs fleet= (a store dir)")
+        from yuma_simulation_tpu_torch.fabric.scheduler import run_fleet_batch
+
+        return run_fleet_batch(
+            scenarios, yuma_version, fleet, config=config,
+            supervisor=supervisor, device=device,
         )
     raise ValueError(
         f"unknown route {route!r} "

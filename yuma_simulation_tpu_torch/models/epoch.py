@@ -45,6 +45,7 @@ from yuma_simulation_tpu_torch.ops.normalize import (
     rank_sum,
     sequential_sum,
     validator_dot,
+    validator_sum,
     xla_chains,
 )
 
@@ -104,7 +105,7 @@ def ema_column_sum(B_ema, B_target, B_old, rate, first=None):
     inner product, `acc = fma(1 - rate, B_old[v], fma(rate, B_target[v],
     acc))`. Else the plain sum."""
     if not xla_chains(*B_ema.shape[-2:]):
-        return B_ema.sum(dim=-2, keepdim=True)
+        return validator_sum(B_ema, keepdim=True)
     adopted = sequential_sum(B_target, -2, keepdim=True)
     if B_old is None:
         return adopted
@@ -229,7 +230,7 @@ def yuma_epoch(
     S_n = normalize_stake(torch.as_tensor(S, dtype=dtype, device=W.device))
 
     # Prerank: stake-weighted column sums of the un-clipped weights.
-    P = (S_n.unsqueeze(-1) * W_n).sum(dim=-2)
+    P = validator_sum(S_n.unsqueeze(-1) * W_n)
 
     kappa = config.kappa
     if consensus_impl == "sorted":

@@ -70,9 +70,15 @@ def dyadic_grid_denom(C: torch.Tensor, grid_bits: int) -> torch.Tensor:
     """Exact last-axis sum of dyadic grid values `k * 2^-grid_bits`,
     rounded once to `C.dtype` (keepdim). The integer sum is
     order-independent."""
+    return dyadic_grid_count(C, grid_bits).to(C.dtype) * (2.0**-grid_bits)
+
+
+def dyadic_grid_count(C: torch.Tensor, grid_bits: int) -> torch.Tensor:
+    """The exact int64 last-axis sum (keepdim) of the grid integers `k` of
+    `C = k * 2^-grid_bits`: partial counts over column shards add to the
+    whole count in any order."""
     k = torch.round(C * float(2**grid_bits)).to(torch.int32)
-    K = k.sum(dim=-1, keepdim=True, dtype=torch.int64)
-    return K.to(C.dtype) * (2.0**-grid_bits)
+    return k.sum(dim=-1, keepdim=True, dtype=torch.int64)
 
 
 def default_consensus_impl(num_validators: int, num_miners: int) -> str:
@@ -204,6 +210,7 @@ def quantize_u16(
     out_dtype: torch.dtype = torch.float32,
     miner_mask: Optional[torch.Tensor] = None,
     grid_bits: Optional[int] = None,
+    denom: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Sum-normalize C and truncate onto the u16 grid:
     `(C / C.sum() * 65535).int() / 65535` (reference yumas.py:97), with
@@ -217,19 +224,23 @@ def quantize_u16(
     `miner_mask` (`[..., M]`, 1 = real miner, 0 = padding of a padded
     suite) zeroes the padded columns before the sum, so padding cannot move
     the grid of the real miners. The int32 gate still takes the padded
-    width, as the JAX package's does."""
+    width, as the JAX package's does.
+
+    `denom` (keepdim, in the sum's dtype) replaces the normalizing sum: a
+    miner shard passes the sum of the whole row (:mod:`..models.miner_shards`)."""
     if miner_mask is not None:
         C = torch.where(miner_mask.to(torch.bool), C, torch.zeros_like(C))
     if sum_dtype is not None:
         C = C.to(sum_dtype)
-    if (
-        grid_bits is not None
-        and sum_dtype is None
-        and dyadic_grid_fits_int32(C.shape[-1], grid_bits)
-    ):
-        denom = dyadic_grid_denom(C, grid_bits)
-    else:
-        denom = miner_sum(C, keepdim=True)
+    if denom is None:
+        if (
+            grid_bits is not None
+            and sum_dtype is None
+            and dyadic_grid_fits_int32(C.shape[-1], grid_bits)
+        ):
+            denom = dyadic_grid_denom(C, grid_bits)
+        else:
+            denom = miner_sum(C, keepdim=True)
     scaled = C / denom * 65535.0
     return scaled.to(torch.int32).to(out_dtype) * U16_INV
 

@@ -9,6 +9,10 @@ All functions broadcast over leading batch dimensions.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+from typing import Iterator
+
 import torch
 
 from yuma_simulation_tpu_torch.ops.fma import fma, fma_chain
@@ -58,6 +62,29 @@ def miner_sum(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
 #: reduces the port spells as XLA's chains of FMAs (see :func:`xla_chains`).
 XLA_CHAIN_MAX = 16
 
+#: The whole epoch's miner count while its columns run in shards
+#: (:func:`miner_width`); None when the tensors hold every column.
+_MINER_WIDTH: contextvars.ContextVar = contextvars.ContextVar("miner_width", default=None)
+
+
+@contextlib.contextmanager
+def miner_width(num_miners: int) -> Iterator[None]:
+    """Within the block, the reduce-spelling predicates (:func:`xla_chains`,
+    :func:`ema_target_columns`) read the epoch's miner count as
+    `num_miners`, not the last axis of the tensors they are given: a miner
+    shard's helpers then spell every reduce as the unsharded epoch does
+    (:mod:`..models.miner_shards`)."""
+    token = _MINER_WIDTH.set(int(num_miners))
+    try:
+        yield
+    finally:
+        _MINER_WIDTH.reset(token)
+
+
+def _width(M: int) -> int:
+    width = _MINER_WIDTH.get()
+    return M if width is None else width
+
 
 def xla_chains(V: int, M: int) -> bool:
     """Whether the reduces of products of a `[V, M]` epoch (the rank's and
@@ -74,16 +101,28 @@ def xla_chains(V: int, M: int) -> bool:
     V = 17 to 200 with M = 2, or at M = 31, 300, 512 or 4096), so the port
     keeps its plain sums there, in the engines' reduction-order class
     (atol 2e-6) and at one op per sum instead of a loop of FMAs."""
-    return V <= XLA_CHAIN_MAX and M < XLA_CHAIN_MAX
+    return V <= XLA_CHAIN_MAX and _width(M) < XLA_CHAIN_MAX
+
+
+def validator_sum(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    """Sum over the validator axis (-2), added strictly in validator order
+    (:func:`sequential_sum`). Every miner column then sums in the same
+    order whatever the tensor's width, so a miner shard's columns sum
+    bitwise as the whole tensor's do (:mod:`..models.miner_shards`).
+    PyTorch's own `sum` over that axis picks a column's order by where it
+    falls among the tensor's vector groups (on the CPU, the columns past
+    the last whole group of 4 vectors add in four interleaved partial
+    sums), so a narrower tensor can round a column differently."""
+    return sequential_sum(x, -2, keepdim)
 
 
 def validator_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """`sum(x * y)` over the validator axis (-2), kept: one fused chain
-    where :func:`xla_chains`, else the plain sum."""
+    where :func:`xla_chains`, else :func:`validator_sum` of the products."""
     x, y = torch.broadcast_tensors(x, y)
     if xla_chains(*x.shape[-2:]):
         return fma_chain(x, y, -2, keepdim=True)
-    return (x * y).sum(dim=-2, keepdim=True)
+    return validator_sum(x * y, keepdim=True)
 
 
 #: Validator counts at which XLA's CPU backend holds the per-validator
@@ -146,7 +185,7 @@ def ema_target_columns(V: int, M: int) -> list:
     two; a remainder of one or two fuses the old bonds' product. Empty at
     every other shape (a dump of JAX's XLA rung at [8, 5] and a probe of
     every spelling per column at M = 2 to 8, ROADMAP §C, C2)."""
-    if V != EMA_REGISTER_VALIDATORS or M > EMA_REGISTER_VALIDATORS:
+    if V != EMA_REGISTER_VALIDATORS or _width(M) > EMA_REGISTER_VALIDATORS:
         return []
     q = M // 4 * 4
     return list(range(q)) + ([q, q + 1] if M - q == 3 else [])

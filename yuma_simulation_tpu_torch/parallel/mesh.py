@@ -7,9 +7,16 @@ controller, as a `jax.sharding.Mesh` is on one host. Its axes:
 - ``"data"``: the scenario / Monte-Carlo batch axis, with no per-epoch
   traffic (:mod:`.sharded` runs one batch per data shard, on that shard's
   device);
-- ``"model"``: the miner axis of the `[V, M]` matrices, which the port does
-  not shard yet (ROADMAP queue A, slice 4b): a data shard runs on the first
-  device of its row.
+- ``"model"``: the miner axis of the `[V, M]` matrices: ``simulate(mesh=)``,
+  ``simulate_constant(mesh=)`` and :func:`.sharded.shard_epoch_over_miners`
+  split it into column shards over the first row's devices
+  (:mod:`..models.miner_shards`); a data shard of a scenario batch runs on
+  the first device of its row.
+
+Single controller: one process drives every shard, with no
+`torch.distributed` collective. Entries may share a device (a `[1, n]`
+mesh of `n` :class:`MeshDevice` entries with distinct ids on one
+``cuda:0``) or sit on `n` cards.
 
 A mesh entry is a :class:`MeshDevice`, a `torch.device` with the integer
 `id` that elastic degradation names lost devices by (the JAX device's `id`):

@@ -20,8 +20,9 @@ the JAX package's `parallel/sharded.py`.
 Every draw is JAX's threefry (:mod:`..random`): the same key gives the same
 scenarios as the JAX package. :func:`simulate_batch_sharded` takes the
 resilience tier's `elastic=` (shrink the mesh on device loss),
-`quarantine=` and `deadline=`. Not ported yet: miner-axis sharding,
-`shard_epoch_over_miners` (ROADMAP queue A, slice 4b).
+`quarantine=` and `deadline=`. :func:`shard_epoch_over_miners` runs one
+epoch with the miner axis split over the mesh's ``model`` axis
+(:mod:`..models.miner_shards`).
 """
 
 from __future__ import annotations
@@ -562,3 +563,54 @@ def montecarlo_total_dividends(
                                      engine == "hoisted", x64)
             outs.append(total)
     return np.concatenate([o.cpu().numpy() for o in outs])[:num_scenarios]
+
+
+def shard_epoch_over_miners(
+    W,
+    S,
+    B_old,
+    config: YumaConfig,
+    *,
+    mesh: Mesh,
+    bonds_mode,
+    consensus_impl: str = "bisect",
+) -> dict:
+    """One consensus epoch with the miner axis sharded over the mesh's
+    ``model`` axis (the JAX package's `shard_epoch_over_miners`): `W [V, M]`
+    and `B_old [V, M]` (or None) split into column shards on the devices of
+    the mesh's first row, `S [V]` replicated. The bisection is per miner and
+    stays shard-local; only the miner-axis sums, the quantization's exact
+    count and liquid alpha's quantiles cross shards
+    (:func:`..models.miner_shards.sharded_epoch`).
+
+    Returns :func:`..models.epoch.yuma_epoch`'s keys. The `[V, M]` and `[M]`
+    outputs stay sharded: each is a
+    :class:`..models.miner_shards.MinerSharded` (`.shards`, one tensor a
+    shard; `.gather()` copies the whole width onto one device for a caller,
+    `.numpy()` onto the host). The `[V]` outputs are tensors on the last
+    shard's device. Values are bitwise the unsharded eager epoch's."""
+    from yuma_simulation_tpu_torch.models.miner_shards import (
+        SHARDED_KEYS,
+        MinerSharded,
+        sharded_epoch,
+    )
+    from yuma_simulation_tpu_torch.simulation.engine import _miner_shardings
+
+    W = torch.as_tensor(W) if not isinstance(W, torch.Tensor) else W
+    layout = _miner_shardings(mesh, W.shape[-1])
+    dtype = W.dtype if W.is_floating_point() else torch.float32
+    W_sh = layout.split(W, dtype)
+    B_sh = None if B_old is None else layout.split(torch.as_tensor(B_old), dtype)
+    S = torch.as_tensor(S, dtype=dtype).to(layout.devices[-1])
+    cfg = _tensor_config(config, layout.devices[0])
+    consensus_impl = resolve_consensus_impl(consensus_impl, *W.shape)
+    with dispatch_annotation("shard_epoch_over_miners"):
+        if layout.shards == 1:  # the unsharded epoch on the mesh's device
+            out = yuma_epoch(W_sh[0], S, None if B_sh is None else B_sh[0], cfg,
+                             bonds_mode=bonds_mode, consensus_impl=consensus_impl)
+            out = {k: (v,) if k in SHARDED_KEYS and v.ndim else v for k, v in out.items()}
+        else:
+            out = sharded_epoch(layout, W_sh, S, B_sh, cfg, bonds_mode=bonds_mode,
+                                consensus_impl=consensus_impl)
+            out.pop("_rate")
+    return {k: MinerSharded(layout, v) if isinstance(v, tuple) else v for k, v in out.items()}

@@ -428,8 +428,7 @@ def active_overload_fault() -> Optional[OverloadFault]:
 
 
 def maybe_crash_host(unit) -> None:
-    """Called by slice 9, the fleet fabric (ROADMAP queue A), which is not
-    ported yet: no call site in the port reaches it. Fabric-scheduler hook: called (host level) immediately after a
+    """Fabric-scheduler hook (:mod:`..fabric.scheduler`): called (host level) immediately after a
     work-unit lease claim has been ledgered. SIGKILLs the process once
     the armed plan's claim count is reached — no Python teardown runs,
     matching a real preemption/OOM kill. The unit id is logged BEFORE
@@ -457,8 +456,7 @@ def maybe_crash_host(unit) -> None:
 
 
 def maybe_tear_lease(path, unit) -> None:
-    """Called by slice 9, the fleet fabric (ROADMAP queue A), which is not
-    ported yet: no call site in the port reaches it. Lease-store hook: called (host level) after each successful
+    """Lease-store hook (:mod:`..fabric.lease`): called (host level) after each successful
     heartbeat renewal of this host's own lease. Truncates the live lease
     file ONCE per armed plan — simulated shared-store corruption of a
     claim record — so scanners exercise torn-lease tolerance and the

@@ -316,10 +316,16 @@ class SweepSupervisor:
     #: bottom — a pure determinism canary, still meaningful: a demoted
     #: RETRY must reproduce the primary's bits).
     canary_engine: Optional[str] = None
-    #: The JAX package's on-demand profiling cadence (every Nth unit under
-    #: a profiler trace, registered in ``profiles.jsonl``). It rides
-    #: ``ProfileSession``, which is not ported yet (ROADMAP queue A, item
-    #: 9): a value > 0 raises.
+    #: On-demand profiling cadence: every Nth unit (unit 0 included)
+    #: dispatches under a ``torch.profiler`` trace written to
+    #: ``DIRECTORY/profiles/unitNNNN`` and registered in the bundle's
+    #: ``profiles.jsonl``, so a long sweep leaves periodic device evidence
+    #: without an operator attaching by hand. The trace holds the process's
+    #: profiler latch (:func:`..utils.profiling.profile_trace`, the one
+    #: :class:`..telemetry.ops.ProfileSession` takes), so it raises
+    #: :class:`..telemetry.ops.ProfileBusyError` rather than open a second
+    #: profiler under an open window. Requires a `directory`; 0 disables
+    #: (the default: a trace costs time).
     profile_every: int = 0
 
     def __post_init__(self) -> None:
@@ -328,12 +334,6 @@ class SweepSupervisor:
         if self.profile_every < 0:
             raise ValueError(
                 f"profile_every must be >= 0, got {self.profile_every}"
-            )
-        if self.profile_every > 0:
-            raise NotImplementedError(
-                "SweepSupervisor(profile_every=) profiles units through "
-                "ProfileSession, which is not ported yet (ROADMAP queue A, item 9: "
-                "the ops and incident plane)"
             )
         if self.engine == "xla":
             self.engine = "eager"
@@ -779,7 +779,33 @@ class SweepSupervisor:
         numerics_records: list = []
 
         def unit_fn(idx: int) -> dict:
-            return _unit_body(idx)
+            if (
+                self.profile_every <= 0
+                or directory is None
+                or idx % self.profile_every != 0
+            ):
+                return _unit_body(idx)
+            # Periodic device evidence: this unit dispatches under a
+            # profiler trace, registered into the bundle whether the unit
+            # succeeds or not (a failing unit's trace is the one that
+            # explains the failure).
+            from yuma_simulation_tpu_torch.utils.profiling import profile_trace
+
+            pdir = directory / "profiles" / f"unit{idx:04d}"
+            log_event(logger, "profile_started", mode="unit", unit=idx, artifact=str(pdir))
+            try:
+                with profile_trace(str(pdir)):
+                    return _unit_body(idx)
+            finally:
+                try:
+                    FlightRecorder(directory).record_profile(
+                        {"event": "profile_published", "mode": "unit", "unit": idx,
+                         "artifact": str(pdir)}
+                    )
+                    log_event(logger, "profile_published", mode="unit", unit=idx,
+                              artifact=str(pdir))
+                except Exception:  # noqa: BLE001 — contained observation
+                    logger.warning("unit profile registration failed", exc_info=True)
 
         def _unit_body(idx: int) -> dict:
             from yuma_simulation_tpu_torch.telemetry.slo import observe_duration

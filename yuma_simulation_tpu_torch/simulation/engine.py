@@ -68,6 +68,12 @@ from yuma_simulation_tpu_torch.models.epoch import (
     relative_bonds_update,
     yuma_epoch,
 )
+from yuma_simulation_tpu_torch.models.miner_shards import (
+    MinerLayout,
+    sharded_dividends,
+    sharded_epoch,
+    sharded_reset,
+)
 from yuma_simulation_tpu_torch.models.variants import (
     ResetMode,
     VariantSpec,
@@ -83,6 +89,7 @@ from yuma_simulation_tpu_torch.ops.cuda_epoch import (
 from yuma_simulation_tpu_torch.ops.fingerprint import flip_ulp
 from yuma_simulation_tpu_torch.ops.liquid import liquid_alpha_rate
 from yuma_simulation_tpu_torch.ops.normalize import (
+    miner_width,
     normalize_stake,
     normalize_weight_rows,
 )
@@ -267,6 +274,35 @@ def config_lanes(config: YumaConfig, lanes: Optional[int] = None) -> int:
     return sizes.pop()[0] if sizes else 1
 
 
+def _miner_shardings(mesh, num_miners: int) -> MinerLayout:
+    """The miner-axis layout of `mesh`: the miner axis split over the mesh's
+    last (``model``) axis, shard `j` on the `j`-th device of the mesh's
+    first row (further rows would hold replicas of the same split; the
+    port computes it once). Refuses, as the JAX package does, a model
+    width that does not divide :data:`..ops.normalize.SUM_BLOCKS` (8), and
+    more than one shard over a miner count that is not a multiple of 8 or
+    is under 16 (:meth:`..models.miner_shards.MinerLayout.build`). Each
+    device must be usable (a CUDA entry needs CUDA)."""
+    row = mesh.grid[0]
+    return MinerLayout.build([resolve_device(d.device) for d in row], num_miners)
+
+
+def _preflight_miner_shards(label: str, layout: MinerLayout, V: int, **estimate_kwargs):
+    """The HBM preflight of a miner-sharded dispatch, per physical device:
+    one shard's footprint (:func:`..telemetry.cost.estimate_hbm_bytes` with
+    `miner_shards`) times the shards that share the device, so four shards
+    on one card are held to one card's memory. Host arithmetic, before
+    anything is allocated; raises :class:`..telemetry.cost.HBMPreflightError`."""
+    from yuma_simulation_tpu_torch.telemetry.cost import estimate_hbm_bytes, preflight_hbm
+
+    for dev, count in layout.shards_per_device().items():
+        estimate = estimate_hbm_bytes(
+            V, layout.num_miners, miner_shards=layout.shards, shards_per_device=count,
+            **estimate_kwargs,
+        )
+        preflight_hbm(label, estimate, device=dev)
+
+
 def _apply_reset(B, C_prev, epoch: int, reset_index, reset_epoch, reset_mode, M):
     """Zero the reset miner's bond column when the variant's rule fires
     (reference simulation_utils.py:62-88); `reset_epoch < 0` disables and
@@ -430,6 +466,102 @@ def _simulate_scan(
     return ys, state.to_dict()
 
 
+def _simulate_scan_miners(
+    layout: MinerLayout,
+    weights,  # [E, V, M], host array or tensor
+    stakes,  # [E, V]
+    reset_index: int,
+    reset_epoch: int,
+    config: YumaConfig,
+    spec: VariantSpec,
+    *,
+    save_bonds: bool = True,
+    save_incentives: bool = True,
+    save_consensus: bool = False,
+    consensus_impl: str = "bisect",
+    carry: Optional[dict] = None,
+    epoch_offset: int = 0,
+    return_carry: bool = False,
+    x64: bool = False,
+    capture_numerics: bool = False,
+    nan_fault_epoch=None,
+    dtype: torch.dtype = torch.float32,
+):
+    """The eager rung with the miner axis sharded over `layout`
+    (:mod:`..models.miner_shards`): each shard's columns of the weights,
+    the bonds, the previous weights and the consensus live on its device
+    for the whole run, and every epoch is :func:`..models.miner_shards.
+    sharded_epoch`, bitwise :func:`_simulate_scan`'s on the same inputs.
+    Returns :func:`_simulate_scan`'s ys, except that the `[E, V, M]` bonds
+    and the `[E, M]` incentives and consensus stay tuples of per-shard
+    stacks (the dividends, `[E, V]`, are on the last shard's device); the
+    carry with `return_carry` comes back gathered onto the first shard's
+    device."""
+    E, V, M = tuple(np.shape(weights))
+    first_dev, last_dev = layout.devices[0], layout.devices[-1]
+    cfg = _tensor_config(config, first_dev)
+    W_all = layout.split(weights, dtype)
+    S_all = torch.as_tensor(stakes, dtype=dtype).to(last_dev)
+    prev = spec.carries_prev_weights
+    if carry is None:
+        bonds = tuple(torch.zeros((V, layout.width), dtype=dtype, device=d) for d in layout.devices)
+        w_prev = bonds if prev else None
+        consensus = tuple(torch.zeros((layout.width,), dtype=dtype, device=d)
+                          for d in layout.devices)
+    else:
+        bonds = layout.split(torch.as_tensor(carry["bonds"], dtype=dtype))
+        consensus = layout.split(torch.as_tensor(carry["consensus"], dtype=dtype))
+        w_prev = layout.split(torch.as_tensor(carry["w_prev"], dtype=dtype)) if prev else None
+    ys: dict = {"dividends": []}
+    if save_bonds:
+        ys["bonds"] = []
+    if save_incentives:
+        ys["incentives"] = []
+    if save_consensus or capture_numerics:
+        ys["consensus"] = []
+    conditional = spec.reset_mode is ResetMode.CONDITIONAL
+    for e in range(E):
+        epoch = e + epoch_offset
+        W = tuple(w[e] for w in W_all)
+        S = S_all[e]
+        B = bonds
+        if spec.reset_mode is not ResetMode.NONE:
+            B = sharded_reset(layout, B, consensus, epoch, reset_index, reset_epoch, conditional)
+        kernel_prev = None
+        if prev:
+            kernel_prev = layout.normalize_rows(W) if epoch == 0 else w_prev
+        res = sharded_epoch(
+            layout, W, S, B, cfg, bonds_mode=spec.bonds_mode, W_prev=kernel_prev,
+            first_epoch=epoch == 0, consensus_impl=consensus_impl, x64=x64,
+        )
+        bonds = res[spec.bond_state_key]
+        w_prev = res["weight"] if prev else None
+        consensus = res["server_consensus_weight"]
+        div = _dividends_per_1k(res["validator_reward_normalized"], S, cfg)
+        if nan_fault_epoch is not None and nan_fault_epoch == epoch:
+            div = torch.full_like(div, float("nan"))
+        ys["dividends"].append(div)
+        for key, value in (("bonds", bonds), ("incentives", res["server_incentive"]),
+                           ("consensus", consensus)):
+            if key in ys:
+                ys[key].append(value)
+    out = {"dividends": torch.stack(ys.pop("dividends"))}
+    for key, steps in ys.items():
+        out[key] = tuple(torch.stack([step[j] for step in steps]) for j in range(layout.shards))
+    if capture_numerics:
+        streams = {"dividends": out["dividends"],
+                   "consensus": layout.gather(out["consensus"], last_dev)}
+        out["numerics"] = _numerics.capture_streams(streams, epoch_axis=0)
+    if not save_consensus:
+        out.pop("consensus", None)
+    if not return_carry:
+        return out
+    state = {"bonds": layout.gather(bonds), "consensus": layout.gather(consensus)}
+    if prev:
+        state["w_prev"] = layout.gather(w_prev)
+    return out, state
+
+
 def _simulate_case_fused(
     weights: torch.Tensor,  # [(B,) E, V, M]
     stakes: torch.Tensor,
@@ -591,17 +723,23 @@ def simulate(
     (`max_resident_epochs`) takes `retry_policy` only, as the JAX
     package's does.
 
-    `mesh` (miner-axis sharding, slice 4b of ROADMAP queue A) is not
-    ported yet and raises; the scenario batch shards through
-    :mod:`..parallel.sharded`.
+    `mesh` (a :class:`..parallel.mesh.Mesh`): the miner axis of every
+    `[V, M]` matrix and `[M]` vector is split over the mesh's ``model``
+    axis for the whole run, shard `j` on the `j`-th device of the mesh's
+    first row, and `device` is not used. The plan takes the eager rung
+    (the fused rungs are single-device kernels, and an explicit one
+    raises), and the result is bitwise the unsharded eager run for every
+    version (:mod:`..models.miner_shards`). Streaming cannot be combined
+    with a mesh.
     """
+    layout = None
     if mesh is not None:
-        raise NotImplementedError(
-            "simulate(mesh=) shards the miner axis over devices, which is not "
-            "ported yet (ROADMAP queue A, slice 4b); a scenario batch shards over "
-            "a mesh's data axis through parallel.simulate_batch_sharded"
-        )
-    dev = resolve_device(device)
+        layout = _miner_shardings(mesh, np.shape(scenario.weights)[-1])
+        dev = layout.devices[0]
+        if layout.shards == 1:  # the unsharded program on the mesh's device
+            layout = None
+    else:
+        dev = resolve_device(device)
     config = config if config is not None else YumaConfig()
     spec = variant_for_version(yuma_version)
     E, V, M = np.shape(scenario.weights)
@@ -623,8 +761,14 @@ def simulate(
         epoch_impl=epoch_impl, consensus_impl=consensus_impl, save_bonds=save_bonds,
         save_incentives=save_incentives, save_consensus=save_consensus,
         max_resident_epochs=max_resident_epochs, check_memory=not will_stream, device=dev,
+        mesh=mesh,
     )
     if will_stream:
+        if mesh is not None:
+            raise ValueError(
+                "max_resident_epochs streaming is single-device; it cannot be "
+                "combined with a miner-sharding mesh"
+            )
 
         def chunk_gen():
             for lo in range(0, E, max_resident_epochs):
@@ -645,8 +789,9 @@ def simulate(
             return_state=return_state, device=dev, x64=x64,
         )
     plan.record()
-    weights = torch.as_tensor(scenario.weights, dtype=dtype).to(dev)
-    stakes = torch.as_tensor(scenario.stakes, dtype=dtype).to(dev)
+    if layout is None:
+        weights = torch.as_tensor(scenario.weights, dtype=dtype).to(dev)
+        stakes = torch.as_tensor(scenario.stakes, dtype=dtype).to(dev)
     capture = _numerics.numerics_enabled()
 
     def dispatch(rung: str):
@@ -663,6 +808,18 @@ def simulate(
             nf = faults.active_nan_fault()
             if nf is not None and nf.case is None:
                 eager_kwargs["nan_fault_epoch"] = nf.epoch
+        if layout is not None:
+            with dispatch_annotation(f"simulate:{rung}"):
+                return _simulate_scan_miners(
+                    layout, scenario.weights, scenario.stakes,
+                    _reset_int(scenario.reset_bonds_index),
+                    _reset_int(scenario.reset_bonds_epoch), config, spec,
+                    save_bonds=save_bonds, save_incentives=save_incentives,
+                    save_consensus=save_consensus, consensus_impl=plan.consensus_impl,
+                    carry=carry, epoch_offset=epoch_offset, return_carry=return_state,
+                    x64=x64, capture_numerics=capture, dtype=dtype,
+                    nan_fault_epoch=eager_kwargs.get("nan_fault_epoch"),
+                )
         with dispatch_annotation(f"simulate:{rung}"):
             out = _dispatch_case(
                 plan.demoted(rung), weights, stakes, _reset_int(scenario.reset_bonds_index),
@@ -694,7 +851,8 @@ def simulate(
         fetch = _numerics.HostFetch(sketches) if sketches is not None else None
         if return_state:
             state = {k: v.cpu().numpy() for k, v in carry_out.items()}
-        host = {k: v.cpu().numpy() for k, v in out.items()}
+        host = {k: layout.host(v) if isinstance(v, tuple) else v.cpu().numpy()
+                for k, v in out.items()}
         numerics = fetch.result() if fetch is not None else None
     # The always-on dispatch timing seam: one observation a dispatched
     # region, keyed by the rung, the plan's shape bucket and the backend.
@@ -746,6 +904,7 @@ def run_simulation(
     yuma_config: Optional[YumaConfig] = None,
     *,
     supervised: bool = False,
+    fleet=None,
     device="cuda",
     x64: bool = False,
 ) -> tuple[dict[str, list[float]], list[np.ndarray], list[np.ndarray]]:
@@ -753,7 +912,18 @@ def run_simulation(
     `(dividends_per_validator, bonds_per_epoch, server_incentives_per_epoch)`
     with numpy arrays in place of torch tensors. `supervised=True` arms the
     default engine ladder and the default deadline watchdog, as the JAX
-    package's does (its `fleet=` waits for the fleet slice)."""
+    package's does.
+
+    `fleet` (a store directory or a :class:`..fabric.FleetConfig`): the
+    case runs as one lease-claimed unit of that store
+    (:func:`..fabric.scheduler.run_fleet_case`, always under the default
+    ladder and watchdog, as the JAX package's), so N processes calling at
+    once run it exactly once and all return the published triple."""
+    if fleet is not None:
+        from yuma_simulation_tpu_torch.fabric.scheduler import run_fleet_case
+
+        return run_fleet_case(case, yuma_version, yuma_config, fleet=fleet,
+                              supervised=True, device=device, x64=x64)
     supervision = {}
     if supervised:
         from yuma_simulation_tpu_torch.resilience.retry import default_retry_policy
@@ -1514,6 +1684,7 @@ def simulate_constant(
     spec: Optional[VariantSpec] = None,
     consensus_impl: str = "bisect",
     hoist_invariant: bool = False,
+    mesh=None,
     *,
     x64: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -1526,9 +1697,20 @@ def simulate_constant(
     depends only on `(W, S)`) once and then only the bond recurrence and
     the dividends, with the same update helpers :func:`yuma_epoch` uses;
     it needs `num_epochs >= 1`. The constant path has no scenario, so no
-    bond reset fires. (JAX's `mesh=` shards the miner axis, ROADMAP queue
-    A, slice 4b; its HBM preflight is not ported yet, ROADMAP queue A,
-    item 3.)
+    bond reset fires.
+
+    Before anything is allocated, the HBM preflight holds the `[V, M]`
+    working set (no epoch stack: ``resident_epochs=0``) to the device's
+    memory, and refuses an unfittable shape with one
+    ``event=preflight_rejected`` record and
+    :class:`..telemetry.cost.HBMPreflightError`.
+
+    `mesh`: the miner axis split over the mesh's ``model`` axis for the
+    whole run, both ways (:mod:`..models.miner_shards`), bitwise the
+    unsharded run; the preflight then holds one shard's working set times
+    the shards on each physical device. The dividend total comes back on
+    the last shard's device and the final bonds gathered onto the first
+    shard's.
 
     Returns `(total_dividends [V], final_bonds [V, M])`.
     """
@@ -1537,10 +1719,94 @@ def simulate_constant(
     _check_scalar_config(config, "simulate_constant")
     if W.ndim != 2:
         raise ValueError(f"W must be [V, M], got {tuple(W.shape)}")
+    V, M = W.shape
+    itemsize = W.element_size()
+    if mesh is not None:
+        layout = _miner_shardings(mesh, M)
+        _preflight_miner_shards("simulate_constant", layout, V, resident_epochs=0,
+                                itemsize=itemsize)
+    else:
+        from yuma_simulation_tpu_torch.telemetry.cost import estimate_hbm_bytes, preflight_hbm
+
+        preflight_hbm("simulate_constant",
+                      estimate_hbm_bytes(V, M, resident_epochs=0, itemsize=itemsize),
+                      device=W.device)
+    consensus_impl = resolve_consensus_impl(consensus_impl, V, M)
+    if mesh is not None and layout.shards == 1:  # the unsharded program there
+        W = W.to(layout.devices[0])
+    elif mesh is not None:
+        cfg = _tensor_config(config, layout.devices[0])
+        S = torch.as_tensor(S, dtype=W.dtype).to(layout.devices[-1])
+        return _constant_run_miners(layout, W, S, num_epochs, cfg, spec, consensus_impl,
+                                    hoist_invariant, x64)
     dev, (S,) = _throughput_inputs(W, S)
-    consensus_impl = resolve_consensus_impl(consensus_impl, *W.shape)
     return _constant_run(W, S, num_epochs, _tensor_config(config, dev), spec, consensus_impl,
                          hoist_invariant, x64)
+
+
+def _constant_run_miners(layout, W, S, num_epochs, cfg, spec, consensus_impl,
+                         hoist_invariant, x64):
+    """:func:`_constant_run` with the miner axis sharded over `layout`:
+    the same loops on :func:`..models.miner_shards.sharded_epoch`, `S` on
+    the last shard's device. Returns the total there and the final bonds
+    gathered onto the first shard's device."""
+    W_sh = layout.split(W)
+    if hoist_invariant:
+        if num_epochs < 1:
+            raise ValueError("hoist_invariant path requires num_epochs >= 1")
+        res0 = sharded_epoch(layout, W_sh, S, None, cfg, bonds_mode=spec.bonds_mode,
+                             consensus_impl=consensus_impl, x64=x64)
+        rate, incentive = res0["_rate"], res0["server_incentive"]
+        relative = spec.bonds_mode is BondsMode.RELATIVE
+
+        def dividends_of(B):
+            D, D_tot = sharded_dividends(layout, B, incentive, res0["stake"] if relative else None)
+            return _dividends_per_1k(D / (D_tot + 1e-6), S, cfg)
+
+        if spec.bonds_mode in EMA_MODES:
+            renorm = spec.bonds_mode is BondsMode.EMA_RUST
+
+            def bonds_update(B_prev):
+                return tuple(ema_bonds_update(bt, bp, r, None, renorm) for bt, bp, r
+                             in zip(res0["validator_bond"], B_prev, rate))
+
+            bonds = res0["validator_ema_bond"]
+        elif spec.bonds_mode is BondsMode.CAPACITY:
+            S_n = [res0["stake"].to(d) for d in layout.devices]
+
+            def bonds_update(B_prev):
+                return tuple(capacity_bonds_update(bp, w, s, cfg) for bp, w, s
+                             in zip(B_prev, res0["weight"], S_n))
+
+            bonds = res0["validator_bonds"]
+        else:  # RELATIVE
+
+            def bonds_update(B_prev):
+                return tuple(relative_bonds_update(bp, w, r) for bp, w, r
+                             in zip(B_prev, res0["weight"], rate))
+
+            bonds = res0["validator_bonds"]
+        acc = dividends_of(bonds)
+        with miner_width(layout.num_miners):
+            for _ in range(num_epochs - 1):
+                bonds = bonds_update(bonds)
+                acc = acc + dividends_of(bonds)
+        return acc, layout.gather(bonds)
+    bonds = tuple(torch.zeros_like(w) for w in W_sh)
+    w_prev = bonds
+    acc = torch.zeros(W.shape[:-1], dtype=W.dtype, device=layout.devices[-1])
+    for epoch in range(num_epochs):
+        first = epoch == 0
+        kernel_prev = None
+        if spec.bonds_mode is BondsMode.EMA_PREV:
+            kernel_prev = layout.normalize_rows(W_sh) if first else w_prev
+        res = sharded_epoch(layout, W_sh, S, bonds, cfg, bonds_mode=spec.bonds_mode,
+                            W_prev=kernel_prev, first_epoch=first,
+                            consensus_impl=consensus_impl, x64=x64)
+        bonds = res[spec.bond_state_key]
+        w_prev = res["weight"] if spec.carries_prev_weights else w_prev
+        acc = acc + _dividends_per_1k(res["validator_reward_normalized"], S, cfg)
+    return acc, layout.gather(bonds)
 
 
 def _constant_run(W, S, num_epochs, cfg, spec, consensus_impl, hoist_invariant, x64):

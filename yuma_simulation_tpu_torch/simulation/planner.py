@@ -37,8 +37,9 @@ logs one ``event=dispatch_planned`` record and stamps the plan on the open
 telemetry span. :meth:`DispatchPlan.attach_cost` attaches the rung's work
 (:func:`..telemetry.cost.capture_engine_cost`) and
 :meth:`DispatchPlan.attach_executable` its libraries, resolved through the
-kernel cache (:func:`..aot.executable_for_plan`). Not ported yet:
-miner-sharding meshes (ROADMAP queue A, slice 4b).
+kernel cache (:func:`..aot.executable_for_plan`). A miner-sharding mesh
+plans the eager rung (:mod:`..models.miner_shards`), with the memory of
+one shard times the shards on each physical device.
 """
 
 from __future__ import annotations
@@ -310,6 +311,7 @@ def _plan_engine(
     has_miner_mask: bool,
     reasons: list,
     quarantine: bool = False,
+    mesh=None,
 ) -> tuple[str, str]:
     """The one engine / consensus resolution of the case-scan entry
     points. Returns `(engine, consensus_impl)` resolved. A streaming plan
@@ -329,7 +331,8 @@ def _plan_engine(
         reasons.append("'xla' is the JAX package's name of the bottom rung: 'eager'")
     if epoch_impl == "auto":
         why = (
-            "quarantine guard rides the XLA carry" if quarantine
+            "miner-sharding mesh" if mesh is not None
+            else "quarantine guard rides the XLA carry" if quarantine
             else "per-scenario miner mask" if has_miner_mask
             else f"consensus_impl={consensus_impl!r}" if consensus_impl not in ("auto", "bisect")
             else "zero epochs" if epochs < 1
@@ -354,6 +357,11 @@ def _plan_engine(
                    if exact_mxu_support_covers(shape[-2]) else "")
             )
     if epoch_impl in FUSED_CASE_RUNGS:
+        if mesh is not None:
+            raise ValueError(
+                "the fused case/varying scans are single-device kernels; "
+                "miner-axis sharding requires epoch_impl='eager'"
+            )
         if quarantine:
             raise ValueError(
                 "quarantine rides the XLA scan carry; the fused case scan "
@@ -409,16 +417,24 @@ def _plan_memory(
     max_resident_epochs: Optional[int],
     streaming: bool,
     device: torch.device,
+    layout=None,
 ) -> MemoryPlan:
     """The preflight of the resident footprint and the streaming slab
     length: host arithmetic on shapes. A fused rung's scratch is taken at
-    the largest tile (16 epochs), a fixed term of the estimate."""
+    the largest tile (16 epochs), a fixed term of the estimate. With a
+    miner layout (:class:`..models.miner_shards.MinerLayout`) the
+    footprint is one shard's times the shards on the busiest physical
+    device, held to that device's memory."""
     resident = min(epochs, max_resident_epochs) if max_resident_epochs is not None else epochs
     kwargs = dict(
         itemsize=itemsize, save_bonds=save_bonds, save_incentives=save_incentives,
         save_consensus=save_consensus, batch_lanes=batch_lanes,
         scratch_bytes=scan_scratch_bytes(engine, V, M),
     )
+    if layout is not None:
+        counts = layout.shards_per_device()
+        device = max(counts, key=counts.get)
+        kwargs.update(miner_shards=layout.shards, shards_per_device=counts[device])
     estimate = estimate_hbm_bytes(V, M, resident_epochs=resident, **kwargs)
     verdict = preflight_hbm(
         label, estimate, raise_on_reject=not streaming, device=device
@@ -484,11 +500,11 @@ def plan_dispatch(
     plan (the batched entry points: the arrays are already placed).
     `quarantine=True` (the per-lane non-finite guard, which only the eager
     rung's carry hosts) resolves "auto" to "eager", as the JAX package's
-    resolves it to its XLA rung, and makes an explicit fused rung raise."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "miner-sharding meshes are not ported yet (ROADMAP queue A, slice 4b)"
-        )
+    resolves it to its XLA rung, and makes an explicit fused rung raise.
+    So does a miner-sharding `mesh`: "auto" plans the eager rung, an
+    explicit fused rung raises, and the memory plan holds one shard's
+    footprint times the shards on each physical device (the devices of
+    the mesh's first row) to that device's memory."""
     shape = tuple(int(d) for d in shape)
     if len(shape) == 3:
         batch, (E, V, M) = 1, shape
@@ -501,10 +517,18 @@ def plan_dispatch(
     reasons: list = []
     if epoch_impl != "auto":
         reasons.append(f"engine {epoch_impl!r} requested explicitly")
+    layout = None
+    if mesh is not None:
+        from yuma_simulation_tpu_torch.models.miner_shards import MinerLayout
+
+        layout = MinerLayout.build([d.device for d in mesh.grid[0]], M)
     engine, resolved_consensus = _plan_engine(
         epoch_impl, consensus_impl, shape, config, dtype, dev, streaming,
-        has_miner_mask, reasons, quarantine=quarantine,
+        has_miner_mask, reasons, quarantine=quarantine, mesh=mesh,
     )
+    miner_shards = 1 if layout is None else layout.shards
+    if miner_shards > 1:
+        reasons.append(f"miner axis sharded over {miner_shards} devices")
     fallback_consensus = (
         resolved_consensus if engine == "eager" else resolve_consensus_impl(consensus_impl, V, M)
     )
@@ -514,6 +538,7 @@ def plan_dispatch(
             save_bonds=save_bonds, save_incentives=save_incentives,
             save_consensus=save_consensus, batch_lanes=batch,
             max_resident_epochs=max_resident_epochs, streaming=streaming, device=dev,
+            layout=layout,
         )
         if streaming and memory.chunk_epochs is not None:
             reasons.append(
@@ -544,7 +569,7 @@ def plan_dispatch(
         fallback_consensus=fallback_consensus,
         ladder=ladder,
         bucket=bucket_shape(V, M, epochs=E, batch=batch),
-        miner_shards=1,
+        miner_shards=miner_shards,
         batch_lanes=batch,
         memory=memory,
         reasons=tuple(reasons),

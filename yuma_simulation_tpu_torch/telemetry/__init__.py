@@ -19,7 +19,15 @@
 - :mod:`.flight`: the per-run on-disk bundle of a supervised sweep (ledger,
   spans, metrics, numerics, report, SLO state) and its loader and
   consistency checks, in the JAX package's formats (``python -m
-  tools.obsreport DIR --check`` reads it).
+  tools.obsreport DIR --check`` reads it);
+- :mod:`.timeseries` / :mod:`.anomaly` / :mod:`.incident`: bounded
+  per-key series folded from the metric snapshot stream, robust anomaly
+  detectors (MAD, rate of change, counter stall, saturation), and the
+  correlation of anomalies, SLO transitions and typed fault records into
+  durable ``incidents.jsonl`` records;
+- :mod:`.ops`: the live operations plane of a standing host (the events
+  ring, ``debug_vars`` / ``debug_spans`` / ``debug_incidents``, and
+  on-demand ``torch.profiler`` windows behind one process-wide latch).
 
 Host-side only: nothing here synchronizes the card on its own.
 """
@@ -40,6 +48,14 @@ from yuma_simulation_tpu_torch.telemetry.cost import (  # noqa: F401
     resolve_device_spec,
     roofline,
 )
+from yuma_simulation_tpu_torch.telemetry.anomaly import (  # noqa: F401
+    Anomaly,
+    AnomalyEngine,
+    CounterStallDetector,
+    MadDetector,
+    RateOfChangeDetector,
+    SaturationDetector,
+)
 from yuma_simulation_tpu_torch.telemetry.device import (  # noqa: F401
     CompileTracker,
     record_device_telemetry,
@@ -56,6 +72,16 @@ from yuma_simulation_tpu_torch.telemetry.flight import (  # noqa: F401
     load_bundle,
     merge_bundles,
     rotation_from_env,
+)
+from yuma_simulation_tpu_torch.telemetry.incident import (  # noqa: F401
+    CAUSE_EVENTS,
+    Incident,
+    IncidentEngine,
+    correlate,
+    correlate_bundle,
+    latest_incidents,
+    load_incidents,
+    open_incident_count,
 )
 from yuma_simulation_tpu_torch.telemetry.metrics import (  # noqa: F401
     Counter,
@@ -94,4 +120,16 @@ from yuma_simulation_tpu_torch.telemetry.slo import (  # noqa: F401
     observe_duration,
     observe_event,
     set_slo_engine,
+)
+from yuma_simulation_tpu_torch.telemetry.ops import (  # noqa: F401
+    OpsPlane,
+    ProfileBusyError,
+    ProfileSession,
+    clear_events,
+    note_event,
+    recent_events,
+)
+from yuma_simulation_tpu_torch.telemetry.timeseries import (  # noqa: F401
+    TimeSeriesStore,
+    store_from_metrics,
 )

@@ -412,9 +412,15 @@ class FootprintEstimate:
     resident_epochs: int
     miner_shards: int
     batch_lanes: int
+    #: Miner shards that share the one physical device this estimate is
+    #: for (in the JSON only when more than one: the JAX package's keys).
+    shards_per_device: int = 1
 
     def to_json(self) -> dict:
-        return dataclasses.asdict(self)
+        out = dataclasses.asdict(self)
+        if self.shards_per_device == 1:
+            del out["shards_per_device"]
+        return out
 
 
 def estimate_hbm_bytes(
@@ -429,6 +435,7 @@ def estimate_hbm_bytes(
     miner_shards: int = 1,
     batch_lanes: int = 1,
     scratch_bytes: int = 0,
+    shards_per_device: int = 1,
 ) -> FootprintEstimate:
     """One dispatch's peak resident bytes per device from shapes alone:
     the JAX package's terms (`resident_epochs` of the epoch stack, the
@@ -436,10 +443,12 @@ def estimate_hbm_bytes(
     every miner-axis buffer, `batch_lanes` multiplies everything), plus
     `scratch_bytes` per lane, the scratch of a fused rung's scan (a
     ``scan_scratch`` term, present only when non-zero, so the eager rung's
-    breakdown is JAX's). An upper bound: it exists to refuse what cannot
+    breakdown is JAX's). `shards_per_device` multiplies everything too:
+    the miner shards that share one physical device hold their buffers
+    there side by side. An upper bound: it exists to refuse what cannot
     fit, not to certify what barely might."""
     ms = max(1, int(miner_shards))
-    lanes = max(1, int(batch_lanes))
+    lanes = max(1, int(batch_lanes)) * max(1, int(shards_per_device))
     m_local = -(-int(M) // ms)
     vm = int(V) * m_local * itemsize
     breakdown = {
@@ -461,7 +470,8 @@ def estimate_hbm_bytes(
         M=int(M),
         resident_epochs=int(resident_epochs),
         miner_shards=ms,
-        batch_lanes=lanes,
+        batch_lanes=max(1, int(batch_lanes)),
+        shards_per_device=max(1, int(shards_per_device)),
     )
 
 

@@ -122,9 +122,8 @@ class TraceContext:
     # -- manifest form (fleet stores) -----------------------------------
 
     def to_manifest(self) -> dict:
-        """The fleet-manifest field, carried under ``"trace"`` (the JAX
-        package's `FleetStore.ensure_manifest` format; the fleet fabric is
-        ROADMAP queue A, slice 9)."""
+        """The fleet-manifest field, carried under ``"trace"``
+        (:meth:`..fabric.store.FleetStore.ensure_manifest`)."""
         rec = {"traceparent": self.to_traceparent()}
         if self.baggage:
             rec["baggage"] = self.to_baggage()

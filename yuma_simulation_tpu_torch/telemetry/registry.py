@@ -205,6 +205,63 @@ EVENTS = {
         operator_reason="ingestion audit trail on the log stream: which "
         "snapshot file fed which generated suite (grep event=)",
     ),
+    # -- the fleet fabric and the ops / incident plane -----------------------
+    "host_started": EventSpec(
+        'fleet host joined the sweep',
+        consumers=('fabric.health',),
+    ),
+    "host_finished": EventSpec(
+        'fleet host drained its queue and published its tallies',
+        consumers=('fabric.health',),
+    ),
+    "fleet_host_finished": EventSpec(
+        'log twin of the host_finished ledger record',
+        operator_reason='one INFO line per finished host for operator tails; the ledger record is the accounted copy',
+    ),
+    "host_lost": EventSpec(
+        'fleet host declared dead (lease expired, no heartbeat)',
+        consumers=('fabric.health',),
+    ),
+    "unit_claimed": EventSpec(
+        'fleet unit lease claimed',
+        consumers=('fabric.health',),
+    ),
+    "unit_stolen": EventSpec(
+        'fleet unit lease stolen from a stalled host',
+        consumers=('fabric.health',),
+    ),
+    "unit_abandoned": EventSpec(
+        'fleet unit abandoned after repeated steal generations',
+        consumers=('fabric.health',),
+    ),
+    "unit_duplicate": EventSpec(
+        'fleet unit result published twice (at-most-once collision)',
+        consumers=('fabric.health',),
+    ),
+    "lease_stolen": EventSpec(
+        'lease-level steal detail (inode generation handoff)',
+        operator_reason='steal forensics below the unit_stolen ledger record',
+    ),
+    "profile_started": EventSpec(
+        "an on-demand device-profiling window opened (POST /debug/profile, SweepSupervisor profile_every, or the replay controller's --profile-window; record carries mode, artifact dir, deadline)",
+        consumers=('obsreport',),
+    ),
+    "profile_published": EventSpec(
+        "a profiling window closed and its trace artifact was registered into the bundle's profiles.jsonl",
+        consumers=('obsreport',),
+    ),
+    "anomaly_detected": EventSpec(
+        'a robust detector (MAD / rate-of-change / counter-stall / saturation) fired on a metric time series; record carries kind, series, value, baseline, threshold, window',
+        consumers=('incidentreport', 'obsreport', 'telemetry.incident'),
+    ),
+    "incident_opened": EventSpec(
+        'the correlation engine opened an incident around a typed fault ledger event (record carries incident id, cause_class, cause_event, subject); full state rides incidents.jsonl',
+        consumers=('incidentreport', 'obsreport', 'fabric.health'),
+    ),
+    "incident_resolved": EventSpec(
+        "an open incident's cause class observed its recovery event (record carries incident id, resolution)",
+        consumers=('incidentreport', 'obsreport', 'fabric.health'),
+    ),
 }
 
 
@@ -327,6 +384,17 @@ METRICS = {
         "counter", "foundry-generated scenarios (DSL compiles + "
         "metagraph ingestions + adversarial builds)",
         consumers=("obsreport",),
+    ),
+    # -- the incident plane (telemetry.incident) ---------------------------
+    "anomalies_total": MetricSpec(
+        'counter',
+        'detector firings ledgered as anomaly_detected',
+        consumers=('incidentreport', 'obsreport'),
+    ),
+    "incidents_open": MetricSpec(
+        'gauge',
+        'correlated incidents currently open in this bundle (also the open-incident count /healthz reports)',
+        consumers=('incidentreport', 'serve.service'),
     ),
 }
 

@@ -26,7 +26,9 @@ def log_event(
     with ``run_id`` (and ``span_id`` / ``parent_id`` under an open span):
     the join key between the log stream and the span tree. Fields the
     caller passes under those names win. A record below the logger's
-    level is dropped before anything is formatted."""
+    level is dropped before anything is formatted; every other record is
+    also appended to the ops plane's recent-events ring
+    (:func:`..telemetry.ops.note_event`)."""
     if not logger.isEnabledFor(level):
         return
     # Imported here: the telemetry modules import this one.
@@ -34,6 +36,15 @@ def log_event(
 
     for key, value in current_fields().items():
         fields.setdefault(key, value)
+    try:
+        # The live-ops recent-events ring (telemetry.ops): every structured
+        # record is also visible in a standing host's debug_vars(). Logging
+        # must never fail on it.
+        from yuma_simulation_tpu_torch.telemetry.ops import note_event
+
+        note_event(event, fields)
+    except Exception:  # noqa: BLE001
+        pass
 
     def fmt(v) -> str:
         s = str(v)

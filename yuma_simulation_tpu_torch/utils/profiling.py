@@ -38,21 +38,30 @@ def profile_trace(log_dir: Optional[str]) -> Iterator[Optional[torch.profiler.pr
     a CLI flag can be threaded straight through.
 
     The "trace written" line is logged in a ``finally``: the trace of a
-    failing region is the one that explains the failure."""
+    failing region is the one that explains the failure.
+
+    The region holds the process's profiler latch
+    (:func:`..telemetry.ops.hold_profiler`): it raises
+    :class:`..telemetry.ops.ProfileBusyError` while an ops-plane
+    :class:`..telemetry.ops.ProfileSession` window is open, and such a
+    window cannot open while the region runs."""
     if log_dir is None:
         yield None
         return
+    from yuma_simulation_tpu_torch.telemetry.ops import hold_profiler
+
     os.makedirs(log_dir, exist_ok=True)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     path = os.path.join(log_dir, TRACE_FILE)
-    try:
-        with torch.profiler.profile(activities=activities) as prof:
-            yield prof
-        prof.export_chrome_trace(path)
-    finally:
-        logger.info("profiler trace written to %s", path)
+    with hold_profiler({"mode": "profile_trace", "artifact": log_dir}):
+        try:
+            with torch.profiler.profile(activities=activities) as prof:
+                yield prof
+            prof.export_chrome_trace(path)
+        finally:
+            logger.info("profiler trace written to %s", path)
 
 
 def trace_range_windows(trace_path: str, range_name: str,
