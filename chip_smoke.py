@@ -153,7 +153,17 @@ process per source, on first use), then:
    line for K1-K7 (launches on the
    main paths, max |kernel - plain|, kernel and plain times from CUDA
    events, the roofline bound, and a library call's time where one
-   exists), the card line, and last `{"ok": true, "device": {...}}`.
+   exists), the card line, and last `{"ok": true, "device": {...}}`;
+10. after the mesh and fleet phases, the serving tier (serve_phase: four
+   tenants coalesced into one K3 launch, each lane bitwise its solo run,
+   the eager and `fused_scan_mxu` requests, the smoke contract over HTTP
+   with a table and a canary tick, every launch on the service's
+   dispatcher side) and what-if replay (replay_phase: a served miss
+   building its baseline on K2, a hit re-simulating only the suffix with
+   no library built, bitwise the miss and the uncached K2 run, then the
+   trailing-window sweep of two versions); each prints its line, `{"serve":
+   ...}` and `{"replay": ...}`, with the card's name and power limit, and
+   leaves its flight bundles under build/chip_smoke/{serve,replay}.
 
 Any failure raises and exits non-zero. Without CUDA it exits 2 and prints
 no result. The numbers and a per-kernel profile table are also written
@@ -2719,6 +2729,544 @@ def fleet_phase(torch, dev, launches, report):
     print(f"fleet: {json.dumps(out)}", flush=True)
 
 
+class _LaunchThreads:
+    """Record the thread of every K2 / K3 / K5 / K6 launch (a wrapper
+    around `ops.cuda_epoch._scan_cuda`), so a phase can show which of its
+    threads touched the card."""
+
+    def __init__(self):
+        self.names: list = []
+
+    def __enter__(self):
+        import threading
+
+        from yuma_simulation_tpu_torch.ops import cuda_epoch
+
+        self._module, self._orig = cuda_epoch, cuda_epoch._scan_cuda
+
+        def recorded(*args, **kwargs):
+            self.names.append(threading.current_thread().name)
+            return self._orig(*args, **kwargs)
+
+        cuda_epoch._scan_cuda = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._module._scan_cuda = self._orig
+
+
+#: The threads of the serving tier that may launch work: its dispatcher and
+#: the watchdog workers it starts (the HTTP handler threads never do).
+def _serving_thread(name: str) -> bool:
+    return name == "yuma-serve-dispatcher" or name.startswith("yuma-watchdog")
+
+
+def _scan_launches(counts: dict) -> int:
+    """The launches among `counts` that go through `cuda_epoch._scan_cuda`
+    (K2, K3, K5, K6): what `_LaunchThreads` records one name for each."""
+    return sum(counts[k] for k in ("case_scan", "varying_scan", "ema_scan", "ema_epoch"))
+
+
+def _server_timing(headers: dict) -> dict:
+    """The `Server-Timing` phases of one reply, in ms by name."""
+    phases = {}
+    for part in headers.get("Server-Timing", "").split(","):
+        name, _, dur = part.strip().partition(";dur=")
+        if dur:
+            phases[name] = float(dur)
+    return phases
+
+
+def _queued_dispatch(svc, payloads) -> dict:
+    """Queue the simulate `payloads` (one tenant thread each) on a service
+    whose dispatcher has not started, then start it and wait for every
+    reply: the replies, the wall seconds from the start to the last reply,
+    the launch counts of the dispatch, the threads that launched, and each
+    reply's `Server-Timing` phases (ms)."""
+    import threading
+
+    from yuma_simulation_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+
+    replies = [None] * len(payloads)
+
+    def tenant(i):
+        replies[i] = svc.handle("simulate", dict(payloads[i], tenant=f"tenant-{i}"))
+
+    threads = [threading.Thread(target=tenant, args=(i,), name=f"tenant-{i}")
+               for i in range(len(payloads))]
+    for th in threads:
+        th.start()
+    for _ in range(3000):
+        if len(svc.queue) == len(payloads):
+            break
+        time.sleep(0.01)
+    assert len(svc.queue) == len(payloads), len(svc.queue)
+    reset_launch_counts()
+    with _LaunchThreads() as where:
+        t0 = time.perf_counter()
+        svc.start_dispatcher()
+        for th in threads:
+            th.join(timeout=300)
+        seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    assert len(where.names) == _scan_launches(counts), (where.names, counts)
+    assert all(_serving_thread(n) for n in where.names), where.names
+    phases = {}
+    for status, body, headers in replies:
+        assert status == 200 and body["status"] == "ok", body
+        for name, ms in _server_timing(headers).items():
+            phases.setdefault(name, []).append(ms)
+    return dict(replies=replies, seconds=seconds, launches=counts,
+                threads=sorted(set(where.names)), phases_ms=phases)
+
+
+def _bundle_gate(path) -> dict:
+    """The port's own gates of a flight bundle, as `tools.obsreport
+    --check` and `tools.sloreport --check --require` apply them (those
+    tools import the JAX package, which the card's machine lacks): the
+    bundle is sound, it recorded SLO state, and no SLO was fast-burning."""
+    from yuma_simulation_tpu_torch.telemetry.flight import check_bundle, load_bundle
+
+    bundle = load_bundle(path)
+    problems = check_bundle(bundle)
+    assert problems == [], (str(path), problems)
+    assert bundle.slo is not None and isinstance(bundle.slo.get("states"), dict), str(path)
+    burning = [n for n, st in bundle.slo["states"].items()
+               if (st.get("state") if isinstance(st, dict) else st) == "fast_burn"]
+    assert burning == [], (str(path), burning)
+    return dict(spans=len(bundle.spans), ledger=len(bundle.ledger),
+                slo_states=len(bundle.slo["states"]))
+
+
+def serve_phase(torch, dev, launches, report):
+    """The serving tier on the card. In process, at full width: a
+    `SimulationService(ServeConfig(device="cuda", warmup_shapes=((40, 256,
+    4096),)))` (its warmup runs the eager rung packed and one K3 launch);
+    four tenants on four threads `handle()` `quarantine: false` requests of
+    the seed 0-3 snapshots over 40 epochs, queued before the dispatcher
+    starts: ONE K3 launch, on the dispatcher's side, each lane bitwise its
+    solo `simulate`; where that dispatch's time goes (`Server-Timing`, the
+    host stack and upload), against the same requests with no gathering
+    window and one at a time, and eight small-subnet requests all three
+    ways, each lane bitwise; a default request over 16 epochs on the eager
+    rung (no launch) within ATOL of K3; a `fused_scan_mxu` request
+    launching K2 with K4, bitwise the solo K2 run. Every launch count is
+    read after the call it counts. Over HTTP (`SimulationServer` on
+    127.0.0.1:0, `SimulationClient`): Case 3, a table request (K3, its
+    Yuma 1 totals within 1.5e-6 of the golden), a typed admission
+    rejection, a quota shed with 429 and Retry-After, a coalesced pair, the
+    metrics and health surface and one canary tick (K3 against the next
+    kernel rung, drift-clean). Both bundles pass the port's gates."""
+    import shutil
+    import threading
+
+    from yuma_simulation_tpu_torch.foundry import scenario_from_snapshot, synthetic_snapshot
+    from yuma_simulation_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from yuma_simulation_tpu_torch.scenarios.base import Scenario
+    from yuma_simulation_tpu_torch.serve import (
+        ServeConfig,
+        SimulationClient,
+        SimulationServer,
+        SimulationService,
+        wait_until_ready,
+    )
+    from yuma_simulation_tpu_torch.simulation.engine import simulate
+    from yuma_simulation_tpu_torch.simulation.sweep import stack_scenarios
+
+    version = "Yuma 1 (paper)"
+    root = os.path.abspath(os.path.join(OUT_DIR, "serve"))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out, seconds = {}, {}
+
+    t0 = time.perf_counter()
+    svc = SimulationService(ServeConfig(
+        device="cuda", warmup_shapes=((40, V, M),), coalesce_window_seconds=0.05,
+        max_batch=8, queue_limit=16, start_dispatcher=False,
+        bundle_dir=os.path.join(root, "inproc"),
+    ))
+    torch.cuda.synchronize()
+    seconds["service_with_warmup"] = time.perf_counter() - t0
+    snaps = [scenario_from_snapshot(synthetic_snapshot(seed), num_epochs=40) for seed in range(4)]
+    full = [{"weights": s.weights, "stakes": s.stakes, "quarantine": False} for s in snaps]
+
+    try:
+        run = _queued_dispatch(svc, full)
+        counts = run["launches"]
+        assert counts["varying_scan"] == 1 and sum(counts.values()) == 1, counts
+        launches["varying_scan"] += counts["varying_scan"]
+        seconds["coalesced_4x40"] = run["seconds"]
+        out["coalesced"] = {k: run[k] for k in ("launches", "threads", "phases_ms")}
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        solos = [simulate(s, version) for s in snaps]
+        seconds["solo_4x40"] = time.perf_counter() - t0
+        counts = launch_counts()
+        assert counts["varying_scan"] == 4 and sum(counts.values()) == 4, counts
+        launches["varying_scan"] += counts["varying_scan"]
+        for i, solo in enumerate(solos):
+            _status, body, _ = run["replies"][i]
+            assert body["coalesced"] == 4 and body["engine"] == "fused_varying", body["engine"]
+            assert solo.engine == "fused_varying"
+            _np_equal(f"served lane {i} vs solo K3", np.asarray(body["dividends"], np.float32),
+                      solo.dividends)
+        coalesced_replies = run["replies"]
+        del run
+
+        # Where a coalesced dispatch's time goes: the host stack and upload
+        # of its lanes (1 and 4), against the same requests coalesced with
+        # no gathering window (the queue holds them all already) and
+        # dispatched one at a time (max_batch 1: no window, no stack), and
+        # a mix of eight small-subnet requests (64 x 1024) all three ways.
+        for lanes in (1, 4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stacked = stack_scenarios(snaps[:lanes], device=dev)
+            torch.cuda.synchronize()
+            seconds[f"stack_upload_{lanes}x40"] = time.perf_counter() - t0
+            del stacked
+        small = [scenario_from_snapshot(synthetic_snapshot(seed, num_validators=64,
+                                                           num_miners=1024), num_epochs=40)
+                 for seed in range(8)]
+        mixes = {"full_4x40": (full, snaps, 4),
+                 "small_8x40": ([{"weights": s.weights, "stakes": s.stakes,
+                                  "quarantine": False} for s in small], small, 8)}
+        out["dispatch"] = {}
+        for mix, (payloads, scenarios, n) in mixes.items():
+            row = {}
+            for how, max_batch, window in (("coalesced", 8, 0.05), ("no_window", 8, 0.0),
+                                           ("serial", 1, 0.05)):
+                if mix == "full_4x40" and how == "coalesced":
+                    continue  # measured above, on the service with its warmup
+                other = SimulationService(ServeConfig(
+                    device="cuda", coalesce_window_seconds=window, max_batch=max_batch,
+                    queue_limit=16, start_dispatcher=False))
+                try:
+                    run = _queued_dispatch(other, payloads)
+                finally:
+                    other.close()
+                counts = run["launches"]
+                want = n if how == "serial" else 1
+                assert counts["varying_scan"] == want and sum(counts.values()) == want, counts
+                launches["varying_scan"] += counts["varying_scan"]
+                for i, (_status, body, _) in enumerate(run["replies"]):
+                    assert body["engine"] == "fused_varying", body["engine"]
+                    assert body["coalesced"] == (1 if how == "serial" else n), body
+                    ref = (coalesced_replies[i][1]["dividends"] if mix == "full_4x40"
+                           else row["coalesced_dividends"][i] if how != "coalesced" else None)
+                    if ref is not None:
+                        _np_equal(f"{mix} {how} lane {i} vs coalesced",
+                                  np.asarray(body["dividends"], np.float32),
+                                  np.asarray(ref, np.float32))
+                if how == "coalesced":
+                    row["coalesced_dividends"] = [b["dividends"] for _s, b, _h in run["replies"]]
+                row[how] = dict(seconds=run["seconds"], launches=counts["varying_scan"],
+                                phases_ms=run["phases_ms"])
+                del run
+            row.pop("coalesced_dividends", None)
+            out["dispatch"][mix] = row
+        out["dispatch"]["full_4x40"]["coalesced"] = dict(
+            seconds=seconds["coalesced_4x40"], launches=1,
+            phases_ms=out["coalesced"]["phases_ms"])
+        del coalesced_replies, small
+
+        short = [Scenario(name=f"s{i}", validators=snaps[i].validators,
+                          base_validator=snaps[i].base_validator,
+                          weights=snaps[i].weights[:16], stakes=snaps[i].stakes[:16],
+                          num_epochs=16) for i in range(2)]
+        reset_launch_counts()
+        status, body, _ = svc.handle("simulate", {"tenant": "default",
+                                                  "weights": short[0].weights,
+                                                  "stakes": short[0].stakes})
+        assert status == 200 and body["engine"] == "eager", body.get("engine")
+        assert sum(launch_counts().values()) == 0, launch_counts()
+        reset_launch_counts()
+        k3_short = simulate(short[0], version)
+        counts = launch_counts()
+        assert counts["varying_scan"] == 1 and sum(counts.values()) == 1, counts
+        assert k3_short.engine == "fused_varying", k3_short.engine
+        launches["varying_scan"] += counts["varying_scan"]
+        gap = float(np.abs(np.asarray(body["dividends"], np.float32) - k3_short.dividends).max())
+        assert gap <= ATOL, gap
+        out["eager_vs_k3_max_abs"] = gap
+
+        reset_launch_counts()
+        with _LaunchThreads() as where:
+            status, body, _ = svc.handle("simulate", {
+                "tenant": "mxu", "weights": short[1].weights, "stakes": short[1].stakes,
+                "quarantine": False, "engine": "fused_scan_mxu"})
+        counts = launch_counts()
+        assert status == 200 and body["engine"] == "fused_scan_mxu", body
+        assert counts["case_scan"] == 1 and counts["support_mma"] > 0, counts
+        assert counts["varying_scan"] == 0 and len(where.names) == _scan_launches(counts) \
+            and all(_serving_thread(n) for n in where.names), (counts, where.names)
+        launches["case_scan"] += counts["case_scan"]
+        launches["support_mma"] += counts["support_mma"]
+        out["mxu_request"] = dict(launches=counts)
+        reset_launch_counts()
+        k2 = simulate(short[1], version, epoch_impl="fused_scan")
+        counts = launch_counts()
+        assert counts["case_scan"] == 1 and sum(counts.values()) == 1, counts
+        assert k2.engine == "fused_scan", k2.engine
+        launches["case_scan"] += counts["case_scan"]
+        _np_equal("fused_scan_mxu request vs solo K2",
+                  np.asarray(body["dividends"], np.float32), k2.dividends)
+    finally:
+        svc.close()
+    out["inproc_bundle"] = _bundle_gate(os.path.join(root, "inproc"))
+    del solos
+
+    # ---- Over HTTP: the smoke contract of the JAX package's CLI, plus a table.
+    server = SimulationServer(ServeConfig(
+        device="cuda", bundle_dir=os.path.join(root, "http"), queue_limit=16,
+        tenant_burst=4, coalesce_window_seconds=0.3,
+        tenant_overrides={"greedy": (0.0, 4)},
+    )).start()
+    reset_launch_counts()
+    try:
+        with _LaunchThreads() as where:
+            assert wait_until_ready(server.url, timeout=60)
+            client = SimulationClient(server.url, tenant="smoke", timeout=300)
+            t0 = time.perf_counter()
+            r = client.simulate(case="Case 3")
+            seconds["http_case3"] = time.perf_counter() - t0
+            assert r.ok and r.body["engine"] == "eager", r.body
+            assert r.request_id and "execute" in r.server_timing, r.headers
+            t0 = time.perf_counter()
+            table = client.table(versions=[version])
+            seconds["http_table"] = time.perf_counter() - t0
+            assert table.ok and table.body["csv"].startswith("Case,"), table.body
+            bad = client.simulate(weights=[[1.0]])
+            assert bad.status == 400 and bad.body["error"] == "AdmissionRejected", bad.body
+            assert bad.request_id
+            greedy = SimulationClient(server.url, tenant="greedy", timeout=300)
+            shed = None
+            for _ in range(6):
+                g = greedy.simulate(case="Case 2")
+                if g.status == 429:
+                    shed = g
+                    break
+            assert shed is not None and shed.retry_after and \
+                shed.body["error"] == "QueueOverflow", shed
+            pair = [None, None]
+
+            def one(i):
+                pair[i] = SimulationClient(server.url, tenant=f"pair{i}",
+                                           timeout=300).simulate(case="Case 3")
+
+            ths = [threading.Thread(target=one, args=(i,)) for i in range(2)]
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join(timeout=300)
+            assert all(p.status == 200 for p in pair), [p.body for p in pair]
+            assert max(p.body["coalesced"] for p in pair) >= 2, [p.body for p in pair]
+            metrics = client.metrics()
+            for series in ("serve_queue_depth", "serve_requests_shed", "serve_breaker_open"):
+                assert series in metrics, series
+            assert client.healthz().body["ready"] is True
+            http_counts = launch_counts()
+            http_threads = sorted(set(where.names))
+            http_names = len(where.names)
+            reset_launch_counts()
+            state = server.service.run_canary_once()
+            torch.cuda.synchronize()
+            canary_counts = launch_counts()
+        canary_names = len(where.names) - http_names
+        assert state is not None and state["ticks"] >= 1 and state["drift"] == 0, state
+        assert client.healthz().body["canary"]["ticks"] >= 1
+    finally:
+        server.close()
+    # The table's suite is one K3 launch; every smoke simulate rode the eager rung.
+    assert http_counts["varying_scan"] == 1 and sum(http_counts.values()) == 1, http_counts
+    assert http_names == _scan_launches(http_counts), (http_names, http_counts)
+    assert all(_serving_thread(n) for n in http_threads), http_threads
+    launches["varying_scan"] += http_counts["varying_scan"]
+    assert canary_counts["varying_scan"] == 1 and canary_counts["case_scan"] == 1, canary_counts
+    assert canary_names == _scan_launches(canary_counts), (canary_names, canary_counts)
+    launches["varying_scan"] += canary_counts["varying_scan"]
+    launches["case_scan"] += canary_counts["case_scan"]
+    launches["support_mma"] += canary_counts["support_mma"]
+    golden_path = os.path.join("tests", "golden", "total_dividends_b1.0_full.csv")
+    with open(golden_path) as f:
+        golden = list(csv.DictReader(f))
+    served = list(csv.DictReader(table.body["csv"].splitlines()))
+    worst = max(abs(float(row[f"{std} - {version}"]) - float(ref[f"{std} - {version}"]))
+                for row, ref in zip(served, golden)
+                for std in ("Validator A", "Validator B", "Validator C"))
+    assert len(served) == len(golden) == 14 and worst < 1.5e-6, worst
+    out["http"] = dict(launches=http_counts, threads=http_threads, canary=state,
+                       canary_launches=canary_counts, table_golden_worst_abs=worst,
+                       bundle=_bundle_gate(os.path.join(root, "http")))
+    out["seconds"] = seconds
+    report["serve"] = out
+    print(f"serve: {json.dumps(out)}", flush=True)
+
+
+def replay_phase(torch, dev, launches, report):
+    """What-if replay on the card at full width. `synthetic_timeline(archive,
+    21, snapshots=5)` at 256 x 4096, mounted on a fresh server with four
+    epochs a snapshot (E = 20) and checkpoints every 4 epochs; two identical
+    `POST /v1/whatif` from epoch 13: the first a `state_cache_miss` that
+    builds the baseline on K2 (five 4-epoch segments) and runs the suffix
+    from the checkpoint it wrote (six K2 launches in all), the second a hit
+    re-simulating only the 8-epoch suffix (one K2 launch) with no library
+    built, its deltas the first's; then the hit in process, bitwise the
+    uncached run of the perturbed world and a monolithic K2 `simulate` of
+    it. Then `sweep_trailing_window` for Yuma 1 and Yuma 2 into a fleet
+    store (the units on the eager rung, Yuma 1's baseline already cached,
+    Yuma 2's five K2 launches), its stores checked and drift-free, each
+    K2 baseline within ATOL of an eager run of its window."""
+    import dataclasses
+    import shutil
+
+    from yuma_simulation_tpu_torch.fabric import check_fleet
+    from yuma_simulation_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+    from yuma_simulation_tpu_torch.replay import (
+        SnapshotArchive,
+        StateCache,
+        WhatIfSpec,
+        run_whatif,
+        sweep_trailing_window,
+        synthetic_timeline,
+    )
+    from yuma_simulation_tpu_torch.replay.whatif import apply_arrays
+    from yuma_simulation_tpu_torch.serve import (
+        ServeConfig,
+        SimulationClient,
+        SimulationServer,
+        wait_until_ready,
+    )
+    from yuma_simulation_tpu_torch.simulation.aot import process_stats
+    from yuma_simulation_tpu_torch.simulation.engine import simulate
+    from yuma_simulation_tpu_torch.telemetry.metrics import get_registry
+
+    version = "Yuma 1 (paper)"
+    root = os.path.abspath(os.path.join(OUT_DIR, "replay"))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out, seconds = {}, {}
+    t0 = time.perf_counter()
+    archive = SnapshotArchive(os.path.join(root, "archive"))
+    entries = synthetic_timeline(archive, 21, snapshots=5)
+    seconds["archive"] = time.perf_counter() - t0
+    assert [(e.validators, e.miners) for e in entries] == [(V, M)] * 5
+    spec = {"netuid": 21, "version": version, "from_epoch": 13, "stake_scale": [[1, 2.0]]}
+    registry = get_registry()
+    cache_counters = ("state_cache_hits", "state_cache_misses", "replay_suffix_epochs_saved")
+    before = [registry.counter(n).value for n in cache_counters]
+    server = SimulationServer(ServeConfig(
+        device="cuda", bundle_dir=os.path.join(root, "serve"),
+        replay_archive_dir=os.path.join(root, "archive"),
+        replay_cache_dir=os.path.join(root, "cache"),
+        replay_epochs_per_snapshot=4, replay_stride=4,
+    )).start()
+    try:
+        with _LaunchThreads() as where:
+            assert wait_until_ready(server.url, timeout=60)
+            client = SimulationClient(server.url, tenant="replay", timeout=600)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            first = client.whatif(spec)
+            seconds["miss"] = time.perf_counter() - t0
+            miss_counts = launch_counts()
+            reset_launch_counts()
+            builds = process_stats().builds
+            t0 = time.perf_counter()
+            second = client.whatif(spec)
+            seconds["hit"] = time.perf_counter() - t0
+            hit_counts = launch_counts()
+            hit_builds = process_stats().builds - builds
+        assert len(where.names) == _scan_launches(miss_counts) + _scan_launches(hit_counts) \
+            and all(_serving_thread(n) for n in where.names), where.names
+        assert first.status == 200 and first.body["cache_hit"] is False, first.body
+        assert first.body["epochs_simulated"] == 20 and first.body["resume_epoch"] == 0
+        assert miss_counts["case_scan"] == 6 and sum(miss_counts.values()) == 6, miss_counts
+        assert second.body["cache_hit"] is True, second.body
+        assert (second.body["resume_epoch"], second.body["epochs_simulated"],
+                second.body["epochs_saved"]) == (12, 8, 12), second.body
+        assert hit_counts["case_scan"] == 1 and sum(hit_counts.values()) == 1, hit_counts
+        assert hit_builds == 0, hit_builds
+        after = [registry.counter(n).value for n in cache_counters]
+        assert [b - a for a, b in zip(before, after)] == [1, 1, 12], (before, after)
+        for key in ("total_dividend_delta", "total_incentive_delta", "max_abs_dividend_delta",
+                    "baseline_key"):
+            assert second.body[key] == first.body[key], key
+        launches["case_scan"] += miss_counts["case_scan"] + hit_counts["case_scan"]
+
+        replay = server.service.replay
+        whatif = WhatIfSpec.from_json(spec)
+        reset_launch_counts()
+        hit = replay.whatif(whatif)
+        meta = replay.cache.meta(hit.baseline_key)
+        assert hit.cache_hit and meta.engine == "fused_scan", meta
+        scenario = replay._window_scenario(21, meta.scenario_fingerprint)
+        uncached = run_whatif(replay.cache, meta, scenario, None, whatif, use_cache=False,
+                              device="cuda")
+        W2, S2 = apply_arrays(scenario.weights, scenario.stakes, whatif)
+        whole = simulate(dataclasses.replace(scenario, weights=W2, stakes=S2), version,
+                         epoch_impl="fused_scan")
+        counts = launch_counts()
+        assert counts["case_scan"] == 3 and sum(counts.values()) == 3, counts
+        launches["case_scan"] += counts["case_scan"]
+        for key in ("dividends", "incentives", "dividend_delta", "incentive_delta"):
+            _np_equal(f"what-if hit vs uncached {key}", getattr(hit, key), getattr(uncached, key))
+        _np_equal("uncached what-if vs monolithic K2", uncached.dividends, whole.dividends)
+        _np_equal("served delta vs in-process hit",
+                  np.asarray(second.body["total_dividend_delta"], np.float32),
+                  hit.total_dividend_delta.astype(np.float32))
+        assert np.abs(hit.dividend_delta[:13]).max() == 0
+        assert np.abs(hit.dividend_delta[13:]).max() > 0
+        out["whatif"] = dict(
+            miss_launches=miss_counts, hit_launches=hit_counts, hit_builds=hit_builds,
+            resume_epoch=hit.resume_epoch, suffix_epochs=hit.epochs_simulated,
+            max_abs_dividend_delta=float(np.abs(hit.dividend_delta).max()),
+            threads=sorted(set(where.names)),
+        )
+    finally:
+        server.close()
+    gate = _bundle_gate(os.path.join(root, "serve"))
+    from yuma_simulation_tpu_torch.telemetry.flight import load_bundle
+
+    served = [r for r in load_bundle(os.path.join(root, "serve")).ledger
+              if r.get("event") == "whatif_served"]
+    assert [(r["cache_hit"], r["suffix_epochs"], r["full_epochs"]) for r in served] == [
+        (False, 20, 20), (True, 8, 20)], served
+    out["serve_bundle"] = gate
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = sweep_trailing_window(
+        archive, StateCache(os.path.join(root, "cache")),
+        store_root=os.path.join(root, "sweeps"),
+        versions=[version, "Yuma 2 (Adrian-Fish)"], epochs_per_snapshot=4, stride=4,
+        unit_size=1, device="cuda")
+    seconds["sweep_2_versions"] = time.perf_counter() - t0
+    counts = launch_counts()
+    assert counts["case_scan"] == 5 and sum(counts.values()) == 5, counts
+    launches["case_scan"] += counts["case_scan"]
+    assert summary["units_completed"] == 2 and summary["drift_events"] == 0, summary
+    assert summary["canaries_run"] >= 2, summary
+    for store in summary["stores"]:
+        assert check_fleet(store) == [], store
+    # The units ran the eager rung and the baselines K2: not bitwise, so
+    # each baseline is held to an eager run of its window within ATOL.
+    window = archive.window_scenario(21, epochs_per_snapshot=4)
+    eager_gap = {}
+    for outcome in summary["outcomes"]:
+        cached = StateCache(os.path.join(root, "cache")).load_baseline(outcome["baseline_key"])
+        eager = simulate(window, outcome["version"], epoch_impl="eager")
+        eager_gap[outcome["version"]] = float(np.abs(cached["dividends"] - eager.dividends).max())
+        assert eager_gap[outcome["version"]] <= ATOL, eager_gap
+    out["sweep"] = dict(launches=counts, units=summary["units_completed"],
+                        baseline_vs_eager_max_abs=eager_gap,
+                        canaries=summary["canaries_run"], drift=summary["drift_events"],
+                        stores=[os.path.relpath(s) for s in summary["stores"]])
+    out["seconds"] = seconds
+    report["replay"] = out
+    print(f"replay: {json.dumps(out)}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2946,6 +3494,9 @@ def main() -> int:
     # Miner-axis sharding and the fleet fabric.
     mesh_phase(torch, dev, launches, report)
     fleet_phase(torch, dev, launches, report)
+    # The serving tier and what-if replay.
+    serve_phase(torch, dev, launches, report)
+    replay_phase(torch, dev, launches, report)
 
     replaces = {
         "consensus_bisect": "yuma_simulation_tpu/ops/pallas_consensus.py:80",
@@ -3006,6 +3557,8 @@ def main() -> int:
     print(json.dumps({"foundry": report["foundry"]}))
     print(json.dumps({"mesh": report["mesh"]}))
     print(json.dumps({"fleet": report["fleet"]}))
+    print(json.dumps({"serve": report["serve"], "card": smi}))
+    print(json.dumps({"replay": report["replay"], "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -126,8 +126,10 @@ def test_new_modules_import_without_jax():
     supervisor, the flight recorder) and the cost and foundry slice's (the
     kernel-library cache and its AOT surface, the foundry and its drill)
     and the mesh, ops-plane and fleet slice's (the miner shards, the ops
-    and incident plane, the fabric and its simulated host) import with
-    `jax` made unimportable and pull in nothing of the JAX package."""
+    and incident plane, the fabric and its simulated host) and the serving
+    and replay slice's (every module of `serve/` and `replay/`, and the v1
+    API that promotes their names) import with `jax` made unimportable and
+    pull in nothing of the JAX package."""
     import subprocess
     import sys
 
@@ -174,7 +176,15 @@ def test_new_modules_import_without_jax():
             "yuma_simulation_tpu_torch.telemetry.anomaly",
             "yuma_simulation_tpu_torch.telemetry.incident",
             "yuma_simulation_tpu_torch.fabric",
-            "yuma_simulation_tpu_torch.fabric.simhost"]
+            "yuma_simulation_tpu_torch.fabric.simhost",
+            *(f"yuma_simulation_tpu_torch.serve.{m}" for m in (
+                "quotas", "coalescer", "admission", "lifecycle", "apikeys", "service",
+                "server", "__main__")),
+            "yuma_simulation_tpu_torch.serve",
+            *(f"yuma_simulation_tpu_torch.replay.{m}" for m in (
+                "archive", "statecache", "whatif", "sweeper")),
+            "yuma_simulation_tpu_torch.replay",
+            "yuma_simulation_tpu_torch.v1.api"]
     code = (
         "import sys\nsys.modules['jax'] = None\nimport importlib\n"
         f"for m in {mods!r}:\n    importlib.import_module(m)\n"

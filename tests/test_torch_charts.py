@@ -35,11 +35,8 @@ from yuma_simulation_tpu_torch.v1 import api
 REPO = Path(__file__).resolve().parent.parent
 TWO_VERSIONS = ["Yuma 1 (paper)", "Yuma 3 (Rhef)"]
 #: The JAX package's frozen v1 surface that the port has no counterpart
-#: of yet, by the slice that brings it (ROADMAP.md queue A).
-LATER_SLICES = {
-    "SimulationClient", "serve",  # slice 11: serve
-    "SnapshotArchive", "StateCache", "WhatIfSpec", "sweep_trailing_window",  # slice 10
-}
+#: of yet: none, now that the serving tier and what-if replay are ported.
+LATER_SLICES: set = set()
 
 
 def _images(html: str) -> list[str]:

@@ -14,7 +14,9 @@ chart table's suite through K3, a padded suite with miner masks on the
 eager rung, and the chart CLI (skipped where matplotlib is missing); the
 long runs; and the Monte-Carlo path: K7 (the weight slab) bitwise its
 plain version, the per-epoch Monte-Carlo through K7 + K3 chunk-invariant,
-and the sharded batch over the card's one-device mesh.
+and the sharded batch over the card's one-device mesh; and the serving
+tier: a coalesced K3 batch bitwise its solo runs, and a served what-if's
+hit bitwise its miss and the uncached run on K2.
 
 Every test is marked `cuda` and takes the `cuda` fixture, which skips it
 where no CUDA device is present. The JAX package is not needed (the card's
@@ -1522,3 +1524,113 @@ def test_fleet_drill_on_the_card(cuda, tmp_path):
     report = out["report"]
     assert report.units_published == report.num_units == 5
     assert "crash-host" in report.hosts_lost and report.units_stolen >= 1
+
+
+def _serve_payloads(n, E, V, M, seed=0):
+    from yuma_simulation_tpu_torch.scenarios.synthetic import random_subnet_scenario
+
+    scens = [random_subnet_scenario(seed + i, num_validators=V, num_miners=M, num_epochs=E)
+             for i in range(n)]
+    return scens, [{"tenant": f"t{i}", "weights": s.weights, "stakes": s.stakes,
+                    "quarantine": False} for i, s in enumerate(scens)]
+
+
+def test_serve_coalesced_k3_batch_bitwise_solo(cuda):
+    """Four `quarantine: false` requests of one shape, queued before the
+    dispatcher starts, ride ONE K3 launch; each lane is bitwise its solo
+    `simulate` on K3. A default request lands on the eager rung (no
+    launch); a `fused_scan_mxu` request launches K2 with K4, bitwise the
+    solo K2 run."""
+    import threading
+    import time
+
+    from yuma_simulation_tpu_torch.serve import ServeConfig, SimulationService
+
+    scens, payloads = _serve_payloads(4, 12, 16, 64)
+    svc = SimulationService(ServeConfig(device="cuda", coalesce_window_seconds=0.05,
+                                        start_dispatcher=False))
+    try:
+        results = {}
+        threads = [threading.Thread(target=lambda i=i: results.__setitem__(
+            i, svc.handle("simulate", payloads[i]))) for i in range(4)]
+        for th in threads:
+            th.start()
+        for _ in range(200):
+            if len(svc.queue) == 4:
+                break
+            time.sleep(0.02)
+        reset_launch_counts()
+        svc.start_dispatcher()
+        for th in threads:
+            th.join(timeout=120)
+        assert launch_counts()["varying_scan"] == 1, launch_counts()
+        for i, s in enumerate(scens):
+            status, body, _ = results[i]
+            assert status == 200 and body["coalesced"] == 4, body
+            assert body["engine"] == "fused_varying"
+            solo = simulate(s, "Yuma 1 (paper)")
+            assert solo.engine == "fused_varying"
+            np.testing.assert_array_equal(np.asarray(body["dividends"], np.float32),
+                                          solo.dividends)
+        reset_launch_counts()
+        status, body, _ = svc.handle("simulate", {"weights": scens[0].weights,
+                                                  "stakes": scens[0].stakes})
+        assert status == 200 and body["engine"] == "eager"
+        assert sum(launch_counts().values()) == 0
+        np.testing.assert_allclose(np.asarray(body["dividends"], np.float32),
+                                   simulate(scens[0], "Yuma 1 (paper)").dividends,
+                                   atol=ATOL, rtol=0)
+        reset_launch_counts()
+        status, body, _ = svc.handle("simulate", dict(payloads[0], engine="fused_scan_mxu"))
+        counts = launch_counts()
+        assert status == 200 and counts["case_scan"] == 1 and counts["support_mma"] > 0
+        np.testing.assert_array_equal(
+            np.asarray(body["dividends"], np.float32),
+            simulate(scens[0], "Yuma 1 (paper)", epoch_impl="fused_scan").dividends)
+    finally:
+        svc.close()
+
+
+def test_whatif_hit_bitwise_miss_and_uncached_on_k2(cuda, tmp_path):
+    """A served what-if on the card: the miss builds the baseline on K2
+    (the varying rung's pinned twin) in stride segments, the hit
+    re-simulates only the suffix, and both are bitwise the uncached run
+    of the perturbed world on K2."""
+    import dataclasses
+
+    from yuma_simulation_tpu_torch.replay import (
+        ReplayService,
+        SnapshotArchive,
+        WhatIfSpec,
+        run_whatif,
+        synthetic_timeline,
+    )
+    from yuma_simulation_tpu_torch.replay.whatif import apply_arrays
+
+    arch = SnapshotArchive(tmp_path / "archive")
+    synthetic_timeline(arch, 5, snapshots=5, seed=3, num_validators=16, num_miners=64)
+    svc = ReplayService(tmp_path / "archive", tmp_path / "cache", epochs_per_snapshot=4,
+                        stride=4, device="cuda")
+    spec = WhatIfSpec(netuid=5, version="Yuma 1 (paper)", from_epoch=13,
+                      stake_scale=((1, 2.0),))
+    reset_launch_counts()
+    miss = svc.whatif(spec)
+    assert launch_counts()["case_scan"] == 6 and launch_counts()["varying_scan"] == 0
+    reset_launch_counts()
+    hit = svc.whatif(spec)
+    assert launch_counts()["case_scan"] == 1
+    assert (miss.cache_hit, hit.cache_hit, hit.resume_epoch, hit.epochs_simulated) == (
+        False, True, 12, 8)
+    meta = svc.cache.meta(hit.baseline_key)
+    assert meta.engine == "fused_scan"
+    scenario = svc._window_scenario(5, meta.scenario_fingerprint)
+    uncached = run_whatif(svc.cache, meta, scenario, None, spec, use_cache=False,
+                          device="cuda")
+    W2, S2 = apply_arrays(scenario.weights, scenario.stakes, spec)
+    whole = simulate(dataclasses.replace(scenario, weights=W2, stakes=S2), "Yuma 1 (paper)",
+                     epoch_impl="fused_scan")
+    for got in (miss, hit):
+        np.testing.assert_array_equal(got.dividends, uncached.dividends)
+        np.testing.assert_array_equal(got.dividend_delta, uncached.dividend_delta)
+        np.testing.assert_array_equal(got.incentives, uncached.incentives)
+    np.testing.assert_array_equal(uncached.dividends, whole.dividends)

@@ -418,6 +418,7 @@ def _plan_memory(
     streaming: bool,
     device: torch.device,
     layout=None,
+    raise_on_reject: bool = True,
 ) -> MemoryPlan:
     """The preflight of the resident footprint and the streaming slab
     length: host arithmetic on shapes. A fused rung's scratch is taken at
@@ -437,7 +438,7 @@ def _plan_memory(
         kwargs.update(miner_shards=layout.shards, shards_per_device=counts[device])
     estimate = estimate_hbm_bytes(V, M, resident_epochs=resident, **kwargs)
     verdict = preflight_hbm(
-        label, estimate, raise_on_reject=not streaming, device=device
+        label, estimate, raise_on_reject=raise_on_reject and not streaming, device=device
     )
     chunk_epochs: Optional[int] = None
     spec = resolve_device_spec(device=device)
@@ -456,7 +457,7 @@ def _plan_memory(
         elif streaming:
             # The fixed working set alone is past the budget: no slab
             # length fixes that, so a stream is refused as a monolith is.
-            preflight_hbm(label, zero, device=device)
+            preflight_hbm(label, zero, raise_on_reject=raise_on_reject, device=device)
             chunk_epochs = 1
         if not streaming and verdict.fits is not False:
             chunk_epochs = None
@@ -490,6 +491,7 @@ def plan_dispatch(
     max_resident_epochs: Optional[int] = None,
     check_memory: bool = True,
     device="cuda",
+    raise_on_reject: bool = True,
 ) -> DispatchPlan:
     """Plan one case-scan dispatch of `shape` (`[E, V, M]` or `[B, E, V,
     M]`) on `device` (planning needs no card: it is host arithmetic).
@@ -504,7 +506,9 @@ def plan_dispatch(
     So does a miner-sharding `mesh`: "auto" plans the eager rung, an
     explicit fused rung raises, and the memory plan holds one shard's
     footprint times the shards on each physical device (the devices of
-    the mesh's first row) to that device's memory."""
+    the mesh's first row) to that device's memory. `raise_on_reject=False`
+    returns a plan whose `memory.fits` is False instead of raising (the
+    serving tier's admission pricer)."""
     shape = tuple(int(d) for d in shape)
     if len(shape) == 3:
         batch, (E, V, M) = 1, shape
@@ -538,7 +542,7 @@ def plan_dispatch(
             save_bonds=save_bonds, save_incentives=save_incentives,
             save_consensus=save_consensus, batch_lanes=batch,
             max_resident_epochs=max_resident_epochs, streaming=streaming, device=dev,
-            layout=layout,
+            layout=layout, raise_on_reject=raise_on_reject,
         )
         if streaming and memory.chunk_epochs is not None:
             reasons.append(

@@ -262,6 +262,39 @@ EVENTS = {
         "an open incident's cause class observed its recovery event (record carries incident id, resolution)",
         consumers=('incidentreport', 'obsreport', 'fabric.health'),
     ),
+    # -- the serving tier and chain replay (serve/, replay/) ---------------
+    "serve_warmed": EventSpec(
+        'serve warmup finished (buckets compiled before first request)',
+        operator_reason='cold-start forensics; compile cost rides the compile_seconds histogram and cold_start SLO',
+    ),
+    "serve_closed": EventSpec(
+        'serve service closed and published its flight bundle',
+        operator_reason='shutdown marker closing the request ledger',
+    ),
+    "breaker_tripped": EventSpec(
+        'circuit breaker opened an engine rung fleet-wide',
+        operator_reason='breaker forensics; serve_breaker_trips / serve_breaker_open are the reconciled aggregates',
+    ),
+    "breaker_half_open": EventSpec(
+        'circuit breaker probing a tripped rung',
+        operator_reason='breaker state-machine forensics',
+    ),
+    "breaker_probe_aborted": EventSpec(
+        'half-open probe failed; rung re-opened',
+        operator_reason='breaker state-machine forensics',
+    ),
+    "breaker_closed": EventSpec(
+        'circuit breaker closed a recovered rung',
+        operator_reason='breaker state-machine forensics',
+    ),
+    "state_cache_hit": EventSpec(
+        'a what-if resumed from a cached epoch-state checkpoint (suffix-sized re-simulation)',
+        operator_reason="per-resolve forensics on the log stream; the state_cache_hits counter is the reconciled aggregate the replay drill and obsreport's replay section read",
+    ),
+    "state_cache_miss": EventSpec(
+        'a what-if found no usable cached epoch state (reason: baseline not built / no checkpoint before the perturb epoch / state unreadable) — full-trajectory re-simulation',
+        operator_reason='typed miss taxonomy on the log stream; the state_cache_misses counter is the reconciled aggregate',
+    ),
 }
 
 
@@ -395,6 +428,62 @@ METRICS = {
         'gauge',
         'correlated incidents currently open in this bundle (also the open-incident count /healthz reports)',
         consumers=('incidentreport', 'serve.service'),
+    ),
+    # -- the serving tier and chain replay (serve/, replay/) ---------------
+    "serve_requests_total": MetricSpec(
+        'counter',
+        'serving-tier requests handled (any outcome)',
+    ),
+    "serve_queue_depth": MetricSpec(
+        'gauge',
+        'run-queue occupancy right now',
+    ),
+    "serve_requests_shed": MetricSpec(
+        'counter',
+        '429-shed requests (tenant quota or queue bound)',
+    ),
+    "serve_admission_rejected": MetricSpec(
+        'counter',
+        'typed admission rejections (pre-compile)',
+    ),
+    "serve_coalesced_lanes": MetricSpec(
+        'counter',
+        'requests donor-packed into a shared dispatch',
+    ),
+    "serve_breaker_trips": MetricSpec(
+        'counter',
+        'circuit-breaker rung trips',
+    ),
+    "serve_breaker_open": MetricSpec(
+        'gauge',
+        'engine rungs currently tripped open',
+    ),
+    "serve_request_seconds": MetricSpec(
+        'histogram',
+        'request wall time, admission to reply',
+    ),
+    "serve_canary_ticks": MetricSpec(
+        'counter',
+        'background numerics-canary bucket re-executions',
+    ),
+    "serve_canary_drift": MetricSpec(
+        'counter',
+        'serve canary comparisons that confirmed drift',
+    ),
+    "state_cache_hits": MetricSpec(
+        'counter',
+        'what-if suffix resumes served from a cached epoch state',
+        consumers=('obsreport',),
+    ),
+    "state_cache_misses": MetricSpec(
+        'counter',
+        'what-if requests with no usable cached epoch state (full re-simulation)',
+        consumers=('obsreport',),
+    ),
+    "replay_suffix_epochs_saved": MetricSpec(
+        'counter',
+        'epochs cached carries let what-ifs skip re-simulating (suffix-vs-full savings)',
+        consumers=('obsreport',),
     ),
 }
 

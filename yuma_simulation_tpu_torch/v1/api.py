@@ -7,9 +7,10 @@ every chart row, and one batched :func:`..simulation.sweep.simulate_batch`
 per version over the whole suite. It runs on the card unless the caller
 passes `device="cpu"`.
 
-`__all__` is the part of the JAX package's frozen surface that the port
-has so far; the names that its later slices bring are listed in
-ROADMAP.md. matplotlib is needed to render the charts, not to import this
+`__all__` is the JAX package's frozen surface, with the serving tier's
+entry point and client and the chain-replay names (:func:`serve`,
+`SimulationClient`, `SnapshotArchive`, `StateCache`, `WhatIfSpec`,
+`sweep_trailing_window`). matplotlib is needed to render the charts, not to import this
 module or to simulate the suite (:func:`_simulate_suite`).
 """
 
@@ -52,7 +53,16 @@ from yuma_simulation_tpu_torch.resilience.retry import (
 from yuma_simulation_tpu_torch.resilience.supervisor import (
     default_deadline as _default_deadline,
 )
+from yuma_simulation_tpu_torch.replay import (  # noqa: F401  (promoted)
+    SnapshotArchive,
+    StateCache,
+    WhatIfSpec,
+    sweep_trailing_window,
+)
 from yuma_simulation_tpu_torch.scenarios.base import Scenario
+from yuma_simulation_tpu_torch.serve.server import (  # noqa: F401  (promoted)
+    SimulationClient,
+)
 from yuma_simulation_tpu_torch.telemetry.runctx import ensure_run as _ensure_run
 from yuma_simulation_tpu_torch.telemetry.runctx import span as _span
 from yuma_simulation_tpu_torch.simulation.engine import (  # noqa: F401
@@ -68,7 +78,11 @@ from yuma_simulation_tpu_torch.simulation.sweep import (
 __all__ = [
     "HTML",
     "Scenario",
+    "SimulationClient",
     "SimulationHyperparameters",
+    "SnapshotArchive",
+    "StateCache",
+    "WhatIfSpec",
     "YumaConfig",
     "YumaParams",
     "YumaSimulationNames",
@@ -78,10 +92,41 @@ __all__ = [
     "generate_total_dividends_table",
     "load_metagraph_snapshot",
     "run_simulation",
+    "serve",
     "stake_churn_scenario",
+    "sweep_trailing_window",
     "takeover_scenario",
     "weight_copier_scenario",
 ]
+
+
+def serve(
+    host: str = "127.0.0.1",
+    port: int = 8080,
+    *,
+    background: bool = False,
+    **knobs,
+):
+    """Start the warm-engine simulation service: `simulate`/`sweep`/
+    chart-table/what-if endpoints with admission control, per-tenant
+    quotas, shape-bucket coalescing and graceful degradation, plus
+    `/metrics` and `/healthz`. It runs on the card unless the knobs name
+    the CPU (``device="cpu"``); without CUDA it raises.
+
+    Blocking by default (the CLI behavior: serve until interrupted);
+    `background=True` returns the started
+    :class:`..serve.server.SimulationServer` — call ``.close()`` for a
+    graceful drain. `knobs` are :class:`..serve.service.ServeConfig`
+    fields (``device``, ``queue_limit``, ``coalesce_window_seconds``,
+    ``tenant_rate``, ``bundle_dir``, ...)."""
+    from yuma_simulation_tpu_torch.serve.server import SimulationServer
+    from yuma_simulation_tpu_torch.serve.service import ServeConfig
+
+    server = SimulationServer(ServeConfig(**knobs), host=host, port=port)
+    if background:
+        return server.start()
+    server.serve_forever()
+    return server
 
 
 class HTML:
