@@ -164,6 +164,20 @@ process per source, on first use), then:
    trailing-window sweep of two versions); each prints its line, `{"serve":
    ...}` and `{"replay": ...}`, with the card's name and power limit, and
    leaves its flight bundles under build/chip_smoke/{serve,replay}.
+11. then the multi-process tier, every child process exec'd with `--device
+   cuda` (scaleout_phase: the scale-out drill at 256 x 4096, a router
+   here and three workers on one empty shared kernel-library cache, the
+   affinity and control arms' what-ifs on K2 and the kill drill's
+   [16, 64, 256] simulates on K3 bitwise this process's answers, an
+   autoscaled worker with no library built, each worker's context in
+   `nvidia-smi --query-compute-apps`; controller_phase: `python -m
+   yuma_simulation_tpu_torch.replay --soak --device cuda` at 256 x 4096
+   with 3 subnets, its writer, controller and host as processes with
+   their SIGKILLs, every window published once and the incremental
+   baselines bitwise their from-genesis builds); each prints its line,
+   `{"scaleout": ...}` and `{"controller": ...}`, with the card's name and
+   power limit. The children's K2 / K3 launches are read from their flight
+   bundles and added to the kernel table's counts.
 
 Any failure raises and exits non-zero. Without CUDA it exits 2 and prints
 no result. The numbers and a per-kernel profile table are also written
@@ -2756,9 +2770,12 @@ class _LaunchThreads:
 
 
 #: The threads of the serving tier that may launch work: its dispatcher and
-#: the watchdog workers it starts (the HTTP handler threads never do).
+#: the watchdog workers it starts, and the co-hosted replay controller's
+#: thread (`serve/__main__.py::CONTROLLER_THREAD`, which sets the service's
+#: device before its first launch); the HTTP handler threads never do.
 def _serving_thread(name: str) -> bool:
-    return name == "yuma-serve-dispatcher" or name.startswith("yuma-watchdog")
+    return (name in ("yuma-serve-dispatcher", "replay-controller")
+            or name.startswith("yuma-watchdog"))
 
 
 def _scan_launches(counts: dict) -> int:
@@ -3267,6 +3284,307 @@ def replay_phase(torch, dev, launches, report):
     print(f"replay: {json.dumps(out)}", flush=True)
 
 
+def _whatif_launches(cache_hit: bool, epochs_simulated: int, stride: int) -> int:
+    """K2 launches of one what-if on a pinned K2 baseline: the perturbed
+    suffix is one `simulate` call from the checkpoint, and a miss first
+    builds the baseline, one call a `stride` of epochs (a miss reports
+    every epoch as simulated)."""
+    return 1 if cache_hit else -(-epochs_simulated // stride) + 1
+
+
+def _gpu_memory_used() -> float:
+    """The card's used memory in MiB (`nvidia-smi --query-gpu=memory.used`)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def _compute_apps() -> list:
+    """`nvidia-smi --query-compute-apps=pid,used_memory` as (pid, MiB)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout
+    apps = []
+    for line in out.strip().splitlines():
+        pid, _, mem = line.partition(",")
+        try:
+            apps.append((int(pid.strip()), float(mem.strip().split()[0])))
+        except (ValueError, IndexError):
+            apps.append((line.strip(), None))
+    return apps
+
+
+#: The kill load's simulate shape, [epochs, validators, miners]: explicit
+#: arrays cross HTTP as JSON, so the routed requests are small.
+SCALEOUT_SIMULATE = (16, 64, 256)
+
+
+def scaleout_phase(torch, dev, launches, report, smi):
+    """The horizontal serving tier on the card (`serve/drill.py`'s
+    `run_scaleout_drill`, every process on the card): a router in this
+    process and three worker processes (each exec'd with `--device cuda`,
+    warming the kill load's K3 shape at startup) on one empty shared
+    kernel-library cache; an archive of two subnets of `synthetic_timeline`
+    snapshots at 256 x 4096 (three snapshots of four epochs, checkpoints
+    every 4). Affinity: what-ifs from epoch 9 on subnet 1 land on the worker
+    that built its K2 baseline (a hit, 8 epochs saved), the affinity-off
+    control router's land on cold workers that rebuild, every delta bitwise
+    the in-process service's (its ReplayService on the card). The router
+    hop: one [16, 64, 256] `quarantine: false` simulate (K3) through the
+    router against the same request straight to a worker. Kill drill: 16
+    such requests on four threads, the affinity worker SIGKILLed 0.2 s in:
+    every answer a 200 bitwise the in-process K3 answer, `worker_lost` and
+    `request_rerouted` ledgered. Autoscaler: a synthetic fast burn spawns a
+    worker that reports 0 library builds, idling retires it. The merged
+    bundle passes `check_bundle` and `check_stitched`. Each worker's
+    context shows in `nvidia-smi --query-compute-apps` with its memory
+    (where this sandbox shows other pids than the processes', one entry a
+    process), and the card's used memory before the drill and with the
+    three workers up gives their contexts' share. Each worker that exits
+    gracefully leaves its launch counts beside its bundle
+    (`ops/launches.py::publish_launch_counts`; the killed worker's died
+    with it), and each must equal what the requests it answered launch:
+    one K3 for its warmup shape and for each simulate dispatch (requests
+    queued together share one stacked launch; the dispatches, each with
+    the requests it served, are read from the worker's bundle and must
+    hold every simulate it answered), one K2 for each what-if's suffix
+    and a stride of epochs each for a miss's baseline."""
+    import argparse
+    import shutil
+
+    from yuma_simulation_tpu_torch.ops.launches import (
+        launch_counts,
+        read_launch_counts,
+        reset_launch_counts,
+    )
+    from yuma_simulation_tpu_torch.serve.drill import run_scaleout_drill
+    from yuma_simulation_tpu_torch.telemetry.flight import load_bundle
+
+    root = os.path.abspath(os.path.join(OUT_DIR, "scaleout"))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    E_s, V_s, M_s = SCALEOUT_SIMULATE
+    rng = np.random.default_rng(16)
+    W = rng.random((E_s, V_s, M_s)).astype(np.float32)
+    S = (rng.random((E_s, V_s)) + 0.1).astype(np.float32)
+    args = argparse.Namespace(device=dev.type, bundle_dir=os.path.join(root, "merged"))
+    stride = 4
+    warmup = (f"{E_s}x{V_s}x{M_s}",)
+    sizes = dict(
+        validators=V, miners=M, snapshots=3, epochs_per_snapshot=4, stride=stride,
+        from_epoch=9, requests=16,
+        simulate={"weights": W.tolist(), "stakes": S.tolist(), "quarantine": False},
+        warmup=warmup, workdir=os.path.join(root, "work"),
+    )
+    probed = {}
+
+    def probe(pids):
+        apps = _compute_apps()
+        probed.update(apps=apps, workers=pids, used_mib=_gpu_memory_used())
+        return {"apps": apps, "workers": pids}
+
+    out = {}
+    used_before = _gpu_memory_used()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = run_scaleout_drill(args, sizes=sizes, report=out, probe=probe)
+    seconds = time.perf_counter() - t0
+    in_process = launch_counts()
+    assert rc == 0, out.get("failures")
+    # Every worker's CUDA context on the card: its pid among the compute
+    # apps (the router's too), unless this sandbox shows other pids.
+    pids = {pid for pid, _ in probed["apps"]}
+    if os.getpid() in pids:
+        missing = [p for p in probed["workers"] if p not in pids]
+        assert not missing, (missing, probed["apps"])
+    else:
+        assert len(probed["apps"]) >= len(probed["workers"]) + 1, probed
+    memory = {str(pid): mib for pid, mib in probed["apps"]}
+    spawns = out["spawns"]
+    # The first worker builds every library into the empty shared cache.
+    from yuma_simulation_tpu_torch.ops._build import SOURCES
+
+    cold_builds = len(SOURCES) if dev.type == "cuda" else 0
+    assert [s["aot_builds"] for s in spawns] == [cold_builds, 0, 0], spawns
+    assert out["autoscaled"]["aot_builds"] == 0, out["autoscaled"]
+    kill = out["kill"]
+    assert kill["errors"] == 0 and kill["mismatched"] == 0 and kill["reroutes"] >= 1, kill
+    # Each surviving worker's counts against what it answered.
+    assert out["served"] and all(w for w, _, _ in out["served"]), out["served"]
+    per_worker = {}
+    for bundle in out["worker_bundles"]:
+        worker = os.path.basename(os.path.dirname(bundle))
+        record = read_launch_counts(bundle)
+        if worker == out["kill"]["worker"]:
+            assert record is None, (worker, record)
+            continue
+        assert record is not None, worker
+        served = {"simulate": 0, "whatif": 0}
+        want = {"varying_scan": 0, "case_scan": 0}
+        for who, kind, body in out["served"]:
+            if who == worker:
+                served[kind] += 1
+                if kind == "whatif":
+                    want["case_scan"] += _whatif_launches(
+                        body["cache_hit"], body["epochs_simulated"], stride)
+        dispatched = {"simulate": [], "whatif": []}
+        for sp in load_bundle(bundle).spans:
+            kind = sp.get("name", "").partition("dispatch:")[2]
+            if kind in dispatched:
+                dispatched[kind].append(len((sp.get("attrs") or {}).get("requests") or ()))
+        assert {k: sum(v) for k, v in dispatched.items()} == served, (worker, dispatched, served)
+        want["varying_scan"] = len(warmup) + len(dispatched["simulate"])
+        if dev.type != "cuda":
+            want = {k: 0 for k in want}
+        got = {k: record["launches"][k] for k in want}
+        assert got == want, (worker, got, want)
+        per_worker[worker] = dict(got, pid=record["pid"],
+                                  simulate_dispatches=dispatched["simulate"])
+    children = {k: sum(w[k] for w in per_worker.values()) for k in ("varying_scan", "case_scan")}
+    if dev.type == "cuda":
+        assert children["varying_scan"] >= 1 and children["case_scan"] >= 1, per_worker
+    for kernel in ("varying_scan", "case_scan"):
+        launches[kernel] += children[kernel] + in_process[kernel]
+    med = lambda xs: float(np.median(xs)) if xs else None  # noqa: E731
+    summary = dict(
+        card=smi, seconds=seconds,
+        spawn_seconds=dict(cold=spawns[0]["seconds"], warm=[s["seconds"] for s in spawns[1:]],
+                           autoscaled=out["autoscaled"]["seconds"]),
+        whatif=dict(miss_seconds=out["whatif_miss_seconds"],
+                    affinity_hit_seconds=out["whatif"]["affinity_seconds"],
+                    control_seconds=out["whatif"]["control_seconds"],
+                    control_misses=out["whatif"]["control_misses"],
+                    epochs_saved=out["whatif"]["epochs_saved"]),
+        router_hop=dict(routed_median_s=med(out["router_hop"]["routed_seconds"]),
+                        direct_median_s=med(out["router_hop"]["direct_seconds"]),
+                        routed_s=out["router_hop"]["routed_seconds"],
+                        direct_s=out["router_hop"]["direct_seconds"]),
+        kill=dict(requests=kill["requests"], reroutes=kill["reroutes"], errors=kill["errors"],
+                  rerouted_s=kill["rerouted_seconds"],
+                  other_median_s=med(kill["other_seconds"])),
+        context_mib=dict(router=memory.get(str(os.getpid())),
+                         workers={str(p): memory.get(str(p)) for p in probed["workers"]},
+                         apps=probed["apps"], pids_visible=os.getpid() in pids,
+                         card_used_before=used_before, card_used_with_workers=probed["used_mib"],
+                         per_worker=(probed["used_mib"] - used_before) / len(probed["workers"])),
+        launches=dict(children=children, per_worker=per_worker,
+                      in_process={k: in_process[k] for k in ("varying_scan", "case_scan")}),
+        simulate_shape=list(SCALEOUT_SIMULATE),
+    )
+    report["scaleout"] = summary
+    print(f"scaleout: {json.dumps(summary)}", flush=True)
+
+
+#: The soak on the card (`python -m yuma_simulation_tpu_torch.replay --soak`)
+#: at 256 x 4096: 3 subnets (the minimum), two versions, one epoch a
+#: snapshot, checkpoints every 8 epochs, 86 rounds a second apart. Its
+#: timing knobs follow the card's pace (a controller's first cycle ~12 s
+#: after the soak starts, then 2-6 s a cycle of three windows; a restarted
+#: one sweeps its first cycle ~14 s after the kill, and drained 82-round
+#: timelines in 43-44 s, ~0.25 s more a round): three windows a cycle, so
+#: subnet 0's two pairs and one of subnet 1's are swept each cycle while
+#: the writer runs and the stalled subnet 2 is shed until the restart; a
+#: stall deadline of 52 s, past which subnet 2 stalls before the kill at
+#: 76 s and no subnet stalls while the restarted controller drains; the
+#: writer's last round (~82 s) between the kill and the restarted
+#: controller's first cycle (~90 s); a freshness budget of 1 s, under a
+#: cycle of the restarted controller, so its backlog burns the SLO fast
+#: (PERF.md §6).
+SOAK_STRIDE = 8
+SOAK_ARGS = (
+    "--subnets", "3", "--validators", str(V), "--miners", str(M),
+    "--versions", "Yuma 2 (Adrian-Fish)", "Yuma 1 (paper)", "--max-windows", "3",
+    "--rounds", "86", "--interval", "1.0", "--epochs-per-snapshot", "1",
+    "--stride", str(SOAK_STRIDE), "--stall-after", "3", "--corrupt-round", "3",
+    "--kill-after", "76", "--downtime", "6", "--stall-deadline", "52",
+    "--freshness-budget", "1.0", "--drain-timeout", "240", "--recovery-timeout", "90",
+)
+
+
+def controller_phase(torch, dev, launches, report, smi):
+    """The continuous replay controller on the card: the soak
+    (`replay/soak.py`) as a user runs it, `python -m
+    yuma_simulation_tpu_torch.replay --soak --device cuda` at 256 x 4096
+    with 3 subnets (SOAK_ARGS lists the cuts). Its writer, controller and
+    helper host are real processes exec'd with `--device cuda`; the host
+    and the controller are SIGKILLed mid-sweep and the controller
+    restarted cold. The soak must pass every one of its checks (exit 0):
+    among them every window published exactly once, and the final
+    incremental baselines of the clean and the corrupted subnet bitwise
+    (and keyed as) from-genesis builds on the controller's rung (the eager
+    rung, `replay/controller.py::CONTROLLER_ENGINE`: no kernel launch).
+    The soak's serve tier answers what-ifs on K2 throughout; its launch
+    counts, left beside its bundle, must equal what its what-ifs launch.
+    Prints the seconds per cycle, the windows per cycle and the soak's
+    seconds."""
+    import glob
+    import re
+    import shutil
+
+    from yuma_simulation_tpu_torch.ops.launches import read_launch_counts
+
+    root = os.path.abspath(os.path.join(OUT_DIR, "controller"))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    target = os.path.join(root, "soak")
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join(p for p in [here, env.get("PYTHONPATH", "")] if p)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "yuma_simulation_tpu_torch.replay", "--soak", "--device", dev.type,
+         "--bundle-dir", target, *SOAK_ARGS],
+        cwd=here, env=env, capture_output=True, text=True, timeout=420,
+    )
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(root, "soak.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    failed = [ln[5:] for ln in proc.stdout.splitlines() if re.match(r"^FAIL ", ln)]
+    assert proc.returncode == 0 and not failed, (
+        proc.returncode, failed, proc.stdout[-3000:], proc.stderr[-3000:])
+    with open(os.path.join(target, "soak_summary.json")) as f:
+        summary = json.load(f)
+    cycles = summary["cycles"]
+    working = [c for c in cycles if c["swept"]]
+    # The serve tier's K2 launches: each what-if's suffix, and each baseline
+    # its cache holds (each built by one what-if's miss; fewer than the
+    # cache's bound of 64, so none was evicted) a stride of epochs each.
+    record = read_launch_counts(os.path.join(target, "serve"))
+    assert record is not None, "the soak's serve tier left no launch counts"
+    metas = glob.glob(os.path.join(target, "serve-cache", "*", "meta.json"))
+    assert len(metas) < 64, len(metas)
+    built = []
+    for path in metas:
+        with open(path) as f:
+            built.append(json.load(f)["epochs"])
+    want = (summary["whatifs_ok"] + sum(-(-e // SOAK_STRIDE) for e in built)
+            if dev.type == "cuda" else 0)
+    got = record["launches"]["case_scan"]
+    assert got == want, (got, want, summary["whatifs_ok"], built)
+    if dev.type == "cuda":
+        assert got >= 1, record
+    launches["case_scan"] += got
+    out = dict(
+        card=smi, rc=proc.returncode, seconds=seconds, soak_seconds=summary["seconds"],
+        windows=summary["windows_swept"], whatifs=summary["whatifs_ok"],
+        units_published=summary["units_published"], unit_ok=summary["unit_ok_records"],
+        cycles=len(cycles), sweeping_cycles=len(working),
+        windows_per_sweeping_cycle=(float(np.mean([c["swept"] for c in working]))
+                                    if working else 0.0),
+        seconds_per_sweeping_cycle=(float(np.mean([c["seconds"] for c in working]))
+                                    if working else 0.0),
+        seconds_per_window=(sum(c["seconds"] for c in working)
+                            / max(1, sum(c["swept"] for c in working))),
+        incidents=summary["incidents"], sealed_segments=summary["sealed_segments"],
+        launches=dict(serve=record["launches"]["case_scan"]), cuts=list(SOAK_ARGS),
+    )
+    report["controller"] = out
+    print(f"controller: {json.dumps(out)}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3497,6 +3815,9 @@ def main() -> int:
     # The serving tier and what-if replay.
     serve_phase(torch, dev, launches, report)
     replay_phase(torch, dev, launches, report)
+    # The multi-process tier: the router and its workers, the controller's soak.
+    scaleout_phase(torch, dev, launches, report, smi)
+    controller_phase(torch, dev, launches, report, smi)
 
     replaces = {
         "consensus_bisect": "yuma_simulation_tpu/ops/pallas_consensus.py:80",
@@ -3527,10 +3848,11 @@ def main() -> int:
             plain_ms=m["plain_ms"], bound_ms=m["bound_ms"], bound_by=m["bound_by"],
             library_ms=m.get("library_ms"),
         ))
-        if name == "varying_scan":
+        if name in ("varying_scan", "case_scan"):
             kernels[-1]["launches_note"] = (
-                "in-process launches only: the fleet drill's host processes and the "
-                "--fleet-store CLI processes are not counted")
+                "in-process launches, plus the scale-out workers' and the soak's serve "
+                "tier's read from their flight bundles; the fleet drill's host processes, "
+                "the --fleet-store CLI processes and the SIGKILLed worker are not counted")
     report["kernels"] = kernels
 
     report["bisect"] = {
@@ -3559,6 +3881,8 @@ def main() -> int:
     print(json.dumps({"fleet": report["fleet"]}))
     print(json.dumps({"serve": report["serve"], "card": smi}))
     print(json.dumps({"replay": report["replay"], "card": smi}))
+    print(json.dumps({"scaleout": report["scaleout"], "card": smi}))
+    print(json.dumps({"controller": report["controller"], "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

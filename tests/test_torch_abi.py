@@ -128,8 +128,11 @@ def test_new_modules_import_without_jax():
     and the mesh, ops-plane and fleet slice's (the miner shards, the ops
     and incident plane, the fabric and its simulated host) and the serving
     and replay slice's (every module of `serve/` and `replay/`, and the v1
-    API that promotes their names) import with `jax` made unimportable and
-    pull in nothing of the JAX package."""
+    API that promotes their names) and the multi-process tier's (the
+    worker, router, autoscaler and scale-out drill, the continuous
+    controller, the soak and the replay CLI) import with `jax` and the
+    repo's JAX-based `tools` made unimportable and pull in nothing of the
+    JAX package."""
     import subprocess
     import sys
 
@@ -179,16 +182,19 @@ def test_new_modules_import_without_jax():
             "yuma_simulation_tpu_torch.fabric.simhost",
             *(f"yuma_simulation_tpu_torch.serve.{m}" for m in (
                 "quotas", "coalescer", "admission", "lifecycle", "apikeys", "service",
-                "server", "__main__")),
+                "server", "__main__", "worker", "router", "autoscaler", "drill")),
             "yuma_simulation_tpu_torch.serve",
             *(f"yuma_simulation_tpu_torch.replay.{m}" for m in (
-                "archive", "statecache", "whatif", "sweeper")),
+                "archive", "statecache", "whatif", "sweeper", "controller", "soak",
+                "__main__")),
             "yuma_simulation_tpu_torch.replay",
             "yuma_simulation_tpu_torch.v1.api"]
     code = (
-        "import sys\nsys.modules['jax'] = None\nimport importlib\n"
+        "import sys\nsys.modules['jax'] = None\nsys.modules['tools'] = None\n"
+        "import importlib\n"
         f"for m in {mods!r}:\n    importlib.import_module(m)\n"
-        "assert not any(k.split('.')[0] == 'yuma_simulation_tpu' for k in sys.modules)\n"
+        "assert not any(k.split('.')[0] in ('yuma_simulation_tpu', 'tools')\n"
+        "               and sys.modules[k] is not None for k in sys.modules)\n"
         "print('OK')\n"
     )
     repo = HEADER.parents[2]

@@ -21,6 +21,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import time
 from pathlib import Path
 
 import pytest
@@ -334,15 +335,32 @@ def _stats(proc) -> dict:
 
 
 def test_fresh_processes_and_concurrent_builders(tmp_path):
-    """Two builders started together into one empty root both finish, each
-    having built and published every library; a third process then loads
-    all of them without building, each library's bytes checked against the
-    metadata that won."""
+    """Two builders started together into one empty root both finish and
+    build each library once between them: both miss every library, one
+    builds and publishes all of them under the root's build lock, and the
+    other, having waited on the lock, loads what it published. A third
+    process then loads all of them without building, each library's bytes
+    checked against the metadata."""
     root = tmp_path / "shared"
     load_all = "[_build.load(s) for s in _build.SOURCES]"
-    a, b = (_child(root, load_all, delay=1.0) for _ in range(2))
-    for stats in (_stats(a), _stats(b)):
-        assert (stats["builds"], stats["misses"], stats["errors"]) == (NSRC, NSRC, 0)
+    # Both builders start their first look together (however long each
+    # takes to start), so the other is still building when either looks.
+    ready, go = tmp_path / "ready", tmp_path / "go"
+    ready.mkdir()
+    start_together = (
+        f"import os, time; pathlib.Path({str(ready)!r}, str(os.getpid())).touch(); "
+        f"[time.sleep(0.01) for _ in iter(lambda: pathlib.Path({str(go)!r}).exists(), True)]; "
+    )
+    a, b = (_child(root, start_together + load_all, delay=1.0) for _ in range(2))
+    deadline = time.monotonic() + 120
+    while len(list(ready.iterdir())) < 2 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    go.touch()
+    pair = [_stats(a), _stats(b)]
+    both = sorted(((s["builds"], s["hits"]) for s in pair), reverse=True)
+    assert both == [(NSRC, 0), (0, NSRC)], both
+    for stats in pair:
+        assert (stats["misses"], stats["errors"]) == (NSRC, 0)
         assert stats["miss_reasons"] == {"absent": NSRC}
     warm = _stats(_child(root, load_all + "; assert not CALLS"))
     assert (warm["hits"], warm["builds"], warm["misses"], warm["stale"]) == (NSRC, 0, 0, 0)

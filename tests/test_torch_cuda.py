@@ -1634,3 +1634,117 @@ def test_whatif_hit_bitwise_miss_and_uncached_on_k2(cuda, tmp_path):
         np.testing.assert_array_equal(got.dividend_delta, uncached.dividend_delta)
         np.testing.assert_array_equal(got.incentives, uncached.incentives)
     np.testing.assert_array_equal(uncached.dividends, whole.dividends)
+
+
+# ---------------------------------------------------------------------------
+# the multi-process tier: router, workers, the kernel-library cache across
+# processes
+
+
+def _cache_children(root, modes):
+    """Start one CACHE_CHILD process per mode together on the library
+    cache at `root`; return each one's counters and K3 digest."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    env = {**os.environ, "YUMA_TORCH_BUILD_DIR": str(root), "PYTHONPATH": str(repo)}
+    procs = [subprocess.Popen([sys.executable, "-c", CACHE_CHILD, mode], cwd=repo, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for mode in modes]
+    outs = []
+    for proc in procs:
+        out, err = proc.communicate(timeout=600)
+        assert proc.returncode == 0, err[-3000:]
+        outs.append(json.loads(out.strip().splitlines()[-1]))
+    return outs
+
+
+def test_two_cold_processes_build_each_library_once(cuda, tmp_path):
+    """Two processes cold-started together on one empty library cache both
+    load every library and run K3 bitwise alike; the root's build lock
+    makes each library built once between them."""
+    from yuma_simulation_tpu_torch.ops import _build
+
+    n = len(_build.SOURCES)
+    a, b = _cache_children(tmp_path, ["cold", "cold"])
+    assert a["stats"]["builds"] + b["stats"]["builds"] == n, (a["stats"], b["stats"])
+    assert a["stats"]["builds"] + a["stats"]["hits"] == n == b["stats"]["builds"] + b["stats"][
+        "hits"]
+    assert a["k3"] == b["k3"]
+
+
+def _pool_worker(pool, extra):
+    ad = pool.spawn(extra_argv=extra)
+    assert ad["alive"], ad
+    return ad
+
+
+def test_worker_spawned_warm_reports_zero_builds(cuda, tmp_path):
+    """A worker spawned on an empty shared cache builds every library as
+    it warms a K3 shape; the next worker on the same cache builds none."""
+    from yuma_simulation_tpu_torch.ops import _build
+    from yuma_simulation_tpu_torch.serve import WorkerPool
+
+    pool = WorkerPool(tmp_path / "pool", max_slots=2, device="cuda", spawn_wait_seconds=300)
+    extra = ["--executable-cache", str(tmp_path / "cache"), "--warmup", "8x16x256"]
+    try:
+        cold = _pool_worker(pool, extra)
+        warm = _pool_worker(pool, extra)
+        assert cold["aot_builds"] == len(_build.SOURCES) and warm["aot_builds"] == 0
+    finally:
+        pool.close()
+
+
+def test_router_one_worker_whatif_bitwise_in_process(cuda, tmp_path):
+    """A router with one worker on the card answers a full-width what-if
+    (a miss that builds the K2 baseline, then the hit) bitwise the
+    in-process ReplayService, with the router's baseline key the
+    worker's."""
+    from yuma_simulation_tpu_torch.replay import (
+        ReplayService,
+        SnapshotArchive,
+        WhatIfSpec,
+        synthetic_timeline,
+    )
+    from yuma_simulation_tpu_torch.serve import (
+        RouterConfig,
+        RouterService,
+        SimulationClient,
+        SimulationServer,
+        wait_until_ready,
+    )
+
+    synthetic_timeline(SnapshotArchive(tmp_path / "archive"), 4, snapshots=3, seed=2)
+    spec = {"netuid": 4, "version": "Yuma 1 (paper)", "from_epoch": 9,
+            "stake_scale": [[1, 2.0]]}
+    ref = ReplayService(tmp_path / "archive", tmp_path / "ref-cache", epochs_per_snapshot=4,
+                        stride=4, device="cuda").whatif(WhatIfSpec.from_json(spec))
+    router = RouterService(RouterConfig(
+        pool_dir=str(tmp_path / "pool"), workers=1, max_workers=1, device="cuda",
+        worker_args=("--replay-archive", str(tmp_path / "archive"), "--replay-cache",
+                     str(tmp_path / "cache"), "--replay-epochs-per-snapshot", "4",
+                     "--replay-stride", "4"),
+        replay_archive_dir=str(tmp_path / "archive"),
+        replay_cache_dir=str(tmp_path / "router-cache"), replay_epochs_per_snapshot=4,
+        replay_stride=4, spawn_wait_seconds=300, forward_timeout=300))
+    front = SimulationServer(service=router)
+    try:
+        router.start_workers()
+        front.start()
+        assert wait_until_ready(front.url)
+        client = SimulationClient(front.url, tenant="t", timeout=300)
+        miss, hit = client.whatif(spec), client.whatif(spec)
+        assert miss.status == hit.status == 200, (miss.body, hit.body)
+        assert (miss.body["cache_hit"], hit.body["cache_hit"]) == (False, True)
+        assert miss.body["baseline_key"] == ref.baseline_key == hit.body["baseline_key"]
+        for got in (miss, hit):
+            np.testing.assert_array_equal(
+                np.asarray(got.body["total_dividend_delta"], np.float32),
+                ref.total_dividend_delta.astype(np.float32))
+            assert got.body["total_dividend_delta"] == miss.body["total_dividend_delta"]
+    finally:
+        front.close()

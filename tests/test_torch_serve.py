@@ -494,12 +494,16 @@ def test_smoke_cli_on_the_cpu_and_its_bundle_gates(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--smoke"], ["--device", "cpu", "--router"],
-                                   ["--device", "cpu", "--scaleout-drill"],
+                                   ["--device", "cpu", "--replay-controller", "store"],
                                    ["--device", "cpu", "--worker-pool", "pool"],
-                                   ["--device", "cpu", "--replay-controller", "store"]])
-def test_cli_refuses_what_it_cannot_do(flags):
+                                   ["replay"]])
+def test_cli_refuses_what_it_cannot_do(flags, tmp_path, capsys):
     """Without CUDA the default smoke raises instead of running on the
-    CPU; the multi-process tier's flags raise instead of being ignored."""
+    CPU. JAX's refusals of the multi-process tier: `--router` without
+    `--worker-pool` and `--replay-controller` without `--replay-archive`
+    / `--replay-cache` are usage errors, a worker on a slot a live lease
+    holds raises, and the replay CLI without a mode prints its help and
+    returns 2."""
     from yuma_simulation_tpu_torch.serve.__main__ import main
 
     if flags == ["--smoke"]:
@@ -510,8 +514,25 @@ def test_cli_refuses_what_it_cannot_do(flags):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(flags)
         return
-    with pytest.raises(NotImplementedError, match="queue A item 13"):
+    if flags == ["replay"]:
+        from yuma_simulation_tpu_torch.replay.__main__ import main as replay_main
+
+        assert replay_main([]) == 2
+        assert "--controller" in capsys.readouterr().out
+        return
+    if "--worker-pool" in flags:
+        from yuma_simulation_tpu_torch.fabric.lease import LeaseStore
+
+        pool = tmp_path / "pool"
+        assert LeaseStore(pool / "leases", "someone-else", ttl_seconds=60.0).try_claim(0)
+        with pytest.raises(RuntimeError, match="already held by a live worker"):
+            main([*flags[:-1], str(pool), "--bundle-dir", str(tmp_path / "b")])
+        return
+    with pytest.raises(SystemExit) as exc:
         main(flags)
+    assert exc.value.code == 2
+    assert ("requires --worker-pool" if "--router" in flags
+            else "requires --replay-archive") in capsys.readouterr().err
 
 
 def test_v1_serve_in_the_background():

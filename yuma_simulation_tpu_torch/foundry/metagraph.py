@@ -336,8 +336,8 @@ def scenario_from_snapshot(
     `plan_dispatch` consume: weight rows re-normalized (zero rows stay
     zero), stakes normalized to fractions, both held constant across
     `num_epochs` (replaying a snapshot SEQUENCE as an epoch-varying
-    scenario is the chain-replay service's job, not ported yet: ROADMAP
-    queue A, 10. Replay).
+    scenario is the chain-replay service's job:
+    :meth:`..replay.archive.SnapshotArchive.window_scenario`).
     Validated on the way out — row-normalized, finite, non-negative."""
     row_sums = snap.weights.sum(axis=1, keepdims=True)
     W_n = np.divide(

@@ -21,7 +21,12 @@ beside the package, `$YUMA_TORCH_BUILD_DIR`, or the directory
   its own sha256, so a published library is never rewritten).
 
 The metadata is published last and records the library's sha256, which is
-checked before `ctypes.CDLL` sees the file. Every lookup is one typed
+checked before `ctypes.CDLL` sees the file. Builds into one cache
+root are serialized across processes by an exclusive `fcntl` lock on
+`<root>/.build.lock` (:func:`_build_lock`): a process that waited on it
+looks its missing libraries up again, so processes cold-started together
+on one empty cache build each library once between them. Every lookup is
+one typed
 outcome (``event=executable_cache_hit`` / ``_miss`` with a ``reason``:
 absent, torn_metadata, blob_missing, corrupt, unloadable / ``_stale``: the
 program was built only under another environment) on the registry's
@@ -38,8 +43,10 @@ beside each library as `<envkey>.ptxas.txt`.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import dataclasses
+import fcntl
 import hashlib
 import json
 import logging
@@ -236,41 +243,42 @@ class ExecutableCache:
             source=source, digest=library_digest(source), reason=reason,
         )
 
-    def lookup(self, source: str) -> Optional[Path]:
+    def lookup(self, source: str, *, record: bool = True) -> Optional[Path]:
         """The path of `source`'s library under this environment, its
         bytes checked against the metadata, or None with exactly one typed
-        event saying why. Never raises for a bad entry."""
+        event saying why (none when `record` is false: a second look of
+        one resolve). Never raises for a bad entry."""
+
+        def refuse(reason: str, foreign: int = 0) -> None:
+            if record and reason == "stale":
+                self._stale(source, foreign)
+            elif record:
+                self._miss(source, reason)
+            return None
+
         meta_path = self.meta_path(source)
         if not meta_path.exists():
             try:
                 foreign = [p for p in meta_path.parent.glob("*.json") if p != meta_path]
             except OSError:
                 foreign = []
-            if foreign:
-                self._stale(source, len(foreign))
-            else:
-                self._miss(source, "absent")
-            return None
+            return refuse("stale", len(foreign)) if foreign else refuse("absent")
         try:
             meta = json.loads(meta_path.read_text())
             blob_path = meta_path.parent / meta["blob"]
             want = meta["blob_sha256"]
         except (OSError, ValueError, KeyError, TypeError):
-            self._miss(source, "torn_metadata")
-            return None
+            return refuse("torn_metadata")
         try:
             blob = blob_path.read_bytes()
         except OSError:
-            self._miss(source, "blob_missing")
-            return None
+            return refuse("blob_missing")
         if hashlib.sha256(blob).hexdigest() != want:
-            self._miss(source, "corrupt")
-            return None
+            return refuse("corrupt")
         if meta.get("environment") != self.env:
             # The key names the file, so only a collision or a hand-copied
             # entry reaches here: refuse it rather than load it.
-            self._stale(source, 1)
-            return None
+            return refuse("stale", 1)
         return blob_path
 
     def _stale(self, source: str, foreign: int) -> None:
@@ -446,47 +454,80 @@ def _dlopen(path: Path):
     return ctypes.CDLL(str(path))
 
 
+#: The cross-process build lock's file name, under the cache's root.
+BUILD_LOCK = ".build.lock"
+
+
+@contextlib.contextmanager
+def _build_lock(root: Path):
+    """Hold the cache root's exclusive build lock (`fcntl.flock`, released
+    when the process dies, so a killed builder never wedges the others)."""
+    root.mkdir(parents=True, exist_ok=True)
+    with open(root / BUILD_LOCK, "a+") as f:
+        fcntl.flock(f.fileno(), fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f.fileno(), fcntl.LOCK_UN)
+
+
 def _resolve(cache: ExecutableCache, sources) -> None:
     """Load every library of `sources` not yet in the memo: the cached
     ones whose bytes check out, and the rest after one parallel build."""
-    found, build = {}, []
-    for src in sources:
-        if memo_key(src) in _libs:
-            continue
-        path = cache.lookup(src)
-        if path is None:
-            build.append(src)
-            continue
-        try:
-            found[src] = _dlopen(path)
-        except OSError as exc:
-            cache._miss(src, f"unloadable:{type(exc).__name__}")
-            build.append(src)
-            continue
-        cache.hit(src, path)
+    found = {}
+
+    def load(srcs, record: bool = True) -> list:
+        """Load what the cache holds of `srcs`; return the rest."""
+        missing = []
+        for src in srcs:
+            path = cache.lookup(src, record=record)
+            if path is None:
+                missing.append(src)
+                continue
+            try:
+                found[src] = _dlopen(path)
+            except OSError as exc:
+                if record:
+                    cache._miss(src, f"unloadable:{type(exc).__name__}")
+                missing.append(src)
+                continue
+            cache.hit(src, path)
+        return missing
+
+    build = load([src for src in sources if memo_key(src) not in _libs])
     if build:
-        cache.root.mkdir(parents=True, exist_ok=True)
-        nonce = f"{os.getpid()}.{uuid.uuid4().hex[:8]}"
-        jobs = {src: cache.root / f".{Path(src).stem}.{nonce}.so.tmp" for src in build}
-        failures = []
-        try:
-            for src, (code, log) in _compile_all(jobs).items():
-                if code != 0:
-                    failures.append(f"nvcc {src} failed (exit {code}):\n{log}")
-                    continue
-                cache._count("builds")
-                found[src] = _dlopen(cache.publish(src, jobs[src], log))
-        except Exception:  # counted, then raised as it came
-            cache._count("errors")
-            raise
-        finally:
-            for tmp in jobs.values():
-                tmp.unlink(missing_ok=True)
-        if failures:
-            cache._count("errors", len(failures))
-            raise RuntimeError("\n".join(failures))
+        with _build_lock(cache.root):
+            # Another process may have published while this one waited.
+            # Each library's miss was counted by the first look.
+            build = load(build, record=False)
+            if build:
+                _build_missing(cache, build, found)
     for src, lib in found.items():
         _libs[memo_key(src)] = lib
+
+
+def _build_missing(cache: "ExecutableCache", build: list, found: dict) -> None:
+    """Build every source of `build` (one `nvcc` each, all together),
+    publish each library and load it into `found`."""
+    nonce = f"{os.getpid()}.{uuid.uuid4().hex[:8]}"
+    jobs = {src: cache.root / f".{Path(src).stem}.{nonce}.so.tmp" for src in build}
+    failures = []
+    try:
+        for src, (code, log) in _compile_all(jobs).items():
+            if code != 0:
+                failures.append(f"nvcc {src} failed (exit {code}):\n{log}")
+                continue
+            cache._count("builds")
+            found[src] = _dlopen(cache.publish(src, jobs[src], log))
+    except Exception:  # counted, then raised as it came
+        cache._count("errors")
+        raise
+    finally:
+        for tmp in jobs.values():
+            tmp.unlink(missing_ok=True)
+    if failures:
+        cache._count("errors", len(failures))
+        raise RuntimeError("\n".join(failures))
 
 
 def resolve(cache: Optional[ExecutableCache] = None) -> None:

@@ -38,3 +38,36 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     return {name: c.count for name, c in COUNTERS.items()}
+
+
+#: The file a serving process leaves in its flight bundle's directory at a
+#: graceful close: its pid and its launch counts then, so the counts of a
+#: worker process can be read after it exits.
+LAUNCHES_NAME = "launches.json"
+
+
+def publish_launch_counts(directory) -> None:
+    """Write this process's pid and launch counts to `directory`'s
+    :data:`LAUNCHES_NAME` (atomically)."""
+    import json
+    import os
+    import pathlib
+
+    from yuma_simulation_tpu_torch.utils.checkpoint import publish_atomic
+
+    path = pathlib.Path(directory)
+    path.mkdir(parents=True, exist_ok=True)
+    record = {"pid": os.getpid(), "launches": launch_counts()}
+    publish_atomic(path / LAUNCHES_NAME, json.dumps(record, sort_keys=True).encode())
+
+
+def read_launch_counts(directory):
+    """The record :func:`publish_launch_counts` left in `directory`, or
+    None when there is none."""
+    import json
+    import pathlib
+
+    path = pathlib.Path(directory) / LAUNCHES_NAME
+    if not path.exists():
+        return None
+    return json.loads(path.read_text())

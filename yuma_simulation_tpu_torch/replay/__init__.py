@@ -15,11 +15,19 @@ device the caller names (the card by default):
   while re-simulating only the suffix;
 - :mod:`.sweeper` — the trailing-window scheduled sweep: every variant
   x every subnet timeline as lease-claimed, canaried fleet units with
-  driftreport-gated bundles.
+  driftreport-gated bundles;
+- :mod:`.controller` — the continuous controller: durable per-(subnet x
+  variant) watermarks, incremental suffix windows resumed from cached
+  carries, exactly-once publication, quarantine, stall demotion and
+  backpressure, plus the helper fleet host (:func:`run_host`);
+- :mod:`.soak` — the multi-process chaos soak (writer, controller and
+  host as real processes, SIGKILLs mid-sweep).
 
 :class:`ReplayService` is the glue the serve tier (``POST /v1/whatif``,
-``GET /v1/replay/...``) mounts. The JAX package's continuous controller,
-soak and drill CLI are not part of this package yet.
+``GET /v1/replay/...``) mounts. ``python -m yuma_simulation_tpu_torch.replay
+{--drill,--controller,--host,--writer,--soak}`` runs each mode; every
+mode takes ``--device`` (the card by default) and passes it to every
+process it starts.
 """
 
 from __future__ import annotations
@@ -34,6 +42,15 @@ from yuma_simulation_tpu_torch.replay.archive import (  # noqa: F401
     SnapshotArchive,
     TimelineEntry,
     synthetic_timeline,
+)
+from yuma_simulation_tpu_torch.replay.controller import (  # noqa: F401
+    ControllerConfig,
+    ControllerError,
+    CycleReport,
+    ReplayController,
+    WatermarkStore,
+    WindowSpec,
+    run_host,
 )
 from yuma_simulation_tpu_torch.replay.statecache import (  # noqa: F401
     BaselineMeta,
@@ -57,15 +74,22 @@ logger = logging.getLogger(__name__)
 __all__ = [
     "ArchiveError",
     "BaselineMeta",
+    "ControllerConfig",
+    "ControllerError",
+    "CycleReport",
+    "ReplayController",
     "ReplayService",
     "SnapshotArchive",
     "StateCache",
     "StateCacheError",
     "TimelineEntry",
+    "WatermarkStore",
     "WhatIfError",
     "WhatIfResult",
     "WhatIfSpec",
+    "WindowSpec",
     "baseline_key",
+    "run_host",
     "run_whatif",
     "sweep_trailing_window",
     "synthetic_timeline",

@@ -319,6 +319,14 @@ class SnapshotArchive:
             entries = entries[-window:]
         return entries
 
+    def entries_after(self, netuid: int, block: int) -> list[TimelineEntry]:
+        """Timeline entries strictly past ``block`` (oldest first) —
+        the continuous-replay controller's suffix query: everything a
+        durable watermark has not swept yet. Empty list when the
+        timeline has nothing newer (a subnet being fully drained is the
+        steady state, not an error)."""
+        return [e for e in self.timeline(netuid) if e.block > int(block)]
+
     def scenario_for_blocks(
         self,
         netuid: int,

@@ -293,6 +293,42 @@ class StateCache:
             logger.warning("dropping corrupt baseline meta %s", key[:16])
             return None
 
+    def held_prefixes(self) -> list[dict]:
+        """Everything this cache can resume FROM, as an advertisement:
+        one record per held baseline — the content-addressed key, the
+        largest checkpoint epoch whose state file is actually readable
+        on disk (the suffix-savings currency), and the identity fields
+        a router needs to match a what-if to the baseline WITHOUT
+        recomputing the key (scenario fingerprint/name, version,
+        engine, total epochs). The serve scale-out tier publishes this
+        in each worker's heartbeat so state-cache-affinity routing can
+        score claims by suffix-epochs-saved (serve/router.py)."""
+        ads = []
+        for key in self.keys():
+            meta = self.meta(key)
+            if meta is None:
+                continue
+            held = [
+                c
+                for c in meta.checkpoints
+                if self._state_path(key, c).exists()
+            ]
+            if not held:
+                continue
+            ads.append(
+                {
+                    "key": key,
+                    "max_checkpoint": max(held),
+                    "checkpoints": sorted(int(c) for c in held),
+                    "epochs": meta.epochs,
+                    "version": meta.version,
+                    "engine": meta.engine,
+                    "scenario_fingerprint": meta.scenario_fingerprint,
+                    "scenario_name": meta.scenario_name,
+                }
+            )
+        return ads
+
     def resume_epoch(self, key: str, perturb_epoch: int) -> int:
         """The largest stored checkpoint epoch ``<= perturb_epoch`` —
         0 when none qualifies (resume from the zero state)."""

@@ -404,8 +404,8 @@ def active_drift_fault() -> Optional[DriftFault]:
 
 
 def active_overload_fault() -> Optional[OverloadFault]:
-    """Called by slice 11, serve (ROADMAP queue A), which is not ported
-    yet: no call site in the port reaches it. Serve-admission hook: the armed plan's overload burst, exactly
+    """Serve-admission hook, called by the serving tier
+    (``serve/service.py``, before admission): the armed plan's overload burst, exactly
     once per armed plan (a burst that re-fired on every subsequent
     request would never let the drill observe recovery). The serve tier
     translates it into `requests` synthetic admission tickets pushed

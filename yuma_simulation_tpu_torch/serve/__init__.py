@@ -26,8 +26,17 @@ on the card unless :class:`~.service.ServeConfig` names the CPU
   ``/v1/whatif``, ``/healthz``, ``/metrics``, ``/debug/*``) plus the
   stdlib :class:`~.server.SimulationClient`.
 
-The multi-process tier of the JAX package (router, worker pool,
-autoscaler, scale-out drill) is not part of this package yet.
+The horizontal tier, each of its processes on the same device:
+
+- :mod:`.worker` — one warm service claiming a pool slot (a lease) and
+  heartbeating what it holds (state-cache prefixes, warm shape
+  buckets, kernel-library builds);
+- :mod:`.router` — the stateless front that admits every request like
+  the service does and places it on the live worker with the best
+  claim score, rerouting off a worker lost mid-request;
+- :mod:`.autoscaler` — SLO-burn-driven pool sizing;
+- :mod:`.drill` — the kill-a-worker chaos drill
+  (``--scaleout-drill``).
 
 Run it: ``python -m yuma_simulation_tpu_torch.serve`` (see ``--help``;
 ``--smoke`` drives the contract-defining requests once).
@@ -41,6 +50,7 @@ from yuma_simulation_tpu_torch.serve.apikeys import (  # noqa: F401
     ApiKeyring,
     mint_api_key,
 )
+from yuma_simulation_tpu_torch.serve.autoscaler import Autoscaler  # noqa: F401
 from yuma_simulation_tpu_torch.serve.lifecycle import (  # noqa: F401
     CircuitBreaker,
     warmup,
@@ -56,7 +66,15 @@ from yuma_simulation_tpu_torch.serve.server import (  # noqa: F401
     SimulationServer,
     wait_until_ready,
 )
+from yuma_simulation_tpu_torch.serve.router import (  # noqa: F401
+    RouterConfig,
+    RouterService,
+    WorkerPool,
+    claim_score,
+    rank_claims,
+)
 from yuma_simulation_tpu_torch.serve.service import (  # noqa: F401
     ServeConfig,
     SimulationService,
 )
+from yuma_simulation_tpu_torch.serve.worker import ServeWorker  # noqa: F401

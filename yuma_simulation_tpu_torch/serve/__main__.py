@@ -10,23 +10,19 @@ pair — then shut down gracefully and leave the flight bundle for
 every expectation held.
 
 The service runs on the card (``--device cuda``, the default; without
-CUDA it raises); ``--device cpu`` runs it on the CPU. The JAX package's
-multi-process flags (``--replay-controller``, ``--worker-pool``,
-``--router``, ``--scaleout-drill``) are parsed and raise
-:class:`NotImplementedError`: that tier is not ported yet.
+CUDA it raises); ``--device cpu`` runs it on the CPU. The multi-process
+modes take the same flag and pass it on: ``--worker-pool DIR`` runs one
+pool worker, ``--router --worker-pool DIR --workers N`` spawns N workers
+(each exec'd with the router's ``--device``) and places requests on them,
+``--scaleout-drill`` is the kill-a-worker chaos drill, and
+``--replay-controller DIR`` co-hosts the continuous replay controller
+beside the service.
 """
 
 from __future__ import annotations
 
 import argparse
 import concurrent.futures
-
-#: Where the flags of the multi-process tier are queued.
-_NEXT_SLICE = (
-    "ROADMAP.md queue A item 13 (the multi-process serving and replay "
-    "tier: replay controller and soak, router, worker pool, autoscaler, "
-    "scale-out drill)"
-)
 
 
 def _build_config(args, **overrides) -> "ServeConfig":  # noqa: F821
@@ -284,8 +280,16 @@ def main(argv=None) -> int:
         "--replay-controller",
         default=None,
         metavar="DIR",
-        help="co-host the continuous replay controller (not ported yet: "
-        "raises NotImplementedError)",
+        help="co-host the continuous replay controller: sweep the "
+        "mounted --replay-archive into this store root (durable "
+        "watermarks, incremental fleet windows) on a background "
+        "thread, keeping the shared --replay-cache warm for what-ifs",
+    )
+    parser.add_argument(
+        "--replay-versions",
+        nargs="+",
+        default=["Yuma 2 (Adrian-Fish)"],
+        help="Yuma variants the co-hosted controller sweeps",
     )
     parser.add_argument(
         "--api-keys",
@@ -309,48 +313,197 @@ def main(argv=None) -> int:
         help="CI smoke: ephemeral port, contract-defining requests, "
         "graceful shutdown, exit nonzero on any miss",
     )
-    # The multi-process tier of the JAX package: parsed so that asking
-    # for it fails loudly instead of being ignored.
-    parser.add_argument(
-        "--worker-pool", default=None, metavar="DIR",
-        help="join a worker pool (not ported yet: raises NotImplementedError)",
+    # -- horizontal scale-out ----------------------------------------
+    scale = parser.add_argument_group(
+        "scale-out",
+        "worker-pool mode (one warm worker claiming a lease slot), "
+        "router mode (the stateless front placing onto the pool), and "
+        "the kill-a-worker chaos drill",
     )
-    parser.add_argument(
-        "--router", action="store_true",
-        help="run the scale-out router (not ported yet: raises "
-        "NotImplementedError)",
+    scale.add_argument(
+        "--worker-pool",
+        default=None,
+        metavar="DIR",
+        help="join this pool directory as a WORKER: claim "
+        "--worker-slot, serve on an ephemeral port, heartbeat "
+        "state-cache/warm-bucket advertisements",
     )
-    parser.add_argument(
-        "--scaleout-drill", action="store_true",
-        help="the scale-out chaos drill (not ported yet: raises "
-        "NotImplementedError)",
+    scale.add_argument(
+        "--worker-slot", type=int, default=0,
+        help="pool slot (lease unit) this worker claims",
+    )
+    scale.add_argument(
+        "--worker-id", default=None,
+        help="stable worker identity (default: worker-<pid>)",
+    )
+    scale.add_argument(
+        "--worker-ttl", type=float, default=3.0,
+        help="lease TTL seconds: miss heartbeats this long and the "
+        "router treats the worker as dead",
+    )
+    scale.add_argument(
+        "--router",
+        action="store_true",
+        help="run the stateless ROUTER: spawn --workers warm workers "
+        "into --worker-pool (each exec'd with this --device) and place "
+        "every request by state-cache affinity",
+    )
+    scale.add_argument(
+        "--workers", type=int, default=2,
+        help="initial worker count for --router",
+    )
+    scale.add_argument(
+        "--max-workers", type=int, default=8,
+        help="pool slot ceiling (router + autoscaler)",
+    )
+    scale.add_argument(
+        "--no-affinity",
+        action="store_true",
+        help="router: round-robin placement instead of "
+        "state-cache-affinity claim scoring",
+    )
+    scale.add_argument(
+        "--worker-arg",
+        action="append",
+        default=None,
+        metavar="ARG",
+        help="extra CLI arg forwarded to every spawned worker "
+        "(repeatable; '{worker_id}' substitutes)",
+    )
+    scale.add_argument(
+        "--scaleout-drill",
+        action="store_true",
+        help="chaos drill: 3 workers + router, kill one mid-load, "
+        "prove typed reroutes + affinity + autoscaler, merge and "
+        "gate every flight bundle; exit nonzero on any miss",
     )
     args = parser.parse_args(argv)
 
-    for flag, given in (
-        ("--replay-controller", args.replay_controller),
-        ("--worker-pool", args.worker_pool),
-        ("--router", args.router),
-        ("--scaleout-drill", args.scaleout_drill),
-    ):
-        if given:
-            raise NotImplementedError(
-                f"{flag}: the multi-process tier is not ported yet; see "
-                f"{_NEXT_SLICE}"
-            )
     if args.smoke:
         return run_smoke(args)
+    if args.scaleout_drill:
+        from yuma_simulation_tpu_torch.serve.drill import run_scaleout_drill
 
-    from yuma_simulation_tpu_torch.serve.server import SimulationServer
+        return run_scaleout_drill(args)
+    if args.worker_pool and not args.router:
+        from yuma_simulation_tpu_torch.serve.worker import run_worker
+
+        return run_worker(args)
+
     from yuma_simulation_tpu_torch.utils import setup_logging
 
     setup_logging()
+    if args.router:
+        from yuma_simulation_tpu_torch.serve.router import (
+            RouterConfig,
+            RouterService,
+        )
+        from yuma_simulation_tpu_torch.serve.server import SimulationServer
+
+        if not args.worker_pool:
+            parser.error("--router requires --worker-pool DIR")
+        router = RouterService(
+            RouterConfig(
+                pool_dir=args.worker_pool,
+                workers=args.workers,
+                max_workers=args.max_workers,
+                worker_args=tuple(args.worker_arg or ()),
+                lease_ttl_seconds=args.worker_ttl,
+                bundle_dir=args.bundle_dir,
+                api_keys_path=args.api_keys,
+                affinity=not args.no_affinity,
+                default_deadline_seconds=args.deadline,
+                max_batch=args.max_batch,
+                replay_archive_dir=args.replay_archive,
+                replay_cache_dir=args.replay_cache,
+                replay_epochs_per_snapshot=(
+                    args.replay_epochs_per_snapshot
+                ),
+                replay_stride=args.replay_stride,
+                device=args.device,
+            )
+        )
+        router.start_workers()
+        server = SimulationServer(
+            service=router, host=args.host, port=args.port
+        )
+        print(
+            f"routing on {server.url} "
+            f"({args.workers} workers on {args.device}; Ctrl-C to stop)"
+        )
+        server.serve_forever()
+        return 0
+
+    from yuma_simulation_tpu_torch.serve.server import SimulationServer
+
+    if args.replay_controller and not (
+        args.replay_archive and args.replay_cache
+    ):
+        parser.error(
+            "--replay-controller requires --replay-archive and "
+            "--replay-cache"
+        )
     server = SimulationServer(
         _build_config(args), host=args.host, port=args.port
     )
+    stop = None
+    if args.replay_controller:
+        stop = start_replay_controller(args, server.service.device)
+        print(f"replay controller sweeping into {args.replay_controller}")
     print(f"serving on {server.url} (Ctrl-C to stop)")
-    server.serve_forever()
+    try:
+        server.serve_forever()
+    finally:
+        if stop is not None:
+            stop.set()
     return 0
+
+
+#: The co-hosted replay controller's thread: besides the service's
+#: dispatcher (and its watchdog workers), the one thread of a serving
+#: process that launches work on the device.
+CONTROLLER_THREAD = "replay-controller"
+
+
+def start_replay_controller(args, device):
+    """Start the co-hosted continuous replay controller on a daemon
+    thread named :data:`CONTROLLER_THREAD`, its sweeps on `device` (the
+    service's). The thread makes `device` its current CUDA device before
+    its first launch. Returns the event that stops it."""
+    import threading
+
+    from yuma_simulation_tpu_torch.replay import (
+        ControllerConfig,
+        ReplayController,
+        SnapshotArchive,
+        StateCache,
+    )
+
+    # The co-hosted controller sweeps into the SAME cache the what-if
+    # handlers resume from, so serving traffic rides warm carries the
+    # standing sweep keeps extending.
+    controller = ReplayController(
+        SnapshotArchive(args.replay_archive),
+        StateCache(args.replay_cache),
+        ControllerConfig(
+            store_root=args.replay_controller,
+            versions=tuple(args.replay_versions),
+            epochs_per_snapshot=args.replay_epochs_per_snapshot,
+            stride=args.replay_stride,
+            device=str(device),
+        ),
+    )
+    stop = threading.Event()
+
+    def sweep() -> None:
+        if device.type == "cuda":
+            import torch
+
+            torch.cuda.set_device(device)
+        controller.run_forever(stop=stop.is_set)
+
+    threading.Thread(target=sweep, name=CONTROLLER_THREAD, daemon=True).start()
+    return stop
 
 
 if __name__ == "__main__":

@@ -1510,6 +1510,15 @@ class SimulationService:
         ).set(count)
         return count
 
+    def warm_buckets(self) -> list[str]:
+        """The `ExVxM` shape buckets this process holds warm (warmup
+        shapes + every successfully dispatched simulate shape, most
+        recent last) — advertised by scale-out workers so the router's
+        claim scoring can prefer a worker that already ran the
+        requested shape."""
+        with self._canary_lock:
+            return list(self._canary_order)
+
     def _canary_snapshot(self) -> dict:
         with self._canary_lock:
             return dict(
@@ -1560,8 +1569,15 @@ class SimulationService:
             if peek_slo_engine() is self.slo:
                 set_slo_engine(self._slo_previous)
         if self.config.bundle_dir is not None:
+            from yuma_simulation_tpu_torch.ops.launches import publish_launch_counts
             from yuma_simulation_tpu_torch.telemetry.flight import FlightRecorder
 
+            try:
+                # The dispatcher has stopped: this process launches no more
+                # for this service, so its counts can be read after it exits.
+                publish_launch_counts(self.config.bundle_dir)
+            except Exception:
+                logger.warning("launch-count publish failed", exc_info=True)
             with self._ingress_lock:
                 ingress, self._ingress_runs = self._ingress_runs, []
             with self._numerics_lock:

@@ -295,6 +295,81 @@ EVENTS = {
         'a what-if found no usable cached epoch state (reason: baseline not built / no checkpoint before the perturb epoch / state unreadable) — full-trajectory re-simulation',
         operator_reason='typed miss taxonomy on the log stream; the state_cache_misses counter is the reconciled aggregate',
     ),
+    # -- the multi-process serving and replay tier -------------------
+    "autoscale_down": EventSpec(
+        "autoscaler retired one idle worker (youngest-first)",
+        operator_reason="capacity forensics; the ledgered "
+        "worker_retired record is the reconciled event",
+    ),
+    "autoscale_up": EventSpec(
+        "autoscaler spawned one worker on an SLO fast burn",
+        operator_reason="capacity forensics; the ledgered "
+        "worker_spawned record carries the same reason string",
+    ),
+    "controller_restarted": EventSpec(
+        "a restarting replay controller found a stale open-run marker "
+        "from a prior incarnation that never closed (SIGKILL/crash) — "
+        "the typed cause behind process-loss incidents",
+        consumers=("incidentreport", "telemetry.incident"),
+    ),
+    "router_stopped": EventSpec(
+        "router closed: pool retired, merged ingress bundle published",
+        operator_reason="shutdown marker closing the router's ledger",
+    ),
+    "subnet_ingested": EventSpec(
+        "the controller observed fresh archive entries for a subnet "
+        "(record carries netuid, new blocks, latest block)",
+        consumers=("obsreport",),
+    ),
+    "subnet_quarantined": EventSpec(
+        "a corrupt or truncated snapshot blob was quarantined (typed "
+        "reason; the entry is excluded and the subnet keeps draining)",
+        consumers=("obsreport",),
+    ),
+    "subnet_stalled": EventSpec(
+        "a subnet's archive stopped appending past the stall deadline; "
+        "the controller demoted it to the slow poll tier",
+        consumers=("obsreport",),
+    ),
+    "watermark_advanced": EventSpec(
+        "a durable per-(subnet x variant) watermark moved forward after "
+        "a window's fleet results published (the at-least-once sweep / "
+        "exactly-once publication commit point)",
+        consumers=("obsreport",),
+    ),
+    "window_swept": EventSpec(
+        "one incremental (subnet x variant) window swept, published and "
+        "baseline-extended (record carries netuid, version, block span, "
+        "epoch span, suffix vs full epochs)",
+        consumers=("obsreport",),
+    ),
+    "worker_lease_lost": EventSpec(
+        "worker's own slot lease expired under it (missed heartbeats) "
+        "— it must stop serving rather than split-brain the slot",
+        operator_reason="incident forensics for the worker side of a "
+        "partition; the router side rides worker_lost",
+    ),
+    "worker_lost": EventSpec(
+        "a worker observed dead on a forward leg (connection "
+        "reset/refused mid-request) — routing stops considering it "
+        "before its lease even expires",
+        consumers=("obsreport",),
+    ),
+    "worker_ready": EventSpec(
+        "worker claimed its slot lease and began heartbeating ads",
+        operator_reason="startup marker in the worker's own log; the "
+        "router-side worker_spawned record is the reconciled event",
+    ),
+    "worker_spawning": EventSpec(
+        "router forked a worker process onto a free slot (precedes "
+        "the ledgered worker_spawned, which waits for readiness)",
+        operator_reason="spawn forensics: pins the pid/slot when a "
+        "worker dies before ever advertising",
+    ),
+    "worker_stopped": EventSpec(
+        "worker drained, published its bundle, and released its slot",
+        operator_reason="shutdown marker closing the worker's log",
+    ),
 }
 
 
@@ -484,6 +559,41 @@ METRICS = {
         'counter',
         'epochs cached carries let what-ifs skip re-simulating (suffix-vs-full savings)',
         consumers=('obsreport',),
+    ),
+    # -- the multi-process serving and replay tier -------------------
+    "affinity_hits_total": MetricSpec(
+        "counter", "requests the claim scorer placed on a worker "
+        "already holding useful state (cache prefix or warm bucket)",
+        consumers=("obsreport",),
+    ),
+    "replay_staleness_seconds": MetricSpec(
+        "gauge", "per-cycle worst-case age of the oldest unswept "
+        "archive suffix across live subnets (freshness SLO input)",
+        consumers=("obsreport",),
+    ),
+    "serve_reroutes_total": MetricSpec(
+        "counter", "forward legs rerouted off a lost worker onto a "
+        "survivor",
+        consumers=("obsreport",),
+    ),
+    "serve_workers_live": MetricSpec(
+        "gauge", "live serve workers behind the router (fresh lease + "
+        "advertisement) right now",
+        consumers=("obsreport",),
+    ),
+    "snapshots_quarantined_total": MetricSpec(
+        "counter", "corrupt/truncated snapshot blobs quarantined by the "
+        "controller",
+        consumers=("obsreport",),
+    ),
+    "subnets_live": MetricSpec(
+        "gauge", "subnets on the fast poll tier (not stalled)",
+        consumers=("obsreport",),
+    ),
+    "windows_swept_total": MetricSpec(
+        "counter", "incremental (subnet x variant) windows published by "
+        "the continuous replay controller",
+        consumers=("obsreport",),
     ),
 }
 
